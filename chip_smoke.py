@@ -6,10 +6,11 @@ and the CUDA toolkit:
 
     python3 chip_smoke.py
 
-Phases, one line each; any failure exits non-zero:
+Phases, one line each, with their seconds; any failure exits non-zero:
 
 1. device: the card, and ``nvidia-smi``'s name and power limit;
-2. build: the CUDA kernel from the sources in this checkout (nvcc);
+2. build: both CUDA kernels from the sources in this checkout, one nvcc
+   for each source, started together;
 3. ensemble: the flagship scenario ensemble (robust_avoid, S=256, T=2,
    num_obj=1, num_poly_faces=4, seed 0; n=38 per lane), moved to the card;
 4. the Lemke pivot kernel against its plain PyTorch version in f32 on all
@@ -17,10 +18,24 @@ Phases, one line each; any failure exits non-zero:
    at most 1e-9, refactorized z equal to 1e-9; median of 7 warm runs each,
    timed with CUDA events;
 5. the same for the kernel's f64 instance on 16 lanes (tol 1e-11);
-6. the main path, ``ops.avi.solve_kkt_avi_batch(..., tol=1e-8)``: every
+6. the KKT main path, ``ops.avi.solve_kkt_avi_batch(..., tol=1e-8)``: every
    lane certified, the kernel's launch count above 0, the natural residual
    re-audited in numpy, z against the port's CPU path on 8 lanes; solves/s
-   as the median of 7 warm runs, with the kernel and with the plain loop.
+   as the median of 7 warm runs, with the kernel and with the plain loop;
+7. the extragradient kernel against its plain PyTorch version on all 256
+   lanes from the same prepared f32 inputs, at 300 and 20000 steps: z and
+   the natural residual of the unscaled output within the stated bounds,
+   the same lanes accepted by the residual audit; the kernel timed as the
+   median of 7 runs, the plain loop as the median of 3 at 20000 steps;
+8. the generic main path, ``ops.avi.solve_avi_batch_adaptive(...,
+   tol=1e-8, mixed=True, onchip_eg_steps=20000)``: every lane certified,
+   the extragradient kernel launched, the residual re-audited in numpy, z
+   against the KKT path's on all lanes and against the port's CPU path on
+   8 lanes; solves/s (median of 7) with the kernel, with the plain
+   extragradient loop, and with ``mixed=False``;
+9. forced stragglers: far starts and one short budget stage on 16 lanes,
+   so that ``lemke.lemke_escalate`` takes them and the Lemke kernel's f64
+   instance runs on this path; at least one lane certified through it.
 
 Then one JSON line for the kernels, and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -35,6 +50,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 S, T_STEPS, NUM_OBJ, FACES, SEED = 256, 2, 1, 4, 0
@@ -44,6 +60,16 @@ RESID_TOL = 1e-9      # refactorized natural residual of every pivot outcome
 Z_TOL = 1e-9          # kernel vs plain, refactorized z (f64)
 SOLVE_TOL = 1e-8      # the main path's certification tolerance
 REPEATS = 7
+EG_STEPS = 20000      # the generic path's extragradient pre-pass
+# Kernel vs plain extragradient loop, relative to the lane's scale (z) or to
+# 1 + the plain residual.  Both step in f32 and differ only in the order of
+# each matvec's sum, a few ulps per step; the iteration contracts, so the
+# difference stays near 1e-6 of the scale over 300 steps.  Over 20000 steps
+# of a slowly contracting lane those differences are amplified: 5e-6 was
+# measured on the flagship lanes, and the bound leaves 20 times that.
+EG_TOL = {300: 1e-5, EG_STEPS: 1e-4}
+KKT_Z_TOL = 1e-6      # generic path vs KKT path: the solution is unique
+FAR_START = 1e4       # forced stragglers: z0 = FAR_START * N(0, 1)
 
 
 def fail(msg: str) -> None:
@@ -90,6 +116,12 @@ def device_timed(fn, device, repeats=REPEATS):
     return statistics.median(times)
 
 
+def timed_build(build):
+    t0 = time.perf_counter()
+    build()
+    return time.perf_counter() - t0
+
+
 def compare_engines(data, lanes, dtype, kw, kernel, device):
     """Kernel vs plain pivot loop on the same setup: status and pivot counts
     equal on every lane, refactorized residual and z within tolerance.
@@ -127,6 +159,177 @@ def compare_engines(data, lanes, dtype, kw, kernel, device):
     return err, t_k, t_p, rk
 
 
+class Clock:
+    """Prints a phase's line with the seconds since the previous one."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def __call__(self, msg: str) -> None:
+        now = time.perf_counter()
+        print(f"{msg} ({now - self.t:.1f} s)", flush=True)
+        self.t = now
+
+
+KEYS = ("M", "q", "l", "u", "z0", "mask")
+
+
+def numpy_audit(batch, z, lanes=None):
+    """Natural residual Φ(z) = z − clip(z − (Mz+q), l, u) on the host in
+    numpy, f64, per lane."""
+    import numpy as np
+    M, q, l, u = (batch[k] if lanes is None else batch[k][:lanes]
+                  for k in ("M", "q", "l", "u"))
+    F = np.einsum("bij,bj->bi", M, z) + q
+    return np.abs(z - np.clip(z - F, l, u)).max(axis=1)
+
+
+def compare_eg(data, device, say, card):
+    """Kernel vs plain extragradient loop on all lanes from the same
+    prepared inputs, at 300 and EG_STEPS steps.  Returns (max |dz| at
+    EG_STEPS, kernel s, plain s)."""
+    import torch
+    from qpn_tpu_torch.ops import eg, eg_cuda
+    from qpn_tpu_torch.ops.avi import natural_residual
+    p = eg.eg_prepare(*(data[k] for k in KEYS))
+    M, q, l, u, z0, vm = (data[k] for k in KEYS)
+    r0 = natural_residual(M, q, l, u, z0, vm)
+    ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
+    for steps, tol in EG_TOL.items():
+        zk = eg_cuda.eg_warmstart_cuda(*ins, steps)
+        zp = eg.eg_steps_torch(*ins, steps)
+        torch.cuda.synchronize(device)
+        dz = (zk - zp).abs().amax(1)
+        err = float((dz / (1.0 + zp.abs().amax(1))).max())
+        res = [natural_residual(M, q, l, u, torch.where(vm, z.double() * p.e,
+                                                        0.0), vm)
+               for z in (zk, zp)]
+        rk, rp = res
+        rerr = float(((rk - rp).abs() / (1.0 + rp)).max())
+        if not (err <= tol and rerr <= tol):
+            fail(f"eg_warmstart {steps} steps: z differs by {err!r}, "
+                 f"residual by {rerr!r} (relative), bound {tol}")
+        acc = [torch.isfinite(r) & (r < r0) for r in res]
+        near = ((rk - r0).abs() <= tol * (1.0 + r0)) | \
+            ((rp - r0).abs() <= tol * (1.0 + r0))
+        if bool(((acc[0] != acc[1]) & ~near).any()):
+            fail(f"eg_warmstart {steps} steps: the residual audit accepts "
+                 "other lanes for the kernel than for the plain loop")
+        t_k = device_timed(lambda: eg_cuda.eg_warmstart_cuda(*ins, steps),
+                           device)
+        t_p = device_timed(lambda: eg.eg_steps_torch(*ins, steps), device,
+                           REPEATS if steps < EG_STEPS else 3)
+        max_abs = float(dz.max())
+        say(f"eg_warmstart B={p.M.shape[0]} n={p.M.shape[1]} steps={steps}: "
+            f"max |dz| {max_abs:.3g} ({err:.3g} of the lane scale), residual "
+            f"{rerr:.3g} relative, both <= {tol}; accepted lanes "
+            f"{int(acc[0].sum())} kernel, {int(acc[1].sum())} plain; median "
+            f"residual {float(r0.median()):.3g} -> {float(rk.median()):.3g}; "
+            f"kernel {t_k * 1e3:.4f} ms (median of {REPEATS}), plain "
+            f"{t_p * 1e3:.4f} ms (median of "
+            f"{REPEATS if steps < EG_STEPS else 3}) [{card}]")
+    return max_abs, t_k, t_p
+
+
+def generic_path(data, batch, device, z_kkt, say, card):
+    """The generic route on the flagship ensemble, as the JAX package's
+    accelerator configuration runs it.  Returns the extragradient kernel's
+    launches in that run."""
+    import numpy as np
+    import torch
+    from qpn_tpu_torch.config import CONFIG
+    from qpn_tpu_torch.ops import eg_cuda, lemke_cuda
+    from qpn_tpu_torch.ops.avi import batch_from_numpy, solve_avi_batch_adaptive
+    from qpn_tpu_torch.utils.metrics import METRICS
+    args = [data[k] for k in KEYS]
+    kw = dict(tol=SOLVE_TOL, mixed=True, onchip_eg_steps=EG_STEPS)
+    B = args[1].shape[0]
+    METRICS.reset()
+    res = solve_avi_batch_adaptive(*args, **kw)
+    torch.cuda.synchronize(device)
+    launches = METRICS.launches[eg_cuda.KERNEL]
+    pivots = METRICS.launches[lemke_cuda.KERNEL]
+    accepted = int(METRICS.counters["eg_accepted_lanes"])
+    escalated = int(METRICS.counters["escalated_lanes"])
+    if launches < 1:
+        fail("the generic path did not launch the eg_warmstart kernel")
+    z = res.z.cpu().numpy()
+    conv = float(res.converged.double().mean())
+    if z.shape != tuple(args[1].shape) or not np.isfinite(z).all():
+        fail(f"generic path: z has shape {z.shape} or non-finite values")
+    if conv != 1.0:
+        fail(f"generic path: conv {conv}")
+    resid = numpy_audit(batch, z)
+    if not resid.max() <= SOLVE_TOL:
+        fail(f"generic path, numpy audit: max natural residual "
+             f"{resid.max()!r}")
+    dk = float((res.z - z_kkt).abs().max())
+    if not dk <= KKT_Z_TOL:
+        fail(f"generic path: z differs from the KKT path's by {dk!r}")
+    it = res.iters.double()
+    t_kernel = timed(lambda: solve_avi_batch_adaptive(*args, **kw), device)
+    CONFIG.eg_kernel = "torch"
+    try:
+        t_plain = timed(lambda: solve_avi_batch_adaptive(*args, **kw), device)
+    finally:
+        CONFIG.eg_kernel = "auto"
+    t_f64 = timed(lambda: solve_avi_batch_adaptive(
+        *args, **dict(kw, mixed=False)), device)
+    # small-input reference, after the timings: the port's CPU path
+    cpu = batch_from_numpy({k: v[:8] for k, v in batch.items()
+                            if k in KEYS}, "cpu")
+    ref = solve_avi_batch_adaptive(*(cpu[k] for k in KEYS), **kw)
+    dc = float(np.abs(ref.z.numpy() - z[:8]).max())
+    if not (bool(ref.converged.all()) and dc <= KKT_Z_TOL):
+        fail(f"generic path: CPU reference conv {ref.converged.tolist()}, "
+             f"max |dz| {dc!r}")
+    say(f"generic path solve_avi_batch_adaptive S={B} tol={SOLVE_TOL} "
+        f"mixed=True onchip_eg_steps={EG_STEPS}: conv {conv}, max resid "
+        f"{resid.max():.3g}, {launches} eg kernel launch(es), EG accepted on "
+        f"{accepted}/{B} lanes, {escalated} escalated ({pivots} pivot kernel "
+        f"launches), iters median {float(it.median()):.0f} max "
+        f"{int(it.max())}; z within {dk:.3g} of the KKT path, within "
+        f"{dc:.3g} of the CPU path on 8 lanes; {B / t_kernel:.1f} solves/s "
+        f"with the kernel ({t_kernel * 1e3:.3f} ms), {B / t_plain:.1f} with "
+        f"the plain EG loop ({t_plain * 1e3:.3f} ms), {B / t_f64:.1f} with "
+        f"mixed=False ({t_f64 * 1e3:.3f} ms); median of {REPEATS} [{card}]")
+    return launches
+
+
+def forced_stragglers(data, batch, device, say, card, lanes=16):
+    """Far starts and one short budget stage leave the lanes to
+    lemke_escalate, whose f64 pivot loop runs in the Lemke kernel."""
+    import numpy as np
+    import torch
+    from qpn_tpu_torch.ops import lemke_cuda
+    from qpn_tpu_torch.ops.avi import solve_avi_batch_adaptive
+    from qpn_tpu_torch.utils.metrics import METRICS
+    M, q, l, u, _, vm = (data[k][:lanes] for k in KEYS)
+    rng = np.random.default_rng(SEED)
+    z0 = torch.as_tensor(FAR_START * rng.standard_normal(tuple(q.shape)),
+                         device=device)
+    METRICS.reset()
+    res = solve_avi_batch_adaptive(M, q, l, u, z0, vm, tol=SOLVE_TOL,
+                                   budgets=(1,), mixed=True)
+    torch.cuda.synchronize(device)
+    escalated = int(METRICS.counters["escalated_lanes"])
+    pivots = METRICS.launches[lemke_cuda.KERNEL]
+    conv = res.converged.cpu().numpy()
+    if escalated < 1 or pivots < 1:
+        fail(f"forced stragglers: {escalated} escalated lanes, {pivots} "
+             "pivot kernel launches")
+    if not conv.sum() > lanes - escalated:
+        fail(f"forced stragglers: no lane certified through lemke_escalate "
+             f"({conv.sum()}/{lanes} certified, {escalated} escalated)")
+    resid = numpy_audit(batch, res.z.cpu().numpy(), lanes)
+    if not resid[conv].max() <= SOLVE_TOL:
+        fail(f"forced stragglers, numpy audit: {resid[conv].max()!r}")
+    say(f"forced stragglers: {lanes} lanes from z0 = {FAR_START:g}*N(0,1), "
+        f"budgets=(1,): {escalated} escalated, {pivots} pivot kernel "
+        f"launch(es) (f64), {int(conv.sum())}/{lanes} certified, max resid "
+        f"{resid[conv].max():.3g} [{card}]")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "qpn_tpu_torch")):
         fail("the qpn_tpu_torch package is not next to chip_smoke.py")
@@ -138,9 +341,13 @@ def main() -> None:
              "CUDA device")
     from qpn_tpu_torch.config import CONFIG
     from qpn_tpu_torch.models.robust_avoid import scenario_batch_gavis
-    from qpn_tpu_torch.ops import lemke_cuda
-    from qpn_tpu_torch.ops.avi import batch_from_numpy, solve_kkt_avi_batch
+    from qpn_tpu_torch.ops import eg_cuda, lemke_cuda
+    from qpn_tpu_torch.ops.avi import (batch_from_numpy,
+                                       solve_avi_batch_adaptive,
+                                       solve_kkt_avi_batch)
     from qpn_tpu_torch.utils.metrics import METRICS
+
+    say = Clock()
 
     # 1. device
     device = torch.device("cuda", 0)
@@ -151,28 +358,32 @@ def main() -> None:
     if smi.returncode != 0:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
     card = smi.stdout.strip()
-    print(f"device: {kind}, torch {torch.__version__}, CUDA "
+    say(f"device: {kind}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible")
     print(card)
 
-    # 2. build
-    t0 = time.perf_counter()
-    lemke_cuda.build()
-    print(f"build: csrc/lemke_pivot.cu in {time.perf_counter() - t0:.1f} s")
+    # 2. build: one nvcc for each source, started together
+    with ThreadPoolExecutor(2) as pool:
+        builds = {name: pool.submit(timed_build, mod.build)
+                  for name, mod in (("csrc/lemke_pivot.cu", lemke_cuda),
+                                    ("csrc/eg_warmstart.cu", eg_cuda))}
+        secs = {name: f.result() for name, f in builds.items()}
+    say("build: " + ", ".join(f"{name} in {t:.1f} s"
+                              for name, t in secs.items()))
 
     # 3. ensemble
     batch = scenario_batch_gavis(num_scenarios=S, T=T_STEPS, num_obj=NUM_OBJ,
                                  num_poly_faces=FACES, seed=SEED)
     data = batch_from_numpy(batch, device)
     B, n = data["q"].shape
-    print(f"ensemble: robust_avoid S={B} T={T_STEPS} num_obj={NUM_OBJ} "
+    say(f"ensemble: robust_avoid S={B} T={T_STEPS} num_obj={NUM_OBJ} "
           f"n={n} structure={data['structure']}")
 
     # 4. kernel vs plain, f32, all lanes
     err32, t_k32, t_p32, r32 = compare_engines(
         data, B, torch.float32, HOT, lemke_cuda.lemke_pivot_cuda, device)
     piv = r32.piv.double() + 1
-    print(f"lemke_pivot f32 B={B} n={n}: status and pivots identical on all "
+    say(f"lemke_pivot f32 B={B} n={n}: status and pivots identical on all "
           f"lanes (pivots {int(piv.min())}-{int(piv.max())}, median "
           f"{float(piv.median()):.0f}), max |dz| {err32:.3g} <= {Z_TOL}; "
           f"kernel {t_k32 * 1e3:.4f} ms, plain {t_p32 * 1e3:.4f} ms "
@@ -181,7 +392,7 @@ def main() -> None:
     # 5. kernel vs plain, f64 instance
     err64, t_k64, t_p64, _ = compare_engines(
         data, 16, torch.float64, F64, lemke_cuda.lemke_pivot_cuda, device)
-    print(f"lemke_pivot f64 B=16 n={n}: status and pivots identical, max "
+    say(f"lemke_pivot f64 B=16 n={n}: status and pivots identical, max "
           f"|dz| {err64:.3g}; kernel {t_k64 * 1e3:.4f} ms, plain "
           f"{t_p64 * 1e3:.4f} ms [{card}]")
 
@@ -191,6 +402,7 @@ def main() -> None:
     METRICS.reset()
     res = solve_kkt_avi_batch(*args, tol=SOLVE_TOL)
     torch.cuda.synchronize(device)
+    z_kkt = res.z
     launches = METRICS.launches[lemke_cuda.KERNEL]
     uncertified = METRICS.counters["kkt_uncertified_lanes"]
     if launches < 1:
@@ -201,10 +413,7 @@ def main() -> None:
         fail(f"z has shape {z.shape} or non-finite values")
     if conv != 1.0 or uncertified != 0:
         fail(f"conv {conv}, {uncertified} uncertified lanes")
-    # re-audit on the host in numpy, f64: Φ(z) = z − clip(z − (Mz+q), l, u)
-    M, q, l, u = batch["M"], batch["q"], batch["l"], batch["u"]
-    F = np.einsum("bij,bj->bi", M, z) + q
-    resid = np.abs(z - np.clip(z - F, l, u)).max(axis=1)
+    resid = numpy_audit(batch, z)
     if not resid.max() <= SOLVE_TOL:
         fail(f"numpy audit: max natural residual {resid.max()!r}")
     # small-input reference: the port's CPU path (plain loop) on 8 lanes
@@ -225,7 +434,7 @@ def main() -> None:
                         device)
     finally:
         CONFIG.lemke_kernel = "auto"
-    print(f"main path solve_kkt_avi_batch S={B} tol={SOLVE_TOL}: conv "
+    say(f"main path solve_kkt_avi_batch S={B} tol={SOLVE_TOL}: conv "
           f"{conv}, max resid {resid.max():.3g}, {launches} kernel "
           f"launch(es), {int(uncertified)} uncertified; "
           f"{B / t_kernel:.1f} solves/s with the kernel "
@@ -233,12 +442,26 @@ def main() -> None:
           f"plain loop ({t_plain * 1e3:.3f} ms); CPU reference z within "
           f"{dz.max():.3g} on {int(same.sum())}/8 lanes [{card}]")
 
+    # 7. extragradient kernel vs plain loop
+    eg_err, t_eg, t_eg_plain = compare_eg(data, device, say, card)
+
+    # 8. the generic main path
+    eg_launches = generic_path(data, batch, device, z_kkt, say, card)
+
+    # 9. forced stragglers through lemke_escalate
+    forced_stragglers(data, batch, device, say, card)
+
     print(json.dumps({"kernels": [{
         "name": lemke_cuda.KERNEL, "route": "cuda",
         "source": "qpn_tpu_torch/csrc/lemke_pivot.cu",
         "replaces": "qpn_tpu/ops/lemke_pallas.py:118",
         "launches": launches, "max_abs_err": err32,
-        "ms": t_k32 * 1e3, "plain_ms": t_p32 * 1e3}]}))
+        "ms": t_k32 * 1e3, "plain_ms": t_p32 * 1e3}, {
+        "name": eg_cuda.KERNEL, "route": "cuda",
+        "source": "qpn_tpu_torch/csrc/eg_warmstart.cu",
+        "replaces": "qpn_tpu/ops/pallas_kernels.py:57",
+        "launches": eg_launches, "max_abs_err": eg_err,
+        "ms": t_eg * 1e3, "plain_ms": t_eg_plain * 1e3}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

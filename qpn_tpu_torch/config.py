@@ -13,8 +13,12 @@ import dataclasses
 
 @dataclasses.dataclass
 class NumericConfig:
-    # Batch-size buckets for padded ensemble calls (the padded routes of
-    # ROADMAP slice 2 use them; the KKT-AVI solve runs at exact shapes).
+    # Row-count bucket sizes of the padded routes; the port pads nothing to
+    # them, but the Lemke pivot budget of ``lemke.solve_lemke_batch_padded``
+    # is sized from the bucket of n, as the JAX package sizes it.
+    row_buckets: tuple = (16, 64, 256, 1024)
+    # Batch-size buckets for padded ensemble calls (the KKT-AVI solve and the
+    # generic adaptive solve run at exact shapes).
     batch_buckets: tuple = (1, 8, 64, 512, 2048)
     # Shared-matrix scenario ensembles (structure tag shared_M) at or above
     # this AVI dimension belong to the shared-matrix route (ROADMAP slice 3),
@@ -26,6 +30,23 @@ class NumericConfig:
     # (ops/lemke.lemke_pivot_torch) for CPU tensors; "cuda" = the kernel
     # always (raises on CPU tensors); "torch" = the plain loop always.
     lemke_kernel: str = "auto"
+    # Fused extragradient steps of the warm start (ops/eg.py), with the same
+    # meaning: "auto" = the CUDA kernel (ops/eg_cuda.py) for CUDA tensors and
+    # the plain PyTorch loop (ops/eg.eg_steps_torch) for CPU tensors.
+    eg_kernel: str = "auto"
 
 
 CONFIG = NumericConfig()
+
+
+def bucket(n: int, buckets) -> int:
+    """Smallest bucket >= n (last bucket grows by doubling if exceeded)."""
+    if n <= 0:
+        return buckets[0]
+    for b in buckets:
+        if n <= b:
+            return b
+    b = buckets[-1]
+    while b < n:
+        b *= 2
+    return b

@@ -1,19 +1,25 @@
-"""Batched KKT-AVI ensemble solve — the PyTorch port of ``qpn_tpu/ops/avi.py``
+"""Batched AVI ensemble solves — the PyTorch port of ``qpn_tpu/ops/avi.py``
 (slice 1: the structures, the natural residual, the Newton polish and the
-Lemke route of ``solve_kkt_avi_batch``).
+Lemke route of ``solve_kkt_avi_batch``; slice 2: the generic hybrid solver
+and its adaptive, mixed-precision and padded wrappers).
 
 The box mixed complementarity problem
 
     find z :  M z + q ⟂ l ≤ z ≤ u        (componentwise)
 
-is solved for a batch of scenario lanes by complementary pivoting: the f32
-pivot path picks the terminal complementary basis, one batched f64 LU
-(``lemke.refactor_batch``) lands machine-precision values, and stragglers
-get an f64 semismooth-Newton polish, then an f64 re-pivot.  Every result is
-audited against the natural residual ``Φ(z) = z − clip(z − (Mz + q), l, u)``.
+is solved for a batch of scenario lanes on two routes.  The KKT route
+pivots: the f32 pivot path picks the terminal complementary basis, one
+batched f64 LU (``lemke.refactor_batch``) lands machine-precision values,
+and stragglers get an f64 semismooth-Newton polish, then an f64 re-pivot.
+The generic route (``solve_avi_batch_adaptive``) runs an f32 extragradient
+warm start (``ops/eg.py``), then the hybrid semismooth-Newton / proximal /
+extragradient solver in escalating budgets, then proximal Lemke pivoting
+(``lemke.lemke_escalate``) on whatever is left.  Every result is audited
+against the natural residual ``Φ(z) = z − clip(z − (Mz + q), l, u)``.
 
-All device work follows the input tensors' device; the pivot loop runs in
-the hand-written CUDA kernel for CUDA tensors (``CONFIG.lemke_kernel``).
+All device work follows the input tensors' device; the pivot loop and the
+extragradient steps run in hand-written CUDA kernels for CUDA tensors
+(``CONFIG.lemke_kernel``, ``CONFIG.eg_kernel``).
 
 GAVI structures and the slack-augmentation conversion mirror avi.jl:18-39 and
 avi.jl:113-128.
@@ -28,9 +34,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import CONFIG
+from ..config import CONFIG, bucket
 from ..utils.metrics import METRICS
 from . import lemke
+from .eg import eg_step, eg_warmstart, ruiz
 from .linalg import ridge_solve
 
 
@@ -167,52 +174,13 @@ def solve_avi_batch_polish(M, q, l, u, z0, var_mask, tol=1e-10,
     """Plain semismooth-Newton polish (no proximal/extragradient rounds) for
     warm starts already near the solution, batched: each lane iterates
     while it is under ``max_iter`` steps, above the merit tolerance and has
-    stalled fewer than 4 times (``qpn_tpu/ops/avi.py::_newton_polish_only``,
-    with the lanes written out where the JAX package vmaps)."""
+    stalled fewer than 4 times, with an 8-step Armijo search
+    (``qpn_tpu/ops/avi.py::_newton_polish_only``, with the lanes written out
+    where the JAX package vmaps)."""
     Mm, qm, l, u = _masked(M, q, l, u, var_mask)
-    B, n = qm.shape
-    dt, dev = qm.dtype, qm.device
-    eye = torch.eye(n, dtype=dt, device=dev)
-    ts = 0.5 ** torch.arange(8, dtype=dt, device=dev)
-    tol_m = 0.5 * tol * tol
-
-    def merit(sel, z):
-        Phi = _phi(Mm[sel], qm[sel], l[sel], u[sel], z)
-        return 0.5 * (Phi * Phi).sum(1), Phi
-
     z = torch.where(var_mask.to(torch.bool), z0, 0.0)
-    best_z = z.clone()
-    best_m, _ = merit(slice(None), z)
-    k = torch.zeros(B, dtype=torch.int64, device=dev)
-    stall = torch.zeros_like(k)
-    for _ in range(max_iter):
-        sel = torch.nonzero((best_m > tol_m) & (stall < 4))[:, 0]
-        if sel.numel() == 0:
-            break
-        zs, Ms, ls, us = z[sel], Mm[sel], l[sel], u[sel]
-        m0, Phi = merit(sel, zs)
-        s = zs - ((Ms @ zs[:, :, None])[:, :, 0] + qm[sel])
-        D = ((s > ls) & (s < us)).to(dt)
-        J = D[:, :, None] * Ms + (1.0 - D)[:, :, None] * eye
-        dz = ridge_solve(J, -Phi, 1e-12)
-        # Armijo line search over 8 halvings, all trial points at once
-        Ztry = zs[:, None, :] + ts[None, :, None] * dz[:, None, :]
-        Ftry = Ztry @ Ms.transpose(1, 2) + qm[sel][:, None, :]
-        Phitry = Ztry - torch.clamp(Ztry - Ftry, ls[:, None, :],
-                                    us[:, None, :])
-        mtry = 0.5 * (Phitry * Phitry).sum(2)
-        ok = mtry <= (1.0 - 1e-4 * ts)[None, :] * m0[:, None]
-        accepted = ok.any(1)
-        first = lemke._first_true(ok)
-        r = torch.arange(sel.numel(), device=dev)
-        z_next = torch.where(accepted[:, None], Ztry[r, first], zs)
-        m_next, _ = merit(sel, z_next)
-        best_z[sel] = torch.where((m_next < best_m[sel])[:, None], z_next,
-                                  best_z[sel])
-        best_m[sel] = torch.minimum(m_next, best_m[sel])
-        z[sel] = z_next
-        stall[sel] = torch.where(accepted, 0, stall[sel] + 1)
-        k[sel] += 1
+    best_z, _, k = _newton_phase(Mm, qm, l, u, z, max_iter, 0.5 * tol * tol,
+                                 stall_limit=4, halvings=8)
     resid = _phi(Mm, qm, l, u, best_z).abs().amax(1)
     return AVIResult(z=best_z, resid=resid, iters=k, converged=resid <= tol)
 
@@ -294,3 +262,288 @@ def solve_kkt_avi_batch(M, q, l, u, var_mask, structure, tol=1e-10,
         okL = residL <= tol
     METRICS.bump("kkt_uncertified_lanes", int((~okL).sum()))
     return AVIResult(z=zL, resid=residL, iters=pivL, converged=okL)
+
+
+# --------------------------------------------------------------------------
+#  Generic hybrid solver (semismooth Newton / proximal point / extragradient)
+# --------------------------------------------------------------------------
+
+def _merit(M, q, l, u, z):
+    """½‖Φ(z)‖² per lane, and Φ."""
+    Phi = _phi(M, q, l, u, z)
+    return 0.5 * (Phi * Phi).sum(1), Phi
+
+
+def _newton_phase(Mx, qx, l, u, z, iters_left, tol_m, stall_limit=3,
+                  halvings=16):
+    """Semismooth Newton with an Armijo search over ``halvings`` step sizes
+    on (Mx, qx), batched.
+
+    Each lane iterates while it is under ``iters_left`` steps, above the
+    merit tolerance and has stalled fewer than ``stall_limit`` times in a
+    row (``newton_phase`` of ``qpn_tpu/ops/avi.py::_newton_solve``, and
+    ``_newton_polish_only`` with 8 halvings and 4 stalls).  Every lane
+    starts at step 0 and a lane that stops never restarts, so the lanes
+    still iterating have all taken the same number of steps.  Returns (best
+    z, best merit, steps) per lane."""
+    b, n = z.shape
+    dt, dev = z.dtype, z.device
+    eye = torch.eye(n, dtype=dt, device=dev)
+    ts = 0.5 ** torch.arange(halvings, dtype=dt, device=dev)
+    z = z.clone()
+    best_z = z.clone()
+    best_m, _ = _merit(Mx, qx, l, u, z)
+    k = torch.zeros(b, dtype=torch.int64, device=dev)
+    stall = torch.zeros_like(k)
+    for _ in range(iters_left):
+        sel = torch.nonzero((best_m > tol_m) & (stall < stall_limit))[:, 0]
+        if sel.numel() == 0:
+            break
+        zs, Ms, qs, ls, us = z[sel], Mx[sel], qx[sel], l[sel], u[sel]
+        F = (Ms @ zs[:, :, None])[:, :, 0] + qs
+        s = zs - F
+        Phi = zs - torch.clamp(s, ls, us)
+        m0 = 0.5 * (Phi * Phi).sum(1)
+        D = ((s > ls) & (s < us)).to(dt)
+        J = D[:, :, None] * Ms + (1.0 - D)[:, :, None] * eye
+        # the ridge handles singular active-set Jacobians (ξ-consensus rows,
+        # LP blocks)
+        dz = ridge_solve(J, -Phi, 1e-12)
+        Ztry = zs[:, None, :] + ts[None, :, None] * dz[:, None, :]
+        Ftry = Ztry @ Ms.transpose(1, 2) + qs[:, None, :]
+        Phitry = Ztry - torch.clamp(Ztry - Ftry, ls[:, None, :],
+                                    us[:, None, :])
+        mtry = 0.5 * (Phitry * Phitry).sum(2)
+        ok = mtry <= (1.0 - 1e-4 * ts)[None, :] * m0[:, None]
+        accepted = ok.any(1)
+        first = lemke._first_true(ok)
+        r = torch.arange(sel.numel(), device=dev)
+        z_next = torch.where(accepted[:, None], Ztry[r, first], zs)
+        m_next, _ = _merit(Ms, qs, ls, us, z_next)
+        bm = best_m[sel]
+        best_z[sel] = torch.where((m_next < bm)[:, None], z_next, best_z[sel])
+        best_m[sel] = torch.minimum(m_next, bm)
+        z[sel] = z_next
+        stall[sel] = torch.where(accepted, 0, stall[sel] + 1)
+        k[sel] += 1
+    return best_z, best_m, k
+
+
+def _eg_phase(M, q, l, u, tau, z, steps):
+    """``steps`` extragradient steps on every lane, tracking each lane's
+    best-merit iterate (``eg_phase`` of ``_newton_solve``).  Returns (last
+    z, best z, best merit)."""
+    t = tau[:, None]
+    best_z = z
+    best_m, _ = _merit(M, q, l, u, z)
+    for _ in range(steps):
+        z = eg_step(M, q, l, u, z, t)
+        m, _ = _merit(M, q, l, u, z)
+        best_z = torch.where((m < best_m)[:, None], z, best_z)
+        best_m = torch.minimum(m, best_m)
+    return z, best_z, best_m
+
+
+def solve_avi_batch(M, q, l, u, z0, var_mask, tol=1e-10,
+                    max_iter=4000) -> AVIResult:
+    """Batched box-AVI solve by the hybrid semismooth-Newton / proximal /
+    extragradient method (``qpn_tpu/ops/avi.py::_newton_solve``, with the
+    lanes written out where the JAX package vmaps).
+
+    Semismooth Newton on the natural residual converges superlinearly near a
+    solution but can stall on merely-monotone problems (LP KKT blocks give
+    skew M and singular active-set Jacobians); extragradient steps converge
+    for monotone M, but only linearly.  Each round therefore runs a Newton
+    phase on the proximal subproblem ``(M + δI) z + (q − δ z_ref)`` (strongly
+    monotone), a Newton polish on the true problem, and 60 extragradient
+    steps as a basin hop; δ shrinks ×0.25 from 1e-2, and the best iterate is
+    kept across phases.  A final 30-step Newton polish starts from it.
+
+    Every loop is a masked lockstep loop: a lane takes a step only while its
+    own condition holds, so each lane's result and step count are those of
+    the JAX package's vmapped ``while_loop``.  Shapes: M (B,n,n); q/l/u/z0
+    (B,n); var_mask (B,n) bool, padded variables pinned at 0.  The working
+    precision is q's dtype.  ``iters`` counts Newton steps plus 60 per
+    round's extragradient hop."""
+    dt, dev = q.dtype, q.device
+    M, l, u, z0 = (a.to(dt) for a in (M, l, u, z0))
+    vm = var_mask.to(torch.bool)
+    M0, q0, l0, u0 = _masked(M, q, l, u, vm)
+    B, n = q0.shape
+    eye = torch.eye(n, dtype=dt, device=dev)
+
+    # complementarity-preserving Ruiz equilibration: M' = D M E, q' = D q,
+    # bounds scale by 1/e; complementarity of (row i, z_i) is preserved
+    d_sc, e_sc = ruiz(M0)
+    Mm = d_sc[:, :, None] * M0 * e_sc[:, None, :]
+    qm = d_sc * q0
+    ls = torch.where(torch.isfinite(l0), l0 / e_sc, l0)
+    us = torch.where(torch.isfinite(u0), u0 / e_sc, u0)
+    # extragradient step τ ≤ 0.9 / L with L ≈ ‖M‖∞
+    tau = 0.9 / (1.0 + Mm.abs().sum(2).amax(1))
+    tol_m = 0.5 * tol * tol
+
+    z = torch.clamp(torch.where(vm, z0 / e_sc, 0.0), ls, us)
+    best_z = z.clone()
+    best_m, _ = _merit(Mm, qm, ls, us, z)
+    z_ref = z.clone()
+    delta = torch.full((B,), 1e-2, dtype=dt, device=dev)
+    total_k = torch.zeros(B, dtype=torch.int64, device=dev)
+    max_rounds = max(2, int(max_iter) // (40 + 30 + 60))
+    for _ in range(max_rounds):
+        act = torch.nonzero(best_m > tol_m)[:, 0]
+        if act.numel() == 0:
+            break
+        Ma, qa, la, ua = Mm[act], qm[act], ls[act], us[act]
+        da = delta[act]
+        pz, _, k1 = _newton_phase(Ma + da[:, None, None] * eye,
+                                  qa - da[:, None] * z_ref[act], la, ua,
+                                  z[act], 40, tol_m)
+        # polish on the true problem from the proximal iterate
+        qz, qmer, k2 = _newton_phase(Ma, qa, la, ua, pz, 30, tol_m)
+        bz, bm = best_z[act], best_m[act]
+        bz = torch.where((qmer < bm)[:, None], qz, bz)
+        bm = torch.minimum(qmer, bm)
+        # extragradient hop out of repeated basins
+        ez, ebz, ebm = _eg_phase(Ma, qa, la, ua, tau[act], qz, 60)
+        bz = torch.where((ebm < bm)[:, None], ebz, bz)
+        bm = torch.minimum(ebm, bm)
+        z[act] = torch.where((bm <= tol_m)[:, None], bz, ez)
+        z_ref[act] = pz
+        delta[act] = torch.clamp_min(da * 0.25, 1e-12)
+        best_z[act], best_m[act] = bz, bm
+        total_k[act] += k1 + k2 + 60
+
+    # final Newton polish from each lane's best iterate
+    pz, pm, pk = _newton_phase(Mm, qm, ls, us, best_z, 30, tol_m)
+    best_z = torch.where((pm < best_m)[:, None], pz, best_z)
+
+    # report the residual of the UNSCALED problem
+    z_out = e_sc * best_z
+    resid = _phi(M0, q0, ls * e_sc, us * e_sc, z_out).abs().amax(1)
+    return AVIResult(z=z_out, resid=resid, iters=total_k + pk,
+                     converged=resid <= tol)
+
+
+def solve_avi_batch_mixed(M, q, l, u, z0, var_mask, tol=1e-10,
+                          max_iter=4000) -> AVIResult:
+    """Mixed-precision batched solve: the hybrid iteration in f32 to 1e-5
+    within ``max_iter``, then in f64 to ``tol`` within
+    ``max(520, max_iter // 8)``, warm-started at the f32 solution
+    (``qpn_tpu/ops/avi.py::solve_avi_batch_mixed``).  Returns the f64
+    pass's result."""
+    f32, f64 = torch.float32, torch.float64
+    res32 = solve_avi_batch(*(a.to(f32) for a in (M, q, l, u, z0)),
+                            var_mask, tol=1e-5, max_iter=max_iter)
+    return solve_avi_batch(*(a.to(f64) for a in (M, q, l, u)),
+                           res32.z.to(f64), var_mask, tol=tol,
+                           max_iter=max(520, max_iter // 8))
+
+
+def solve_avi_batch_padded(M, q, l, u, z0, var_mask, _sharding=None,
+                           **kw) -> AVIResult:
+    """:func:`solve_avi_batch` with the variable dimension padded to its
+    ``CONFIG.row_buckets`` bucket (identity rows pinned at 0), as
+    ``qpn_tpu/ops/avi.py::solve_avi_batch_padded`` pads it.
+
+    The padding changes the numbers and is kept: the padding rows enter the
+    extragradient step's ‖M‖∞.  The batch is not padded, since each lane's
+    result is independent of the others.  The JAX package's lockstep
+    broker and ``_sharding`` belong to the parallel layer (ROADMAP slice 4)
+    and are not ported; ``_sharding`` raises."""
+    if _sharding is not None:
+        raise NotImplementedError(
+            "_sharding: the parallel layer (qpn_tpu/parallel/) is not "
+            "ported yet — ROADMAP slice 4")
+    B, n = q.shape
+    pad = bucket(n, CONFIG.row_buckets) - n
+    if pad == 0:
+        return solve_avi_batch(M, q, l, u, z0, var_mask, **kw)
+    dt, dev = q.dtype, q.device
+    Mp = torch.eye(n + pad, dtype=dt, device=dev).repeat(B, 1, 1)
+    Mp[:, :n, :n] = M
+    vec = [torch.nn.functional.pad(a.to(dt), (0, pad)) for a in (q, l, u, z0)]
+    mp = torch.nn.functional.pad(var_mask.to(torch.bool), (0, pad))
+    res = solve_avi_batch(Mp, *vec, mp, **kw)
+    return AVIResult(z=res.z[:, :n], resid=res.resid, iters=res.iters,
+                     converged=res.converged)
+
+
+def solve_avi_batch_adaptive(M, q, l, u, z0, var_mask, *, tol=1e-10,
+                             budgets=(390, 1560, 6000), mixed=True,
+                             onchip_eg_steps: int = 0) -> AVIResult:
+    """Straggler-decoupled batched solve: the generic route for box-AVI
+    scenario ensembles (``qpn_tpu/ops/avi.py::solve_avi_batch_adaptive``).
+
+    1. With ``onchip_eg_steps > 0``, a fused f32 extragradient pre-pass
+       (``eg.eg_warmstart``; the CUDA kernel for CUDA tensors), accepted per
+       lane only where it lowers the natural residual: extragradient only
+       converges for monotone M.
+    2. The hybrid solver (mixed precision or f64) in escalating iteration
+       budgets; each stage takes only the lanes not yet certified, and a
+       stage's result is kept only where it improves the stored residual.
+    3. Between stages, each straggler whose residual is above 1e-4 is seeded
+       from the certified lane with the nearest q.
+    4. Proximal Lemke pivoting (``lemke.lemke_escalate``) on the rest.
+
+    Tensors as in :func:`solve_avi_batch`, on one device; the solve is f64.
+    The stages run at exact shapes (the JAX package's batch padding only
+    serves XLA's compile cache and changes no lane's result)."""
+    f64 = torch.float64
+    M, q, l, u, z0 = (a.to(f64) for a in (M, q, l, u, z0))
+    vm = var_mask.to(torch.bool)
+    B, n = q.shape
+    dev = q.device
+    solver = solve_avi_batch_mixed if mixed else solve_avi_batch
+    z_out = z0.clone()
+    resid_out = torch.full((B,), torch.inf, dtype=f64, device=dev)
+    iters_out = torch.zeros(B, dtype=torch.int64, device=dev)
+    conv_out = torch.zeros(B, dtype=torch.bool, device=dev)
+    idx = torch.arange(B, device=dev)
+    z_cur = z0
+    if onchip_eg_steps > 0:
+        z_eg = eg_warmstart(M, q, l, u, z_cur, vm, steps=onchip_eg_steps)
+        r_eg = natural_residual(M, q, l, u, z_eg, vm)
+        r_0 = natural_residual(M, q, l, u, z_cur, vm)
+        better = torch.isfinite(r_eg) & (r_eg < r_0)
+        METRICS.bump("eg_accepted_lanes", int(better.sum()))
+        z_cur = torch.where(better[:, None], z_eg, z_cur)
+    z_warm = z_out      # seed for the NEXT stage; may hold neighbour copies
+    for bi, budget in enumerate(budgets):
+        if idx.numel() == 0:
+            break
+        res = solver(M[idx], q[idx], l[idx], u[idx],
+                     (z_cur if bi == 0 else z_warm)[idx], vm[idx], tol=tol,
+                     max_iter=budget)
+        # a straggler reseeded from a neighbour can diverge in a later stage:
+        # keep its earlier best (resid_out starts at inf, so stage 0 lands)
+        upd = res.resid < resid_out[idx]
+        z_out[idx[upd]] = res.z[upd]
+        resid_out[idx[upd]] = res.resid[upd]
+        conv_out[idx] = res.converged
+        iters_out[idx] += res.iters
+        idx = idx[~res.converged]
+        # cross-lane warm start: seed each straggler from the nearest (by
+        # q-distance) certified lane, in a separate array so z_out keeps
+        # each lane's own iterate beside its own residual
+        z_warm = z_out
+        if idx.numel() and bool(conv_out.any()):
+            conv_idx = torch.nonzero(conv_out)[:, 0]
+            dist = (q[conv_idx][None, :, :] - q[idx][:, None, :]).norm(dim=2)
+            j = conv_idx[dist.argmin(1)]
+            far = resid_out[idx] > 1e-4
+            z_warm = z_out.clone()
+            z_warm[idx[far]] = z_out[j[far]]
+    if idx.numel():
+        # final tier: proximal Lemke pivoting on the stragglers, which ends on
+        # an exact complementary basis where the smooth hybrid chases
+        # residuals
+        METRICS.bump("escalated_lanes", idx.numel())
+        zL, rL = lemke.lemke_escalate(M[idx], q[idx], l[idx], u[idx],
+                                      z_warm[idx], vm[idx], tol=tol)
+        better = rL < resid_out[idx]
+        z_out[idx[better]] = zL[better]
+        resid_out[idx[better]] = rL[better]
+        conv_out[idx] = resid_out[idx] <= tol
+    return AVIResult(z=z_out, resid=resid_out, iters=iters_out,
+                     converged=conv_out)

@@ -28,6 +28,9 @@ Layout of the port:
   ``CONFIG.lemke_kernel`` and the tensors' device.
 * :func:`refactor_batch` — the f64 terminal refactorization, batched on the
   tensors' device (the JAX package does it on the host in numpy).
+* :func:`solve_lemke_batch_padded` and :func:`lemke_escalate` — the f64
+  pivot solve and the proximal-Lemke escalation tier of the generic
+  adaptive solver (``ops/avi.solve_avi_batch_adaptive``).
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..config import CONFIG
+from ..config import CONFIG, bucket
 
 _INF = np.inf
 
@@ -649,3 +652,67 @@ def refactor_batch(M, q, l, u, basis, val, var_mask):
     z = torch.cat([nb[:, :n], torch.zeros_like(nb[:, :1])], 1)
     z.scatter_(1, torch.where(bz, basis, n), xB)
     return torch.where(vm, z[:, :n], 0.0), ok
+
+
+def solve_lemke_batch_padded(M, q, l, u, z0, var_mask, tol=1e-9):
+    """f64 Lemke solve of a batch of box AVIs: the pivot loop (the CUDA
+    kernel's f64 instance for CUDA tensors), then :func:`refactor_batch`
+    where the terminal basis is complementary.  Returns (z, status, pivots).
+
+    The JAX package pads n to its ``row_buckets`` bucket for XLA's compile
+    cache; padded variables are pinned rows that never enter the basis, so
+    the port runs at the exact shape.  The pivot budget is still sized from
+    the bucket, ``min(4096, 16·bucket(n) + 256)``, so that a lane that hits
+    the cap ends as it does there."""
+    f64 = torch.float64
+    M, q, l, u, z0 = (a.to(f64) for a in (M, q, l, u, z0))
+    vm = var_mask.to(torch.bool)
+    max_pivots = int(min(4096, 16 * bucket(q.shape[1], CONFIG.row_buckets)
+                         + 256))
+    z, status, piv, basis, val = solve_lemke_batch_state_auto(
+        M, q, l, u, z0, vm, tol=tol, max_pivots=max_pivots)
+    zR, ok = refactor_batch(M, q, l, u, basis, val, vm)
+    return torch.where(ok[:, None], zR, z), status, piv
+
+
+def lemke_escalate(M, q, l, u, z0, var_mask, *, tol=1e-10,
+                   deltas=(0.0, 1e-7, 1e-4), rounds=2):
+    """Proximal-Lemke escalation tier for stubborn AVI lanes
+    (``qpn_tpu/ops/lemke.py::lemke_escalate``).
+
+    For each lane still above ``tol``: pivot on ``(M + δI, q − δ z_ref)`` for
+    an escalating δ schedule (δ=0 is the raw problem; positive δ makes the
+    subproblem strongly monotone), Newton-polish the pivot solution on the
+    TRUE problem, and accept whatever lowers the natural residual.  A second
+    round re-centers ``z_ref`` at the incumbent — the proximal-point
+    iteration.  Tensors on one device; returns ``(z, resid)`` in f64."""
+    from .avi import natural_residual, solve_avi_batch_polish
+    f64 = torch.float64
+    M, q, l, u, z0 = (a.to(f64) for a in (M, q, l, u, z0))
+    vm = var_mask.to(torch.bool)
+    eye = torch.eye(q.shape[1], dtype=f64, device=q.device)
+    z_best = z0.clone()
+    r_best = natural_residual(M, q, l, u, z0, vm)
+    z_ref = z0.clone()
+    for _ in range(rounds):
+        for delta in deltas:
+            idx = torch.nonzero(r_best > tol)[:, 0]
+            if idx.numel() == 0:
+                return z_best, r_best
+            Mi, qi, li, ui, vi = M[idx], q[idx], l[idx], u[idx], vm[idx]
+            z_piv, _, _ = solve_lemke_batch_padded(
+                Mi + delta * eye, qi - delta * z_ref[idx], li, ui,
+                z_ref[idx], vi, tol=max(tol, 1e-11))
+            # polish the pivot solution on the unregularized problem
+            res = solve_avi_batch_polish(Mi, qi, li, ui, z_piv, vi, tol=tol,
+                                         max_iter=40)
+            r_new = natural_residual(Mi, qi, li, ui, res.z, vi)
+            # the raw pivot output may itself be the better point
+            r_piv = natural_residual(Mi, qi, li, ui, z_piv, vi)
+            z_new = torch.where((r_piv < r_new)[:, None], z_piv, res.z)
+            r_new = torch.minimum(r_new, r_piv)
+            better = r_new < r_best[idx]
+            z_best[idx[better]] = z_new[better]
+            r_best[idx[better]] = r_new[better]
+        z_ref = z_best.clone()
+    return z_best, r_best

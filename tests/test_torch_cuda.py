@@ -6,12 +6,15 @@ imports JAX) is left out:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
+from qpn_tpu_torch.config import CONFIG
 from qpn_tpu_torch.models.robust_avoid import scenario_batch_gavis
-from qpn_tpu_torch.ops import lemke
-from qpn_tpu_torch.ops.avi import batch_from_numpy, solve_kkt_avi_batch
+from qpn_tpu_torch.ops import eg, eg_cuda, lemke
+from qpn_tpu_torch.ops.avi import (batch_from_numpy, solve_avi_batch_adaptive,
+                                   solve_kkt_avi_batch)
 from qpn_tpu_torch.ops.lemke_cuda import KERNEL, lemke_pivot_cuda
 from qpn_tpu_torch.utils.metrics import METRICS
 
@@ -93,3 +96,86 @@ def test_kernel_rejects_a_lane_too_large_for_shared_memory(cuda_device):
                                         device=cuda_device), tol=1e-6)
     with pytest.raises(ValueError, match="shared memory"):
         lemke_pivot_cuda(init, max_pivots=16, **HOT)
+
+
+# --- the extragradient kernel (csrc/eg_warmstart.cu) -----------------------
+
+def _eg_inputs(t, S=None):
+    keys = ("M", "q", "l", "u", "z0", "mask")
+    return eg.eg_prepare(*(t[k][:S] for k in keys))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("steps", [0, 1, 300])
+def test_eg_kernel_matches_plain_loop(cuda_device, steps):
+    """Kernel and plain loop on the same prepared f32 inputs: z within 1e-5
+    of the lane scale (f32 sums in another order); one counted launch."""
+    p = _eg_inputs(_data(cuda_device))
+    before = METRICS.launches[eg_cuda.KERNEL]
+    zk = eg_cuda.eg_warmstart_cuda(p.M, p.q, p.l, p.u, p.z0, p.tau, steps)
+    torch.cuda.synchronize()
+    assert METRICS.launches[eg_cuda.KERNEL] == before + 1
+    zp = eg.eg_steps_torch(p.M, p.q, p.l, p.u, p.z0, p.tau, steps)
+    scale = 1.0 + float(zp.abs().max())
+    assert float((zk - zp).abs().max()) <= 1e-5 * scale
+    if steps == 0:
+        assert torch.equal(zk, p.z0)
+
+
+@pytest.mark.gpu
+def test_eg_kernel_pins_masked_variables(cuda_device):
+    M = torch.eye(3, device=cuda_device, dtype=torch.float64)[None]
+    q = torch.tensor([[-1.0, 2.0, 5.0]], device=cuda_device,
+                     dtype=torch.float64)
+    zeros = torch.zeros_like(q)
+    mask = torch.tensor([[True, True, False]], device=cuda_device)
+    z = eg.eg_warmstart(M, q, zeros, torch.full_like(q, float("inf")), zeros,
+                        mask, steps=300)
+    assert float(z[0, 2]) == 0.0
+    assert np.allclose(z[0, :2].cpu().numpy(), [1.0, 0.0], atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_eg_kernel_rejects_a_lane_too_large_for_shared_memory(cuda_device):
+    n = 240                                   # f32 lane of ~236 KB
+    f = dict(device=cuda_device, dtype=torch.float32)
+    M = torch.eye(n, **f)[None].contiguous()
+    v = torch.zeros(1, n, **f)
+    with pytest.raises(ValueError, match="shared memory"):
+        eg_cuda.eg_warmstart_cuda(M, v, v, v + 1, v, torch.full((1,), 0.4, **f),
+                                  4)
+
+
+@pytest.mark.gpu
+def test_adaptive_path_goes_through_both_kernels(cuda_device):
+    """The generic route on the card: the EG pre-pass launches its kernel;
+    far starts with one short budget stage leave every lane to
+    lemke_escalate, whose f64 pivot loop launches the Lemke kernel."""
+    t = _data(cuda_device, S=16)
+    args = [t[k] for k in ("M", "q", "l", "u", "z0", "mask")]
+    METRICS.reset()
+    res = solve_avi_batch_adaptive(*args, tol=1e-8, mixed=True,
+                                   onchip_eg_steps=2000)
+    assert METRICS.launches[eg_cuda.KERNEL] == 1
+    assert bool(res.converged.all()) and res.z.device.type == "cuda"
+    rng = np.random.default_rng(0)
+    args[4] = torch.as_tensor(1e4 * rng.standard_normal(tuple(t["q"].shape)),
+                              device=cuda_device)
+    METRICS.reset()
+    res = solve_avi_batch_adaptive(*args, tol=1e-8, budgets=(1,), mixed=True)
+    assert METRICS.counters["escalated_lanes"] > 0
+    assert METRICS.launches[KERNEL] >= 1
+    assert bool(res.converged.any())
+
+
+@pytest.mark.gpu
+def test_eg_kernel_setting_torch_skips_the_kernel(cuda_device):
+    p = _eg_inputs(_data(cuda_device, S=4))
+    old = CONFIG.eg_kernel
+    try:
+        CONFIG.eg_kernel = "torch"
+        METRICS.reset()
+        eg.eg_engine(p.M.device)(p.M, p.q, p.l, p.u, p.z0, p.tau, 5)
+        assert METRICS.launches[eg_cuda.KERNEL] == 0
+    finally:
+        CONFIG.eg_kernel = old

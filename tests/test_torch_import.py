@@ -12,6 +12,7 @@ PROBE = """
 import sys
 import qpn_tpu_torch
 import qpn_tpu_torch.algorithm, qpn_tpu_torch.ops.lemke_cuda
+import qpn_tpu_torch.ops.avi, qpn_tpu_torch.ops.eg, qpn_tpu_torch.ops.eg_cuda
 import qpn_tpu_torch.utils.cuda_build, qpn_tpu_torch.utils.native
 qpn_tpu_torch.models.robust_avoid.scenario_batch_gavis(num_scenarios=2, T=2)
 bad = sorted(m for m in sys.modules

@@ -9,8 +9,8 @@ and the CUDA toolkit:
 Phases, one line each, with their seconds; any failure exits non-zero:
 
 1. device: the card, and ``nvidia-smi``'s name and power limit;
-2. build: both CUDA kernels from the sources in this checkout, one nvcc
-   for each source, started together;
+2. build: the three CUDA kernels from the sources in this checkout, one
+   nvcc for each source, started together;
 3. ensemble: the flagship scenario ensemble (robust_avoid, S=256, T=2,
    num_obj=1, num_poly_faces=4, seed 0; n=38 per lane), moved to the card;
 4. the Lemke pivot kernel against its plain PyTorch version in f32 on all
@@ -35,7 +35,25 @@ Phases, one line each, with their seconds; any failure exits non-zero:
    extragradient loop, and with ``mixed=False``;
 9. forced stragglers: far starts and one short budget stage on 16 lanes,
    so that ``lemke.lemke_escalate`` takes them and the Lemke kernel's f64
-   instance runs on this path; at least one lane certified through it.
+   instance runs on this path; at least one lane certified through it;
+10. the feasibility screen kernel against its plain PyTorch version on a
+   seeded batch of 4096 polyhedra at robust_avoid's piece shape (dimension
+   18, 18 rows, half of them empty by construction, no strict rows): x and
+   max |v| within the stated bounds, the same polyhedra witnessed outside
+   the margin band, no empty one witnessed; both timed with CUDA events,
+   median of 7;
+11. the geometry entry point ``geometry.is_empty_batch`` on that batch with
+   ``CONFIG.device = "cuda"``, once with the screen on and once off: both
+   verdicts equal to each other and to the truth by construction, at least
+   one screen kernel launch, the witnessed count, polyhedra/s both ways;
+12. ``solve()`` end to end with ``CONFIG.device = "cuda"``: the ten zoo
+   models of ``benchmarks/framework_bench.py`` and the 8 golden
+   simple_bilevel points, each solved, with the QEP and piece counts of
+   ``ZOO_r05_cpu.json`` (robust_avoid: 7 QEP, 60 pieces) and x_opt equal to
+   a ``device="cpu"`` solve on the same machine; wall time per model both
+   ways, the ADMM counters and the kernels' launch counts (the screen's is
+   expected to be 0: no zoo model reaches it); then phase 10's comparison
+   on the closures of robust_avoid's solution-graph pieces.
 
 Then one JSON line for the kernels, and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -70,6 +88,45 @@ EG_STEPS = 20000      # the generic path's extragradient pre-pass
 EG_TOL = {300: 1e-5, EG_STEPS: 1e-4}
 KKT_Z_TOL = 1e-6      # generic path vs KKT path: the solution is unique
 FAR_START = 1e4       # forced stragglers: z0 = FAR_START * N(0, 1)
+# Feasibility screen: robust_avoid's piece shape, the JAX package's steps,
+# step size and is_empty_batch's margin (its tol).
+SCREEN_B, SCREEN_M, SCREEN_N = 4096, 18, 18
+SCREEN_STEPS, SCREEN_LR, SCREEN_MARGIN = 120, 0.05, 1e-4
+# Kernel vs plain screen, relative to 1 + the polyhedron's max |x| (x) or
+# 1 + the plain max |v| (v).  Both step in f32 and differ only in the order
+# and fusing of each sum (the kernel sums in order without FMA, cuBLAS
+# does neither), a few ulps per step; the steps contract toward the
+# polyhedron, so 120 of them keep the difference near 1e-6.  A polyhedron
+# may be witnessed by one engine only where a max |v| lies within the band
+# of the margin.
+SCREEN_TOL = 1e-4
+# The zoo of benchmarks/framework_bench.py with ZOO_r05_cpu.json's counts:
+# (name, setup kwargs, x_init, QEP solves, pieces projected).
+ZOO = [
+    ("simple_bilevel", dict(gen_solution_map=True), [0.0, 1.0, 0.0, 0.0],
+     1, 4),
+    ("shepherd_sheep", dict(), None, 1, 2),
+    ("toll_setting", dict(), None, 2, 2),
+    ("rock_paper_scissors", dict(bilevel=True), None, 0, 1),
+    ("trilevel_escape", dict(), None, 3, 5),
+    ("four_player_matrix_game", dict(edge_list=[(1, 2), (3, 4)], seed=2),
+     [0.0] * 8, 2, 4),
+    ("robust_avoid_simple", dict(num_obj=1), None, 9, 58),
+    ("chainstore", dict(num_towns=3), None, 0, 7),
+    ("deep_synthetic", dict(levels=8, width=1), None, 0, 7),
+    ("robust_avoid", dict(T=2, num_obj=1, num_poly_faces=3), None, 7, 60),
+]
+# tests/test_simple_bilevel.py (the reference's test/simple_bilevel.jl):
+# parameter point w, the admissible follower responses, min piece count
+R2 = 2.0 ** 0.5
+GOLDEN = [
+    ([-2.0, -3.0], [[-2.0, 0.0]], 1), ([0.0, -1.0], [[0.0, 0.0]], 2),
+    ([1.0, -3.0], [[0.0, 0.0]], 1), ([1.0, -1.0], [[0.0, 0.0]], 2),
+    ([1.0, 0.0], [[0.5, 0.5]], 1), ([0.0, 1.0], [[0.5, 0.5], [0.0, 0.0]], 1),
+    ([-1.0, 1 + R2], [[-1.0, 0.0], [R2 / 2, R2 / 2]], 1),
+    ([0.0, 0.0], [[0.0, 0.0]], 3),
+]
+X_OPT_TOL = 1e-6      # solve() on the card vs on the CPU, same machine
 
 
 def fail(msg: str) -> None:
@@ -330,6 +387,194 @@ def forced_stragglers(data, batch, device, say, card, lanes=16):
         f"{resid[conv].max():.3g} [{card}]")
 
 
+def screen_batch(B, m, n, seed):
+    """Seeded polyhedra l ≤ Ax ≤ u (no strict rows): A ~ N(0,1), bounds a
+    random width around a centre near the origin, ~30% of the rows one-
+    sided; every odd one made empty by two rows with the same normal and
+    bounds 2 apart.  Returns (polys, empty truth)."""
+    import numpy as np
+    from qpn_tpu_torch.geometry import Poly
+    rng = np.random.default_rng(seed)
+    polys, truth = [], np.zeros(B, dtype=bool)
+    for b in range(B):
+        A = rng.standard_normal((m, n))
+        ax = A @ (0.1 * rng.standard_normal(n))
+        w = 0.5 + rng.random(m)
+        one_sided = rng.random(m) < 0.3
+        low_open = one_sided & (rng.random(m) < 0.5)
+        l = np.where(low_open, -np.inf, ax - w)
+        u = np.where(one_sided & ~low_open, np.inf, ax + w)
+        if b % 2:
+            A[1] = A[0]
+            l[0], u[0] = ax[0] + 1.0, np.inf
+            l[1], u[1] = -np.inf, ax[0] - 1.0
+            truth[b] = True
+        polys.append(Poly(A, l, u, normalize=False, dedupe=False))
+    return polys, truth
+
+
+def compare_screen(polys, truth, device, say, card, label):
+    """Screen kernel vs plain loop on the same prepared inputs.  Returns
+    (max |dx|, kernel s, plain s)."""
+    import torch
+    from qpn_tpu_torch.ops import screen, screen_cuda
+    prob = screen.screen_prepare(polys)
+    ins = [torch.as_tensor(a, device=device) for a in prob]
+    B, m, n = prob.A.shape
+    xk, vk = screen_cuda.feasibility_screen_cuda(*ins, SCREEN_STEPS, SCREEN_LR)
+    xp, vp = screen.screen_steps_torch(*ins, SCREEN_STEPS, SCREEN_LR)
+    torch.cuda.synchronize(device)
+    if not (bool(torch.isfinite(xk).all()) and bool(torch.isfinite(vk).all())):
+        fail(f"screen {label}: non-finite kernel output")
+    dx = (xk - xp).abs().amax(1)
+    xerr = float((dx / (1.0 + xp.abs().amax(1))).max())
+    verr = float(((vk - vp).abs() / (1.0 + vp)).max())
+    if not (xerr <= SCREEN_TOL and verr <= SCREEN_TOL):
+        fail(f"screen {label}: x differs by {xerr!r}, max |v| by {verr!r} "
+             f"(relative), bound {SCREEN_TOL}")
+    wk, _ = screen.feasibility_screen(
+        polys, margin=SCREEN_MARGIN, engine=screen_cuda.feasibility_screen_cuda)
+    wp, _ = screen.feasibility_screen(
+        polys, margin=SCREEN_MARGIN, engine=screen.screen_steps_torch)
+    band = SCREEN_TOL * (1.0 + SCREEN_MARGIN)
+    near = (((vk - SCREEN_MARGIN).abs() <= band)
+            | ((vp - SCREEN_MARGIN).abs() <= band)).cpu().numpy()
+    if ((wk != wp) & ~near).any():
+        fail(f"screen {label}: the kernel witnesses other polyhedra than "
+             "the plain loop outside the margin band")
+    if truth is not None and (wk & truth).any():
+        fail(f"screen {label}: an empty polyhedron was witnessed")
+    t_k = device_timed(lambda: screen_cuda.feasibility_screen_cuda(
+        *ins, SCREEN_STEPS, SCREEN_LR), device)
+    t_p = device_timed(lambda: screen.screen_steps_torch(
+        *ins, SCREEN_STEPS, SCREEN_LR), device)
+    max_abs = float(dx.max())
+    say(f"feasibility_screen {label} B={B} m={m} n={n} steps={SCREEN_STEPS}: "
+        f"max |dx| {max_abs:.3g} ({xerr:.3g} of the scale), max |v| "
+        f"{verr:.3g} relative, both <= {SCREEN_TOL}; witnessed "
+        f"{int(wk.sum())} kernel, {int(wp.sum())} plain (margin "
+        f"{SCREEN_MARGIN}); kernel {t_k * 1e3:.4f} ms, plain "
+        f"{t_p * 1e3:.4f} ms (median of {REPEATS}) [{card}]")
+    return max_abs, t_k, t_p
+
+
+def geometry_entry(polys, truth, device, say, card):
+    """is_empty_batch on the card with the screen on and off.  Returns the
+    screen kernel's launches in the run with the screen on."""
+    import numpy as np
+    from qpn_tpu_torch.config import CONFIG
+    from qpn_tpu_torch.geometry import is_empty_batch
+    from qpn_tpu_torch.geometry.query_cache import CACHE
+    from qpn_tpu_torch.ops import screen_cuda
+    from qpn_tpu_torch.utils.metrics import METRICS
+    B = len(polys)
+    out, secs, launches, witnessed = {}, {}, {}, {}
+    for on in (True, False):
+        CONFIG.use_screen = on
+        times = []
+        for rep in range(4):        # the first run is the one counted
+            CACHE.clear()           # verdicts are memoized by content
+            if rep == 0:
+                METRICS.reset()
+            t0 = time.perf_counter()
+            verdict = is_empty_batch(polys)
+            times.append(time.perf_counter() - t0)
+            if rep == 0:
+                launches[on] = METRICS.launches[screen_cuda.KERNEL]
+                witnessed[on] = int(METRICS.counters["screen_witnessed"])
+                out[on] = verdict
+        secs[on] = statistics.median(times[1:])
+    CONFIG.use_screen = None
+    if not (np.array_equal(out[True], truth)
+            and np.array_equal(out[False], truth)):
+        fail(f"is_empty_batch: {int((out[True] != truth).sum())} (screen on) "
+             f"and {int((out[False] != truth).sum())} (screen off) verdicts "
+             "differ from the truth")
+    if launches[True] < 1 or launches[False] != 0:
+        fail(f"is_empty_batch: {launches[True]} screen kernel launches with "
+             f"the screen on, {launches[False]} with it off")
+    say(f"geometry is_empty_batch B={B} device=cuda: verdicts equal to the "
+        f"truth with the screen on and off ({int(truth.sum())} empty); "
+        f"screen on: {launches[True]} kernel launch(es), {witnessed[True]} "
+        f"polyhedra witnessed, {B / secs[True]:.1f} polyhedra/s "
+        f"({secs[True]:.3f} s); screen off: {B / secs[False]:.1f} "
+        f"polyhedra/s ({secs[False]:.3f} s); median of 3 [{card}]")
+    return launches[True]
+
+
+def solve_zoo(device, say, card):
+    """solve() end to end on the card and on the CPU.  Returns the pieces of
+    robust_avoid's solution graph from the card's solve."""
+    import numpy as np
+    import qpn_tpu_torch as qt
+    from qpn_tpu_torch.config import CONFIG
+    from qpn_tpu_torch.geometry.query_cache import CACHE
+    from qpn_tpu_torch.ops import eg_cuda, lemke_cuda, screen_cuda
+    from qpn_tpu_torch.utils.metrics import METRICS
+    kernels = (lemke_cuda.KERNEL, eg_cuda.KERNEL, screen_cuda.KERNEL)
+    METRICS.reset()
+    walls = {"cuda": 0.0, "cpu": 0.0}
+    pieces = None
+    for name, kw, x0, want_qep, want_pieces in ZOO:
+        row = {}
+        for dev in ("cuda", "cpu"):
+            CONFIG.device = dev
+            CACHE.clear()       # each solve starts without memoized queries
+            qpn = qt.setup(name, **kw)
+            t0 = time.perf_counter()
+            ret = qt.solve(qpn, None if x0 is None else np.asarray(x0))
+            wall = time.perf_counter() - t0
+            walls[dev] += wall
+            c = dict(qpn.metrics.counters)
+            qep = int(c.get("qep_solves", 0))
+            npieces = int(c.get("pieces_projected", 0))
+            if not (ret.solved and qep == want_qep
+                    and npieces == want_pieces):
+                fail(f"solve {name} device={dev}: solved {ret.solved}, "
+                     f"{qep} QEP / {npieces} pieces, expected {want_qep} / "
+                     f"{want_pieces}")
+            x = np.asarray(ret.x_opt)
+            if not np.isfinite(x).all():
+                fail(f"solve {name} device={dev}: non-finite x_opt")
+            row[dev] = (wall, x, c)
+            if dev == "cuda" and name == "robust_avoid":
+                pieces = [p for pu in ret.Sol.values() if pu is not None
+                          for p in pu]
+        dx = float(np.abs(row["cuda"][1] - row["cpu"][1]).max())
+        if not dx <= X_OPT_TOL:
+            fail(f"solve {name}: x_opt on the card differs from the CPU's by "
+                 f"{dx!r}")
+        c = row["cuda"][2]
+        say(f"solve {name}: solved, {want_qep} QEP, {want_pieces} pieces on "
+            f"both devices, x_opt within {dx:.3g}; wall {row['cuda'][0]:.3f} "
+            f"s device=cuda, {row['cpu'][0]:.3f} s device=cpu; on the card "
+            f"{int(c.get('admm_calls', 0))} ADMM calls, "
+            f"{int(c.get('admm_blocks', 0))} ADMM blocks of 25 iterations, "
+            f"{int(c.get('lp_host', 0))} host LPs [{card}]")
+    CONFIG.device = "cuda"
+    CACHE.clear()
+    golden_wall = 0.0
+    qpn = qt.setup("simple_bilevel", gen_solution_map=True)
+    for w, xs, min_pieces in GOLDEN:
+        t0 = time.perf_counter()
+        ret = qt.solve(qpn, np.concatenate([w, [0.0, 0.0]]))
+        golden_wall += time.perf_counter() - t0
+        ok = ret.solved and any(
+            np.allclose(ret.x_opt, np.concatenate([w, xi]), atol=1e-4)
+            for xi in xs)
+        if not ok or len(list(ret.Sol[2])) < min_pieces:
+            fail(f"simple_bilevel golden point w={w}: solved {ret.solved}, "
+                 f"x_opt {ret.x_opt}")
+    launches = {k: METRICS.launches[k] for k in kernels}
+    CONFIG.device = "cpu"
+    say(f"solve() zoo: {len(ZOO)}/{len(ZOO)} models solved at ZOO_r05_cpu.json's counts on "
+        f"both devices, wall {walls['cuda']:.3f} s device=cuda, "
+        f"{walls['cpu']:.3f} s device=cpu; golden simple_bilevel 8/8 on the "
+        f"card ({golden_wall:.3f} s); kernel launches on the card (zoo and "
+        f"golden points): {launches} [{card}]")
+    return pieces
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "qpn_tpu_torch")):
         fail("the qpn_tpu_torch package is not next to chip_smoke.py")
@@ -341,7 +586,7 @@ def main() -> None:
              "CUDA device")
     from qpn_tpu_torch.config import CONFIG
     from qpn_tpu_torch.models.robust_avoid import scenario_batch_gavis
-    from qpn_tpu_torch.ops import eg_cuda, lemke_cuda
+    from qpn_tpu_torch.ops import eg_cuda, lemke_cuda, screen_cuda
     from qpn_tpu_torch.ops.avi import (batch_from_numpy,
                                        solve_avi_batch_adaptive,
                                        solve_kkt_avi_batch)
@@ -363,10 +608,11 @@ def main() -> None:
     print(card)
 
     # 2. build: one nvcc for each source, started together
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         builds = {name: pool.submit(timed_build, mod.build)
                   for name, mod in (("csrc/lemke_pivot.cu", lemke_cuda),
-                                    ("csrc/eg_warmstart.cu", eg_cuda))}
+                                    ("csrc/eg_warmstart.cu", eg_cuda),
+                                    ("csrc/screen.cu", screen_cuda))}
         secs = {name: f.result() for name, f in builds.items()}
     say("build: " + ", ".join(f"{name} in {t:.1f} s"
                               for name, t in secs.items()))
@@ -451,6 +697,24 @@ def main() -> None:
     # 9. forced stragglers through lemke_escalate
     forced_stragglers(data, batch, device, say, card)
 
+    # 10. feasibility screen kernel vs plain loop
+    CONFIG.device = "cuda"
+    polys, truth = screen_batch(SCREEN_B, SCREEN_M, SCREEN_N, SEED)
+    say(f"screen batch: {SCREEN_B} seeded polyhedra, dimension {SCREEN_N}, "
+        f"{SCREEN_M} rows, {int(truth.sum())} empty by construction")
+    scr_err, t_scr, t_scr_plain = compare_screen(polys, truth, device, say,
+                                                 card, "seeded")
+
+    # 11. the geometry entry point
+    scr_launches = geometry_entry(polys, truth, device, say, card)
+
+    # 12. solve() end to end, then the screen on robust_avoid's pieces
+    pieces = solve_zoo(device, say, card)
+    CONFIG.device = "cuda"
+    compare_screen([p.closure() for p in pieces], None, device, say, card,
+                   "robust_avoid solution-graph closures")
+    CONFIG.device = "cpu"
+
     print(json.dumps({"kernels": [{
         "name": lemke_cuda.KERNEL, "route": "cuda",
         "source": "qpn_tpu_torch/csrc/lemke_pivot.cu",
@@ -461,7 +725,12 @@ def main() -> None:
         "source": "qpn_tpu_torch/csrc/eg_warmstart.cu",
         "replaces": "qpn_tpu/ops/pallas_kernels.py:57",
         "launches": eg_launches, "max_abs_err": eg_err,
-        "ms": t_eg * 1e3, "plain_ms": t_eg_plain * 1e3}]}))
+        "ms": t_eg * 1e3, "plain_ms": t_eg_plain * 1e3}, {
+        "name": screen_cuda.KERNEL, "route": "cuda",
+        "source": "qpn_tpu_torch/csrc/screen.cu",
+        "replaces": "qpn_tpu/ops/pallas_kernels.py:205",
+        "launches": scr_launches, "max_abs_err": scr_err,
+        "ms": t_scr * 1e3, "plain_ms": t_scr_plain * 1e3}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,15 @@
 """qpn_tpu_torch — the PyTorch/CUDA port of qpn_tpu (Quadratic Program
 Networks).
 
-Slice 1 of the port: model building for the robust-avoidance scenario
-ensembles and the batched KKT-AVI ensemble solve
-(``ops.avi.solve_kkt_avi_batch``), whose pivot loop runs in a hand-written
-Hopper kernel (``csrc/lemke_pivot.cu``) for CUDA tensors.  The package
+The port holds model building for all sixteen setups, the multilevel
+equilibrium ``solve()`` with its solution graphs and the geometry layer
+(``geometry``), and the batched engines: the KKT-AVI ensemble solve
+(``ops.avi.solve_kkt_avi_batch``), the generic adaptive AVI solve, the
+batched ADMM (``ops.batch_qp``) and the feasibility screen (``ops.screen``).
+Three loops run in hand-written Hopper kernels for CUDA tensors: the Lemke
+pivot loop (``csrc/lemke_pivot.cu``), the extragradient warm start
+(``csrc/eg_warmstart.cu``) and the feasibility screen (``csrc/screen.cu``).
+The host algorithm puts its batched work on ``CONFIG.device``.  The package
 imports neither ``jax`` nor ``qpn_tpu``; ``qpn_tpu`` stays the reference that
 the tests hold this package against.
 """
@@ -15,5 +20,6 @@ from .options import QPNetOptions  # noqa: F401
 from .network import QP, Constraint, Quadratic, Linear, QPNet  # noqa: F401
 from .frontend import variables, variable  # noqa: F401
 from .models import setup  # noqa: F401
+from .algorithm import solve, solve_many  # noqa: F401
 from .ops.avi import solve_kkt_avi_batch, batch_from_numpy  # noqa: F401
 from .utils.metrics import METRICS  # noqa: F401

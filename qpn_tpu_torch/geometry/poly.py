@@ -14,8 +14,7 @@ IntersectionPoly / PolyUnion hierarchy, sets.jl:68-207):
   parent references for the request subsystem.
 
 All scalars here are numpy float64 on host.  The batched emptiness /
-containment queries (the JAX package's ``geometry/setops.py``) are not
-ported yet (ROADMAP slice 2).
+containment queries live in ``setops.py``.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""Problem zoo of the port — the two robust-avoidance models of slice 1
-(the JAX package's ``qpn_tpu/models`` holds all sixteen; the rest come with
-ROADMAP slice 2).
+"""Problem zoo of the port — the sixteen setups of ``qpn_tpu/models``, the
+same numpy model definitions (the reference's ``examples/``,
+QuadraticProgramNetworks.jl:29-31, plus larger stress configs).
 
 ``setup(name, **kwargs)`` mirrors the reference's ``setup(::Val{name})``
 convention (programs.jl:139-141)."""
@@ -27,7 +27,19 @@ def setup(name, **kwargs):
     return _REGISTRY[name](**kwargs)
 
 
+from . import simple_bilevel          # noqa: E402,F401
 from . import robust_avoid_simple     # noqa: E402,F401
+from . import four_player_matrix_game # noqa: E402,F401
 from . import robust_avoid            # noqa: E402,F401
+from . import deep_synthetic          # noqa: E402,F401
+from . import rock_paper_scissors     # noqa: E402,F401
+from . import toll_setting            # noqa: E402,F401
+from . import chainstore              # noqa: E402,F401
+from . import trilevel_escape         # noqa: E402,F401
+from . import shepherd_sheep          # noqa: E402,F401
+from . import robust_constrained      # noqa: E402,F401
+from . import small_deprecated        # noqa: E402,F401
+from . import control_avoid           # noqa: E402,F401
+from . import interpolation_avoid     # noqa: E402,F401
 
 __all__ = ["setup", "register"]

@@ -205,7 +205,7 @@ class QPNet:
                 for i in self.network_depth_map[lv]
                 for v in self.qps[i].var_indices]
 
-    # -- structure copies --------------------------------------------------
+    # -- warm start --------------------------------------------------------
     def flatten(self) -> "QPNet":  # programs.jl:118-125
         qpnf = copy.deepcopy(self)
         qpnf.network_edges.clear()
@@ -213,6 +213,15 @@ class QPNet:
         qpnf.network_depth_map.clear()
         qpnf.add_edges([])
         return qpnf
+
+    def get_flat_initialization(self, x0=None):  # programs.jl:127-132
+        from .algorithm import solve
+        qpn_flat = self.flatten()
+        qpn_flat.options.gen_solution_map = False
+        if x0 is None:
+            x0 = np.zeros(self.num_vars)
+        ret = solve(qpn_flat, x0)
+        return ret.x_opt
 
     def display_solution(self, x) -> None:  # programs.jl:322-328
         for i, name in enumerate(self.variable_names):

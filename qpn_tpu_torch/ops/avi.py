@@ -1,7 +1,9 @@
-"""Batched AVI ensemble solves — the PyTorch port of ``qpn_tpu/ops/avi.py``
-(slice 1: the structures, the natural residual, the Newton polish and the
-Lemke route of ``solve_kkt_avi_batch``; slice 2: the generic hybrid solver
-and its adaptive, mixed-precision and padded wrappers).
+"""Batched AVI ensemble solves — the PyTorch port of ``qpn_tpu/ops/avi.py``:
+the structures, the natural residual, the Newton polish, both routes of
+``solve_kkt_avi_batch`` (Lemke, and ADMM on the recovered QP), the generic
+hybrid solver with its adaptive, mixed-precision and padded wrappers, and the
+host-level single-problem wrappers of the equilibrium algorithm
+(``solve_avi``, ``solve_gavi`` and their helpers).
 
 The box mixed complementarity problem
 
@@ -17,8 +19,9 @@ extragradient solver in escalating budgets, then proximal Lemke pivoting
 (``lemke.lemke_escalate``) on whatever is left.  Every result is audited
 against the natural residual ``Φ(z) = z − clip(z − (Mz + q), l, u)``.
 
-All device work follows the input tensors' device; the pivot loop and the
-extragradient steps run in hand-written CUDA kernels for CUDA tensors
+All batched device work follows the input tensors' device (the host
+wrappers put it on ``CONFIG.device``); the pivot loop and the extragradient
+steps run in hand-written CUDA kernels for CUDA tensors
 (``CONFIG.lemke_kernel``, ``CONFIG.eg_kernel``).
 
 GAVI structures and the slack-augmentation conversion mirror avi.jl:18-39 and
@@ -36,7 +39,7 @@ import torch
 
 from ..config import CONFIG, bucket
 from ..utils.metrics import METRICS
-from . import lemke
+from . import batch_qp, lemke
 from .eg import eg_step, eg_warmstart, ruiz
 from .linalg import ridge_solve
 
@@ -187,25 +190,29 @@ def solve_avi_batch_polish(M, q, l, u, z0, var_mask, tol=1e-10,
 
 def solve_kkt_avi_batch(M, q, l, u, var_mask, structure, tol=1e-10,
                         method: str = "lemke") -> AVIResult:
-    """Structured solve for stacked-KKT AVI ensembles, Lemke route.
+    """Structured solve for stacked-KKT AVI ensembles.
 
-    Batched complementary pivoting on the KKT AVI directly: the f32 pivot
-    path terminates on an exact complementary basis in ~n pivots, the f64
-    refactorization of that basis lands machine-precision values, and the
-    natural-residual audit decides each lane.  Stragglers get a short f64
-    Newton polish, then an f64 re-pivot (the same engine in f64).
+    ``method="lemke"``: batched complementary pivoting on the KKT AVI
+    directly: the f32 pivot path terminates on an exact complementary basis
+    in ~n pivots, the f64 refactorization of that basis lands machine-
+    precision values, and the natural-residual audit decides each lane.
+    Stragglers get a short f64 Newton polish, then an f64 re-pivot (the same
+    engine in f64); lanes still uncertified (counted in
+    ``METRICS["kkt_uncertified_lanes"]``) re-solve on the ADMM route.
+
+    ``method="admm"``: recover the QP from the KKT blocks (``structure``'s
+    ``nd`` decisions and ``m`` rows), solve it with the batched ADMM engine,
+    rebuild ``(λ, s)``, and Newton-polish the lanes above ``tol``.
 
     Tensors: M (B,n,n), q/l/u (B,n) of any float dtype (the solve is f64),
     var_mask (B,n) bool, all on one device.  Not ported yet, and raising
-    ``NotImplementedError``: ``method="admm"`` and the shared-matrix route
-    for large ``shared_M`` ensembles.  Lanes still uncertified after the
-    re-pivot (the JAX package hands them to ADMM) come back with
-    ``converged=False`` and are counted in
-    ``METRICS["kkt_uncertified_lanes"]``."""
+    ``NotImplementedError``: the shared-matrix route for large ``shared_M``
+    ensembles."""
+    if method == "admm":
+        return _solve_kkt_avi_admm(M, q, l, u, var_mask, structure, tol)
     if method != "lemke":
-        raise NotImplementedError(
-            f"method={method!r}: the batched ADMM route (qpn_tpu/ops/"
-            "batch_qp.py) is not ported yet — ROADMAP queue 1, 'ADMM route'")
+        raise ValueError(f"unknown method {method!r} (expected 'lemke' or "
+                         "'admm')")
     f64, f32 = torch.float64, torch.float32
     M, q, l, u = (a.to(f64) for a in (M, q, l, u))
     vm = var_mask.to(torch.bool)
@@ -261,7 +268,63 @@ def solve_kkt_avi_batch(M, q, l, u, var_mask, structure, tol=1e-10,
         pivL[idx] += piv64.to(torch.int64)
         okL = residL <= tol
     METRICS.bump("kkt_uncertified_lanes", int((~okL).sum()))
-    return AVIResult(z=zL, resid=residL, iters=pivL, converged=okL)
+    if bool(okL.all()):
+        return AVIResult(z=zL, resid=residL, iters=pivL, converged=okL)
+    # re-solve the uncertified lanes through the ADMM + polish route
+    idx = torch.nonzero(~okL)[:, 0]
+    sub = _solve_kkt_avi_admm(M[idx], q[idx], l[idx], u[idx], vm[idx],
+                              structure, tol)
+    zL[idx] = sub.z
+    residL[idx] = sub.resid
+    pivL[idx] += sub.iters
+    return AVIResult(z=zL, resid=residL, iters=pivL, converged=residL <= tol)
+
+
+def _solve_kkt_avi_admm(M, q, l, u, var_mask, structure, tol) -> AVIResult:
+    """ADMM route of :func:`solve_kkt_avi_batch`.  The KKT blocks hold
+
+        rows 0..nd:      Q x − A'λ + c = 0
+        rows nd..nd+m:   A x − s + off = 0
+        vars nd+m..:     s with bounds [l2, u2],
+
+    so the QP is  min ½x'Qx + c'x  s.t.  l2 − off ≤ A x ≤ u2 − off."""
+    f64 = torch.float64
+    M, q, l, u = (a.to(f64) for a in (M, q, l, u))
+    vm = var_mask.to(torch.bool)
+    B, n, _ = M.shape
+    nd, m = structure["nd"], structure["m"]
+    assert n >= nd + 2 * m
+    Q = M[:, :nd, :nd]
+    A = M[:, nd:nd + m, :nd]
+    c = q[:, :nd]
+    off = q[:, nd:nd + m]
+    l2 = l[:, nd + m:nd + 2 * m]
+    u2 = u[:, nd + m:nd + 2 * m]
+    sol = batch_qp.solve_qp_batch(
+        Q, c, A, l2 - off, u2 - off,
+        torch.ones(B, m, dtype=torch.bool, device=q.device), eps=1e-9)
+    s = (A @ sol.x[:, :, None])[:, :, 0] + off
+    z = torch.cat([sol.x, -sol.y, s], 1)
+    if n > nd + 2 * m:             # padded tail
+        z = torch.nn.functional.pad(z, (0, n - nd - 2 * m))
+    resid = natural_residual(M, q, l, u, z, vm)
+    # f64 Newton polish for lanes above tolerance: first the light Newton-
+    # only pass, then the full hybrid solver only for whatever remains
+    need = torch.nonzero(resid > tol)[:, 0]
+    if need.numel():
+        res = solve_avi_batch_polish(M[need], q[need], l[need], u[need],
+                                     z[need], vm[need], tol=tol)
+        z[need] = res.z
+        resid[need] = res.resid
+        need = torch.nonzero(resid > tol)[:, 0]
+        if need.numel():
+            res = solve_avi_batch_padded(M[need], q[need], l[need], u[need],
+                                         z[need], vm[need], tol=tol,
+                                         max_iter=780)
+            z[need] = res.z
+            resid[need] = res.resid
+    return AVIResult(z=z, resid=resid, iters=sol.iters,
+                     converged=resid <= tol)
 
 
 # --------------------------------------------------------------------------
@@ -547,3 +610,119 @@ def solve_avi_batch_adaptive(M, q, l, u, z0, var_mask, *, tol=1e-10,
         conv_out[idx] = resid_out[idx] <= tol
     return AVIResult(z=z_out, resid=resid_out, iters=iters_out,
                      converged=conv_out)
+
+
+# --------------------------------------------------------------------------
+#  Host-level single-problem wrappers (the reference's call pattern)
+# --------------------------------------------------------------------------
+
+def check_avi_solution(avi: AVI, z, w, tol: float = 1e-6):
+    """Residual audit of a proposed AVI solution (avi.jl:148-156)."""
+    z = np.asarray(z, dtype=np.float64)
+    r = avi.M @ z + avi.N @ np.asarray(w, dtype=np.float64) + avi.o
+    r_pos = r > tol
+    r_neg = r < -tol
+    bad = (np.sum(np.abs(z[r_pos] - avi.l[r_pos]) > tol)
+           + np.sum(np.abs(z[r_neg] - avi.u[r_neg]) > tol)
+           + np.sum(z - avi.l < -tol) + np.sum(z - avi.u > tol))
+    return bad == 0, int(bad), r
+
+
+def solve_avi(avi: AVI, z0, w, convergence_tolerance: float = 1e-10,
+              num_restarts: int = 4, seed: int = 0):
+    """Solve one AVI instance (avi.jl:63-77 semantics).
+
+    Robustness via multi-start: the warm start, the origin and scaled random
+    points solve as ONE batch on ``CONFIG.device`` (restart_limits=5 in the
+    reference's PATH call plays the same role); the best iterate wins, and
+    an unconverged best goes through proximal Lemke escalation.  The choice
+    among the starts is host glue in numpy.  Returns (z, status) with
+    SUCCESS iff the natural residual meets the tolerance AND the
+    check_avi_solution audit passes."""
+    w = np.asarray(w, dtype=np.float64)
+    q = avi.N @ w + avi.o
+    n = q.shape[0]
+    rng = np.random.default_rng(seed)
+    starts = [np.asarray(z0, dtype=np.float64), np.zeros(n)]
+    scale = 1.0 + np.abs(np.asarray(z0)).max()
+    for _ in range(max(0, num_restarts - 2)):
+        starts.append(rng.standard_normal(n) * scale)
+    Z0 = np.stack(starts)
+    B = Z0.shape[0]
+    dev = torch.device(CONFIG.device)
+
+    def rep(a):
+        return torch.as_tensor(np.repeat(np.asarray(a)[None], B, axis=0),
+                               dtype=torch.float64, device=dev)
+
+    res = solve_avi_batch_padded(
+        rep(avi.M), rep(q), rep(avi.l), rep(avi.u),
+        torch.as_tensor(Z0, device=dev),
+        torch.ones(B, n, dtype=torch.bool, device=dev),
+        tol=convergence_tolerance, max_iter=4000)
+    resid = res.resid.cpu().numpy()
+    best = int(np.argmin(resid))
+    z = res.z[best].cpu().numpy()
+    ok = bool(res.converged[best])
+    if not ok:
+        # escalation tier: proximal Lemke pivoting — the problem class where
+        # smooth methods stall (degenerate multi-player LP-KKT QEPs) is
+        # exactly what the reference's PATH pivoting handles (avi.jl:63-77)
+        zL, rL = lemke.lemke_escalate(
+            rep(avi.M)[:1], rep(q)[:1], rep(avi.l)[:1], rep(avi.u)[:1],
+            torch.as_tensor(z[None], device=dev),
+            torch.ones(1, n, dtype=torch.bool, device=dev),
+            tol=convergence_tolerance)
+        rL0 = float(rL[0])
+        if rL0 < resid[best]:
+            z, ok = zL[0].cpu().numpy(), bool(rL0 <= convergence_tolerance)
+    sol_ok, degree, _ = check_avi_solution(avi, z, w, tol=1e-6)
+    status = Status.SUCCESS if (ok and sol_ok) else Status.FAILURE
+    return z, status
+
+
+def find_closest_feasible(gavi: GAVI, z0, w):
+    """Presolve: project z0 onto the GAVI's second-block feasible set
+    (avi.jl:79-99): min ‖z−z0‖² s.t. l2 ≤ Az + Bw ≤ u2."""
+    n = len(z0)
+    c = gavi.B @ np.asarray(w, dtype=np.float64)
+    sol = batch_qp.solve_qp_np(
+        np.eye(n), -np.asarray(z0, dtype=np.float64),
+        gavi.A, gavi.l2 - c, gavi.u2 - c)
+    if sol.status in (batch_qp.SOLVED, batch_qp.SOLVED_INACCURATE):
+        return np.asarray(sol.x)
+    return np.asarray(z0, dtype=np.float64)
+
+
+def solve_gavi(gavi: GAVI, z0, w, presolve: bool = True,
+               convergence_tolerance: float = 1e-10):
+    """GAVI solve via slack augmentation (avi.jl:101-111)."""
+    z0 = np.asarray(z0, dtype=np.float64)
+    if presolve:
+        z0 = find_closest_feasible(gavi, z0, w)
+    avi = convert_gavi(gavi)
+    d1, d2 = gavi.d1, gavi.d2
+    s = gavi.A @ z0 + gavi.B @ np.asarray(w, dtype=np.float64)
+    z0s = np.concatenate([z0, s])
+    z, status = solve_avi(avi, z0s, w, convergence_tolerance)
+    return z[:d1 + d2], status
+
+
+def relax_gavi(gavi: GAVI, relaxable_inds) -> GAVI:
+    """Promote chosen parameters to free decision variables (avi.jl:130-146)."""
+    relaxable_inds = list(relaxable_inds)
+    mw = gavi.N.shape[1]
+    param_inds = [i for i in range(mw) if i not in set(relaxable_inds)]
+    d1, d2 = gavi.d1, gavi.d2
+    dr = len(relaxable_inds)
+    M = np.vstack([
+        np.zeros((dr, d1 + d2 + dr)),
+        np.hstack([gavi.N[:, relaxable_inds], gavi.M]),
+    ])
+    N = np.vstack([np.zeros((dr, len(param_inds))), gavi.N[:, param_inds]])
+    o = np.concatenate([np.zeros(dr), gavi.o])
+    l1 = np.concatenate([np.full(dr, -np.inf), gavi.l1])
+    u1 = np.concatenate([np.full(dr, np.inf), gavi.u1])
+    A = np.hstack([gavi.B[:, relaxable_inds], gavi.A])
+    B = gavi.B[:, param_inds]
+    return GAVI(M, N, o, l1, u1, A, B, gavi.l2, gavi.u2)

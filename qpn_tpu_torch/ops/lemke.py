@@ -31,6 +31,12 @@ Layout of the port:
 * :func:`solve_lemke_batch_padded` and :func:`lemke_escalate` — the f64
   pivot solve and the proximal-Lemke escalation tier of the generic
   adaptive solver (``ops/avi.solve_avi_batch_adaptive``).
+* The LP engines of the geometry layer, on the LP's KKT AVI (numpy in,
+  ``batch_qp.QPSolution`` of numpy out): :func:`solve_lp_host_batch` (the
+  native C++ pivot loop at exact shapes) and :func:`solve_lp_lemke_batch`
+  (the batched engine above on ``CONFIG.device``, K1 for CUDA); both audit
+  every lane (:func:`_classify_lp_pivot`) and hand uncertified lanes to
+  the ADMM engine.
 """
 
 from __future__ import annotations
@@ -716,3 +722,218 @@ def lemke_escalate(M, q, l, u, z0, var_mask, *, tol=1e-10,
             r_best[idx[better]] = r_new[better]
         z_ref = z_best.clone()
     return z_best, r_best
+
+
+# --------------------------------------------------------------------------
+#  LP engines of the geometry layer
+# --------------------------------------------------------------------------
+
+def _classify_lp_pivot(c, x, Ax, l, u, resid, status, tol, row_mask=None):
+    """Shared trust-ladder classification for both LP pivot routes.
+
+    Only certificates we can trust: SOLVED needs the audited natural
+    residual; DUAL_INFEASIBLE (unbounded) needs a primal-feasible point
+    pressed far into the synthetic box with a correspondingly huge
+    objective.  Everything else — including apparent primal violation,
+    which may just be pivot-path numerical degradation — is MAX_ITER and
+    falls back to the ADMM engine with its certificates.
+
+    NaN violations (inf-cancellation on a garbage fallback point) map to
+    +inf so they FAIL the feasibility gate: a positive certificate must
+    never be granted on an unverifiable point."""
+    from . import batch_qp
+    with np.errstate(invalid="ignore"):
+        viol = np.maximum(np.maximum(
+            np.where(np.isfinite(l), l, -_INF) - Ax,
+            Ax - np.where(np.isfinite(u), u, _INF)), 0.0)
+    viol = np.nan_to_num(viol, nan=np.inf, posinf=np.inf)
+    if row_mask is not None:
+        viol = np.where(row_mask, viol, 0.0)
+    pviol = viol.max(axis=1, initial=0.0)
+    clean = status == LEMKE_SUCCESS
+    solved = clean & (resid <= tol)
+    obj = np.einsum("bn,bn->b", c, x)
+    huge = 1e3 * (1.0 + np.abs(np.where(np.isfinite(l), l, 0.0)).max(
+        axis=1, initial=0.0)
+        + np.abs(np.where(np.isfinite(u), u, 0.0)).max(axis=1, initial=0.0)
+        + np.abs(c).sum(axis=1))
+    unbounded = clean & ~solved & (pviol <= 1e-6) & (obj < -huge)
+    st = np.where(solved, batch_qp.SOLVED,
+                  np.where(unbounded, batch_qp.DUAL_INFEASIBLE,
+                           batch_qp.MAX_ITER)).astype(np.int32)
+    return st, pviol, obj
+
+
+def _lp_kkt(c, A, l, u, row_mask):
+    """The LP ``min c'x s.t. l ≤ Ax ≤ u`` as the box AVI over z = [x; λ; s]:
+
+        rows x (free):  c − A'λ = 0
+        rows λ (free):  A x − s = 0
+        rows s:         λ  ⟂  l ≤ s ≤ u
+
+    Returns (M, q, lA, uA) for numpy c (B,n), A (B,m,n), l/u (B,m); masked
+    rows get zero bounds (their variables are masked out by the caller)."""
+    B, m, n = A.shape
+    N = n + 2 * m
+    M = np.zeros((B, N, N))
+    M[:, :n, n:n + m] = -A.transpose(0, 2, 1)
+    M[:, n:n + m, :n] = A
+    if m:
+        M[:, n:n + m, n + m:] = -np.eye(m)[None]
+        M[:, n + m:, n:n + m] = np.eye(m)[None]
+    q = np.concatenate([c, np.zeros((B, 2 * m))], axis=1)
+    lA = np.concatenate([np.full((B, n + m), -_INF),
+                         np.where(row_mask, l, 0.0)], axis=1)
+    uA = np.concatenate([np.full((B, n + m), _INF),
+                         np.where(row_mask, u, 0.0)], axis=1)
+    return M, q, lA, uA
+
+
+def _admm_fallback(sol_fields, bad, c, A, l, u, row_mask):
+    """Re-solve the ``bad`` lanes of an LP batch with the ADMM engine and
+    write x, y, z, obj and status into ``sol_fields``."""
+    from . import batch_qp
+    idx = np.nonzero(bad)[0]
+    n0 = A.shape[2]
+    sol = batch_qp.solve_qp_batch_padded(
+        np.zeros((len(idx), n0, n0)), c[idx], A[idx], l[idx], u[idx],
+        row_mask[idx], _no_lemke=True)
+    for f in ("x", "y", "z", "obj", "status"):
+        sol_fields[f][idx] = getattr(sol, f)
+
+
+def solve_lp_host_batch(c, A, l, u, row_mask, *, tol=1e-7):
+    """Native exact-shape pivot solve for a batch of small dense LPs.
+
+    Same KKT-AVI formulation and status discipline as
+    :func:`solve_lp_lemke_batch`, run by the C++ port of the host pivot
+    oracle (``utils/native.lemke_batch``) on EXACT shapes, each lane with
+    its own active rows.  For the ≤64-row LPs behind geometry support and
+    emptiness queries each solve takes a fraction of a millisecond.  Lanes
+    whose pivot run is uncertified fall back to the ADMM engine.  Returns a
+    ``batch_qp.QPSolution`` of numpy arrays, or None when the native
+    library is unavailable."""
+    from . import batch_qp
+    from ..utils import native
+    from ..utils.metrics import METRICS
+    if not native.native_available():
+        return None
+    c = np.asarray(c, dtype=np.float64)
+    A = np.asarray(A, dtype=np.float64)
+    l = np.asarray(l, dtype=np.float64)
+    u = np.asarray(u, dtype=np.float64)
+    row_mask = np.asarray(row_mask, dtype=bool)
+    B0, m0, n0 = A.shape
+    out = dict(x=np.zeros((B0, n0)), y=np.zeros((B0, m0)), obj=np.zeros(B0),
+               status=np.full(B0, batch_qp.MAX_ITER, dtype=np.int32))
+    piv = np.zeros(B0, dtype=np.int64)
+    pviol_out = np.zeros(B0)
+    resid_out = np.zeros(B0)
+    acts = [np.nonzero(row_mask[b])[0] for b in range(B0)]
+    groups: dict = {}
+    for b in range(B0):
+        groups.setdefault(len(acts[b]), []).append(b)
+    for m, idxs in groups.items():
+        k = len(idxs)
+        act = np.stack([acts[b] for b in idxs]).reshape(k, m)
+        Ab = np.take_along_axis(A[idxs], act[:, :, None], axis=1)
+        lb = np.take_along_axis(l[idxs], act, axis=1)
+        ub = np.take_along_axis(u[idxs], act, axis=1)
+        M, q, lA, uA = _lp_kkt(c[idxs], Ab, lb, ub, np.ones((k, m), bool))
+        z, stg, pg = native.lemke_batch(M, q, lA, uA, tol=1e-11,
+                                        max_pivots=max(400, 20 * M.shape[1]))
+        xg = z[:, :n0]
+        lam = z[:, n0:n0 + m]
+        # audit: natural residual of the TRUE (un-boxed) KKT AVI; every row
+        # is real at these exact shapes, so it is unmasked
+        F = np.einsum("bij,bj->bi", M, z) + q
+        with np.errstate(invalid="ignore"):
+            proj = np.clip(z - F, lA, uA)
+        resid = np.abs(z - proj).max(axis=1, initial=0.0)
+        Ax = np.einsum("bmn,bn->bm", Ab, xg)
+        stl, pviol, obj_g = _classify_lp_pivot(c[idxs], xg, Ax, lb, ub,
+                                               resid, stg, tol)
+        bidx = np.asarray(idxs)
+        out["x"][bidx] = xg
+        y_tmp = np.zeros((k, m0))
+        np.put_along_axis(y_tmp, act, -lam, axis=1)
+        out["y"][bidx] = y_tmp
+        out["obj"][bidx] = obj_g
+        out["status"][bidx] = stl
+        piv[bidx] = pg
+        pviol_out[bidx] = pviol
+        resid_out[bidx] = resid
+    METRICS.bump("lp_host", B0)
+    bad = out["status"] == batch_qp.MAX_ITER
+    zproj = np.einsum("bmn,bn->bm", A, out["x"])
+    with np.errstate(invalid="ignore"):
+        out["z"] = np.clip(zproj, np.where(np.isfinite(l), l, -1e20),
+                           np.where(np.isfinite(u), u, 1e20))
+    if bad.any():
+        METRICS.bump("lp_host_fallback", int(bad.sum()))
+        _admm_fallback(out, bad, c, A, l, u, row_mask)
+    return batch_qp.QPSolution(prim_res=pviol_out, dual_res=resid_out,
+                               iters=piv, **out)
+
+
+def solve_lp_lemke_batch(c, A, l, u, row_mask, *, tol=1e-7):
+    """Exact batched LP solve by complementary pivoting on the LP's KKT AVI
+    (:func:`_lp_kkt`), in f64 on ``CONFIG.device`` (the pivot loop in K1's
+    f64 instance for CUDA).
+
+    ``min c'x s.t. l ≤ A x ≤ u`` with free variables: the shape of every
+    support / emptiness / membership LP of the geometry layer.  Pivoting
+    ends on an exact complementary basis in tens of pivots, with exact
+    duals.  Returns a ``batch_qp.QPSolution`` of numpy arrays with the same
+    sign conventions (``y = −λ``, so y>0 pushes on the upper bound).
+
+    Status (see :func:`_classify_lp_pivot`): a certified natural residual
+    ⇒ SOLVED; a primal-feasible point pressed into the synthetic box ⇒
+    DUAL_INFEASIBLE; everything else is MAX_ITER and falls back to the ADMM
+    engine, which owns the PRIMAL_INFEASIBLE certificates.  The JAX package
+    pads every axis to its buckets for XLA's compile cache; padded
+    variables are pinned and never pivot, so the port runs at exact shapes
+    and sizes only the pivot budget from the buckets."""
+    from . import batch_qp
+    from ..utils.metrics import METRICS
+    c = np.asarray(c, dtype=np.float64)
+    A = np.asarray(A, dtype=np.float64)
+    l = np.asarray(l, dtype=np.float64)
+    u = np.asarray(u, dtype=np.float64)
+    row_mask = np.asarray(row_mask, dtype=bool)
+    B0, m0, n0 = A.shape
+    M, q, lA, uA = _lp_kkt(c, A, l, u, row_mask)
+    vm = np.concatenate([np.ones((B0, n0), bool), row_mask, row_mask], axis=1)
+    Np = (bucket(max(n0, 1), CONFIG.dim_buckets)
+          + 2 * bucket(max(m0, 1), CONFIG.row_buckets))
+    max_pivots = 256
+    while max_pivots < min(4096, 12 * Np + 128):
+        max_pivots *= 2
+    dev = torch.device(CONFIG.device)
+    f64 = torch.float64
+    t = [torch.as_tensor(a, dtype=f64, device=dev) for a in (M, q, lA, uA)]
+    zt, st_t, piv_t, _, _ = solve_lemke_batch_state_auto(
+        *t, torch.zeros_like(t[1]), torch.as_tensor(vm, device=dev),
+        tol=1e-11, max_pivots=max_pivots)
+    z, status, piv = (a.cpu().numpy() for a in (zt, st_t, piv_t))
+    x = z[:, :n0]
+    lam = np.where(row_mask, z[:, n0:n0 + m0], 0.0)
+    F = np.einsum("bij,bj->bi", M, z) + q
+    with np.errstate(invalid="ignore"):
+        proj = np.clip(z - F, lA, uA)
+    resid = np.abs(np.where(vm, z - proj, 0.0)).max(axis=1, initial=0.0)
+    Ax = np.einsum("bmn,bn->bm", A, x)
+    st, pviol, _ = _classify_lp_pivot(c, x, Ax, l, u, resid, status, tol,
+                                      row_mask=row_mask)
+    with np.errstate(invalid="ignore"):
+        zproj = np.clip(Ax, np.where(np.isfinite(l), l, -1e20),
+                        np.where(np.isfinite(u), u, 1e20))
+    out = dict(x=np.array(x), y=-lam, z=zproj,
+               obj=np.einsum("bn,bn->b", c, x), status=st)
+    METRICS.bump("lp_lemke", B0)
+    bad = st == batch_qp.MAX_ITER
+    if bad.any():
+        METRICS.bump("lp_lemke_fallback", int(bad.sum()))
+        _admm_fallback(out, bad, c, A, l, u, row_mask)
+    return batch_qp.QPSolution(prim_res=pviol, dual_res=resid,
+                               iters=piv.astype(np.int64), **out)

@@ -1,0 +1,139 @@
+"""Wrapper of the hand-written Hopper kernel for the f32 feasibility screen
+(``csrc/screen.cu``; it replaces the JAX package's Pallas kernel
+``qpn_tpu/ops/pallas_kernels.py::_screen_kernel``).
+
+:func:`feasibility_screen_cuda` takes the prepared f32 tensors of
+``screen.screen_prepare`` and returns each polyhedron's x after ``steps``
+projected-subgradient steps and its max |violation|, exactly like the plain
+PyTorch loop ``screen.screen_steps_torch`` it is held against.  It takes CUDA
+tensors only and raises on anything the kernel does not take; there is no
+fallback to the plain loop.  The kernel is built with nvcc on first use
+(``utils/cuda_build.py``) and launched on the current stream; every launch is
+counted in ``METRICS.launches["feasibility_screen"]``.
+
+:func:`screen_steps_host` runs the same lane code built with g++ on CPU
+tensors — the CPU tests' window on the kernel's logic.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ..utils.cuda_build import load_cuda_library, load_host_library
+from ..utils.metrics import METRICS
+
+KERNEL = "feasibility_screen"
+_ERR_SMEM = -1
+_PARAMS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float]
+_CUDA_LIB: Optional[ctypes.CDLL] = None
+_HOST_LIB: Optional[ctypes.CDLL] = None
+
+
+def _cuda_lib() -> ctypes.CDLL:
+    global _CUDA_LIB
+    if _CUDA_LIB is None:
+        lib = load_cuda_library(KERNEL, ["screen.cu"], ["screen_lane.cuh"])
+        lib.qpn_screen_f32.restype = ctypes.c_int
+        lib.qpn_screen_f32.argtypes = _PARAMS + [ctypes.c_void_p]
+        lib.qpn_screen_lane_bytes.restype = ctypes.c_longlong
+        lib.qpn_screen_lane_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.qpn_screen_error_string.restype = ctypes.c_char_p
+        lib.qpn_screen_error_string.argtypes = [ctypes.c_int]
+        _CUDA_LIB = lib
+    return _CUDA_LIB
+
+
+def _host_lib() -> ctypes.CDLL:
+    global _HOST_LIB
+    if _HOST_LIB is None:
+        lib = load_host_library("screen_lane_host", ["screen_lane_host.cpp"],
+                                ["screen_lane.cuh"])
+        lib.qpn_screen_host_f32.restype = None
+        lib.qpn_screen_host_f32.argtypes = _PARAMS
+        _HOST_LIB = lib
+    return _HOST_LIB
+
+
+def build() -> None:
+    """Build (or find) the kernel library now, so a caller can time the
+    build apart from the first launch."""
+    _cuda_lib()
+
+
+def _check(A, l, u, x0, steps) -> None:
+    """Device, dtype, shape and contiguity of every input, as the kernel
+    reads them."""
+    if A.dim() != 3:
+        raise ValueError(f"screen kernel: A shape {tuple(A.shape)}, expected "
+                         "(B, m, n)")
+    B, m, n = A.shape
+    want = dict(A=(B, m, n), l=(B, m), u=(B, m), x0=(B, n))
+    for name, t in zip(want, (A, l, u, x0)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"screen kernel: {name} is {t.dtype}, expected "
+                            "float32")
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"screen kernel: {name} shape {tuple(t.shape)}, "
+                             f"expected {want[name]}")
+        if t.device != A.device:
+            raise ValueError(f"screen kernel: {name} on {t.device}, A on "
+                             f"{A.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"screen kernel: {name} is not contiguous")
+    if steps < 0:
+        raise ValueError(f"screen kernel: steps={steps} < 0")
+
+
+def _args(A, l, u, x0, x_out, v_out, steps, lr):
+    B, m, n = A.shape
+    return [*(t.data_ptr() for t in (A, l, u, x0, x_out, v_out)), B, m, n,
+            int(steps), float(lr)]
+
+
+def feasibility_screen_cuda(A, l, u, x0, steps: int, lr: float):
+    """Run ``steps`` screen steps of every polyhedron in the CUDA kernel (one
+    launch).  A (B,m,n) row-normalised; l/u (B,m); x0 (B,n); all f32 on one
+    CUDA device.  Returns (x (B,n), max |v| (B,))."""
+    if A.device.type != "cuda":
+        raise ValueError("feasibility_screen_cuda takes CUDA tensors; CPU "
+                         "tensors go to screen.screen_steps_torch")
+    _check(A, l, u, x0, steps)
+    B, m, n = A.shape
+    x_out = torch.empty_like(x0)
+    v_out = torch.empty(B, dtype=torch.float32, device=A.device)
+    if B == 0:
+        return x_out, v_out
+    if m == 0 or n == 0:
+        raise ValueError(f"screen kernel: polyhedra of shape {(m, n)}; the "
+                         "caller gives every polyhedron at least one row")
+    lib = _cuda_lib()
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    with torch.cuda.device(A.device):
+        rc = lib.qpn_screen_f32(*_args(A, l, u, x0, x_out, v_out, steps, lr),
+                                stream)
+    if rc == _ERR_SMEM:
+        raise ValueError(f"screen kernel: a polyhedron of {m} rows in "
+                         f"dimension {n} needs "
+                         f"{lib.qpn_screen_lane_bytes(m, n)} bytes of shared "
+                         "memory, more than a block can have on this card")
+    if rc != 0:
+        raise RuntimeError("screen kernel launch failed: "
+                           + lib.qpn_screen_error_string(rc).decode())
+    METRICS.launched(KERNEL)
+    return x_out, v_out
+
+
+def screen_steps_host(A, l, u, x0, steps: int, lr: float):
+    """The kernel's lane code built for the host, on CPU tensors."""
+    if A.device.type != "cpu":
+        raise ValueError("screen_steps_host takes CPU tensors")
+    _check(A, l, u, x0, steps)
+    B, m, n = A.shape
+    x_out = torch.empty_like(x0)
+    v_out = torch.empty(B, dtype=torch.float32)
+    _host_lib().qpn_screen_host_f32(
+        *_args(A, l, u, x0, x_out, v_out, steps, lr))
+    return x_out, v_out

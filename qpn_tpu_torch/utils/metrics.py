@@ -48,11 +48,14 @@ class Metrics:
             with self._lock:
                 self.timers[name] += dt
 
-    def reset(self) -> None:
+    def reset(self, launches: bool = True) -> None:
+        """Clear the counters and timers, and the launch counts unless
+        ``launches`` is False."""
         with self._lock:
             self.counters.clear()
             self.timers.clear()
-            self.launches.clear()
+            if launches:
+                self.launches.clear()
 
     def snapshot(self) -> Dict[str, float]:
         out = dict(self.counters)

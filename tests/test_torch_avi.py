@@ -87,8 +87,22 @@ def test_polish_matches_reference_on_perturbed_starts():
 
 
 def test_admm_method_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ADMM route"):
-        _solve(_ensemble(8, 0), tol=TOL, method="admm")
+    """method="admm" is ported now (the name is the test's history): the QP
+    recovered from the KKT blocks, the batched ADMM and the Newton polish
+    certify every lane, at the JAX package's z within 1e-8 (the KKT
+    solution is unique); an unknown method raises."""
+    b = _ensemble(8, 0)
+    res = _solve(b, tol=TOL, method="admm")
+    ref = ref_avi.solve_kkt_avi_batch(b["M"], b["q"], b["l"], b["u"],
+                                      b["mask"], b["structure"], tol=TOL,
+                                      method="admm")
+    assert bool(res.converged.all())
+    np.testing.assert_array_equal(res.converged.numpy(),
+                                  np.asarray(ref.converged))
+    np.testing.assert_allclose(res.z.numpy(), np.asarray(ref.z), rtol=0,
+                               atol=1e-8)
+    with pytest.raises(ValueError, match="unknown method"):
+        _solve(b, tol=TOL, method="pivot")
 
 
 def test_shared_route_is_not_ported(monkeypatch):
@@ -104,9 +118,9 @@ def test_shared_route_is_not_ported(monkeypatch):
 
 def test_uncertified_lanes_are_reported():
     """Lanes no stage can certify (here: a tolerance below f64 resolution)
-    go through the polish and the f64 re-pivot, then come back with
-    converged=False and are counted, where the JAX package would go on to
-    ADMM."""
+    go through the polish and the f64 re-pivot, are counted, and re-solve
+    on the ADMM route as in the JAX package; nothing certifies them at this
+    tolerance, so they come back with converged=False."""
     b = _ensemble(8, 0)
     before = dict(METRICS.counters)
     res = _solve(b, tol=1e-300)

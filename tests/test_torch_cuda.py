@@ -12,7 +12,7 @@ import torch
 
 from qpn_tpu_torch.config import CONFIG
 from qpn_tpu_torch.models.robust_avoid import scenario_batch_gavis
-from qpn_tpu_torch.ops import eg, eg_cuda, lemke
+from qpn_tpu_torch.ops import eg, eg_cuda, lemke, screen, screen_cuda
 from qpn_tpu_torch.ops.avi import (batch_from_numpy, solve_avi_batch_adaptive,
                                    solve_kkt_avi_batch)
 from qpn_tpu_torch.ops.lemke_cuda import KERNEL, lemke_pivot_cuda
@@ -179,3 +179,89 @@ def test_eg_kernel_setting_torch_skips_the_kernel(cuda_device):
         assert METRICS.launches[eg_cuda.KERNEL] == 0
     finally:
         CONFIG.eg_kernel = old
+
+
+# --------------------------------------------------------------------------
+#  feasibility screen kernel (csrc/screen.cu)
+# --------------------------------------------------------------------------
+
+def _screen_polys(B, m, n, seed=0):
+    """Seeded polyhedra, every odd one empty by two rows with one normal and
+    bounds 2 apart; returns (polys, empty truth)."""
+    from qpn_tpu_torch.geometry import Poly
+    rng = np.random.default_rng(seed)
+    polys, truth = [], np.zeros(B, dtype=bool)
+    for b in range(B):
+        A = rng.standard_normal((m, n))
+        ax = A @ (0.1 * rng.standard_normal(n))
+        w = 0.5 + rng.random(m)
+        l, u = ax - w, ax + w
+        u[2] = np.inf                   # a one-sided row
+        if b % 2:
+            A[1] = A[0]
+            l[0], u[0] = ax[0] + 1.0, np.inf
+            l[1], u[1] = -np.inf, ax[0] - 1.0
+            truth[b] = True
+        polys.append(Poly(A, l, u, normalize=False, dedupe=False))
+    return polys, truth
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,m,n", [(8, 5, 3), (512, 18, 18), (64, 300, 40)],
+                         ids=["small", "wide", "tall"])
+def test_screen_kernel_matches_plain_loop(cuda_device, B, m, n):
+    """Kernel and plain loop on the same prepared inputs: x and max |v|
+    within 1e-4 of the scale (f32, sums in another order over 120
+    contracting steps); one counted launch."""
+    polys, _ = _screen_polys(B, m, n)
+    ins = [torch.as_tensor(a, device=cuda_device)
+           for a in screen.screen_prepare(polys)]
+    before = METRICS.launches[screen_cuda.KERNEL]
+    xk, vk = screen_cuda.feasibility_screen_cuda(*ins, 120, 0.05)
+    torch.cuda.synchronize()
+    assert METRICS.launches[screen_cuda.KERNEL] == before + 1
+    xp, vp = screen.screen_steps_torch(*ins, 120, 0.05)
+    scale = 1.0 + xp.abs().amax(1, keepdim=True)
+    assert float(((xk - xp).abs() / scale).max()) <= 1e-4
+    assert float(((vk - vp).abs() / (1.0 + vp)).max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_screen_kernel_keeps_nan(cuda_device):
+    """A NaN start stays NaN in x and max |v| (no fmaxf/fminf)."""
+    polys, _ = _screen_polys(4, 6, 3)
+    A, l, u, x0 = (torch.as_tensor(a, device=cuda_device)
+                   for a in screen.screen_prepare(polys))
+    x0[1, 0] = float("nan")
+    xk, vk = screen_cuda.feasibility_screen_cuda(A, l, u, x0, 10, 0.05)
+    assert bool(torch.isnan(vk[1])) and bool(torch.isnan(xk[1]).any())
+    assert bool(torch.isfinite(vk[[0, 2, 3]]).all())
+
+
+@pytest.mark.gpu
+def test_screen_kernel_rejects_a_block_too_large_for_shared_memory(
+        cuda_device):
+    B, m, n = 1, 300, 300          # 300 x 301 f32 rows: 361 KB
+    A = torch.zeros(B, m, n, device=cuda_device)
+    l = torch.full((B, m), -float("inf"), device=cuda_device)
+    u = torch.full((B, m), float("inf"), device=cuda_device)
+    x0 = torch.zeros(B, n, device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        screen_cuda.feasibility_screen_cuda(A, l, u, x0, 120, 0.05)
+
+
+@pytest.mark.gpu
+def test_is_empty_batch_on_the_card_goes_through_the_screen(
+        cuda_device, monkeypatch):
+    """geometry.is_empty_batch with device="cuda" and the screen on: the
+    verdicts of the exact LPs, at least one screen launch."""
+    from qpn_tpu_torch.geometry import is_empty_batch
+    from qpn_tpu_torch.geometry.query_cache import CACHE
+    polys, truth = _screen_polys(64, 18, 18, seed=1)
+    monkeypatch.setattr(CONFIG, "device", "cuda")
+    monkeypatch.setattr(CONFIG, "use_screen", True)
+    CACHE.clear()
+    before = METRICS.launches[screen_cuda.KERNEL]
+    out = is_empty_batch(polys)
+    assert METRICS.launches[screen_cuda.KERNEL] > before
+    np.testing.assert_array_equal(out, truth)

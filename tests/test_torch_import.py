@@ -14,6 +14,18 @@ import qpn_tpu_torch
 import qpn_tpu_torch.algorithm, qpn_tpu_torch.ops.lemke_cuda
 import qpn_tpu_torch.ops.avi, qpn_tpu_torch.ops.eg, qpn_tpu_torch.ops.eg_cuda
 import qpn_tpu_torch.utils.cuda_build, qpn_tpu_torch.utils.native
+import qpn_tpu_torch.ops.batch_qp, qpn_tpu_torch.ops.screen
+import qpn_tpu_torch.ops.screen_cuda, qpn_tpu_torch.geometry.setops
+import qpn_tpu_torch.geometry.project, qpn_tpu_torch.geometry.vertices
+import qpn_tpu_torch.geometry.rays, qpn_tpu_torch.geometry.query_cache
+import qpn_tpu_torch.enumeration, qpn_tpu_torch.requests
+import qpn_tpu_torch.parallel.sharded
+for name in ("simple_bilevel", "four_player_matrix_game", "robust_avoid",
+             "deep_synthetic", "rock_paper_scissors", "toll_setting",
+             "chainstore", "trilevel_escape", "shepherd_sheep",
+             "robust_constrained", "control_avoid", "interpolation_avoid"):
+    qpn_tpu_torch.setup(name)
+qpn_tpu_torch.solve(qpn_tpu_torch.setup("shepherd_sheep"))
 qpn_tpu_torch.models.robust_avoid.scenario_batch_gavis(num_scenarios=2, T=2)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "qpn_tpu"))

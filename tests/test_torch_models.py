@@ -31,6 +31,20 @@ def test_scenario_batch_equals_reference(S, seed):
 @pytest.mark.parametrize("name,kw", [
     ("robust_avoid", dict(T=2, num_obj=1, seed=0)),
     ("robust_avoid_simple", dict(num_obj=2, seed=1)),
+    ("simple_bilevel", dict(gen_solution_map=True)),
+    ("shepherd_sheep", dict()),
+    ("toll_setting", dict()),
+    ("rock_paper_scissors", dict(bilevel=True)),
+    ("trilevel_escape", dict()),
+    ("four_player_matrix_game", dict(edge_list=[(1, 2), (3, 4)], seed=2)),
+    ("chainstore", dict(num_towns=3)),
+    ("deep_synthetic", dict(levels=8, width=1)),
+    ("robust_constrained", dict()),
+    ("control_avoid", dict()),
+    ("interpolation_avoid", dict()),
+    ("bilevel_escape", dict()),
+    ("repeated_variable_control", dict()),
+    ("simple_network", dict()),
 ])
 def test_setup_builds_the_reference_network(name, kw):
     port = port_models.setup(name, **kw)
@@ -57,8 +71,12 @@ def test_setup_builds_the_reference_network(name, kw):
 
 
 def test_setup_rejects_models_of_later_slices():
-    with pytest.raises(KeyError, match="robust_avoid"):
-        port_models.setup("simple_bilevel")
+    """Every setup of the JAX package is ported now (the name is the test's
+    history): the registries hold the same names, and an unknown name still
+    raises with the list of the available ones."""
+    assert sorted(port_models._REGISTRY) == sorted(ref_models._REGISTRY)
+    with pytest.raises(KeyError, match="simple_bilevel"):
+        port_models.setup("no_such_model")
 
 
 def test_native_dedupe_matches_reference():

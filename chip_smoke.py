@@ -42,11 +42,12 @@ Phases, one line each, with their seconds; any failure exits non-zero:
    max |v| within the stated bounds, the same polyhedra witnessed outside
    the margin band, no empty one witnessed; both timed with CUDA events,
    median of 7;
-11. the geometry entry point ``geometry.is_empty_batch`` on that batch with
-   ``CONFIG.device = "cuda"``, once with the screen on and once off: both
+11. the geometry entry point ``geometry.is_empty_batch`` on that batch on
+   the port's default device (the card), once with the screen on and once
+   off: both
    verdicts equal to each other and to the truth by construction, at least
    one screen kernel launch, the witnessed count, polyhedra/s both ways;
-12. ``solve()`` end to end with ``CONFIG.device = "cuda"``: the ten zoo
+12. ``solve()`` end to end on the default device (the card): the ten zoo
    models of ``benchmarks/framework_bench.py`` and the 8 golden
    simple_bilevel points, each solved, with the QEP and piece counts of
    ``ZOO_r05_cpu.json`` (robust_avoid: 7 QEP, 60 pieces) and x_opt equal to
@@ -55,7 +56,11 @@ Phases, one line each, with their seconds; any failure exits non-zero:
    expected to be 0: no zoo model reaches it); then phase 10's comparison
    on the closures of robust_avoid's solution-graph pieces.
 
-Then one JSON line for the kernels, and the last line
+Then one JSON line for the kernels (launches on the main paths, error
+against the plain version, the kernel's, the plain version's and the bound's
+milliseconds: the larger of the bytes each call must move over 3.35 TB/s
+and its operations over 67 TFLOP/s, the f32 rate outside the tensor cores,
+counted from this run's shapes, steps and pivots), and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The script needs no network and imports nothing of JAX.
 """
@@ -127,6 +132,61 @@ GOLDEN = [
     ([0.0, 0.0], [[0.0, 0.0]], 3),
 ]
 X_OPT_TOL = 1e-6      # solve() on the card vs on the CPU, same machine
+# Published peaks of one H100 SXM: device memory rate and f32 rate outside
+# the tensor cores (what these three f32 kernels can use).
+PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes: float, flops: float):
+    """(least ms the card could take, which resource sets it, bytes, flops):
+    every input read once and every output written once over the memory
+    rate, against the operations over the f32 rate."""
+    t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
+    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations",
+            nbytes, flops)
+
+
+def lemke_bound(init, res):
+    """K1: the tableau and the lane vectors in, the basis and values out; an
+    iteration's basic values are 2·n·(3n+1) operations and its rank-1
+    update 2·n·(3n+2), times the iterations these lanes took."""
+    n = init.T.shape[1]
+    iters = float((res.piv.double() + 1).sum())
+    return bound(tensor_bytes(*init) + tensor_bytes(*res),
+                 iters * (2 * n * (3 * n + 1) + 2 * n * (3 * n + 2)))
+
+
+def eg_bound(ins, out, steps):
+    """K2: M and the lane vectors in, z out; a half-step is n rows of n
+    multiply-adds plus 5 operations (add q, scale, subtract, two clips)."""
+    B, n = out.shape
+    return bound(tensor_bytes(*ins, out), B * steps * 2.0 * (2 * n * n + 5 * n))
+
+
+def screen_bound(ins, outs, steps):
+    """K3: A, l, u, x0 in, x and max |v| out; a step is A x and Aᵀ v (2·m·n
+    operations each), the violation (4 per row) and the update (2 per
+    variable); one more violation at the end."""
+    B, m, n = ins[0].shape
+    return bound(tensor_bytes(*ins, *outs),
+                 B * (steps * (4.0 * m * n + 4 * m + 2 * n) + 2 * m * n + 4 * m))
+
+
+def kernel_row(name, source, replaces, launches, err, t_k, t_p, bnd):
+    """One entry of the kernels line.  No single PyTorch call computes any of
+    these loops (a data-dependent pivot path, thousands of dependent
+    steps), so library_ms is null."""
+    ms, by, nbytes, flops = bnd
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": t_k * 1e3, "plain_ms": t_p * 1e3, "bound_ms": ms,
+            "bound_by": by, "share_of_bound": ms / (t_k * 1e3),
+            "bound_bytes": nbytes, "bound_operations": flops,
+            "library_ms": None}
 
 
 def fail(msg: str) -> None:
@@ -182,7 +242,8 @@ def timed_build(build):
 def compare_engines(data, lanes, dtype, kw, kernel, device):
     """Kernel vs plain pivot loop on the same setup: status and pivot counts
     equal on every lane, refactorized residual and z within tolerance.
-    Returns (max |z_kernel - z_plain|, kernel s, plain s, kernel result)."""
+    Returns (max |z_kernel - z_plain|, kernel s, plain s, kernel result,
+    the bound of that launch)."""
     import torch
     from qpn_tpu_torch.ops import lemke
     from qpn_tpu_torch.ops.avi import natural_residual
@@ -213,7 +274,7 @@ def compare_engines(data, lanes, dtype, kw, kernel, device):
         fail(f"{dtype}: refactorized z differs by {err!r}")
     t_k = device_timed(lambda: kernel(init, **kw), device)
     t_p = device_timed(lambda: lemke.lemke_pivot_torch(init, **kw), device)
-    return err, t_k, t_p, rk
+    return err, t_k, t_p, rk, lemke_bound(init, rk)
 
 
 class Clock:
@@ -244,7 +305,7 @@ def numpy_audit(batch, z, lanes=None):
 def compare_eg(data, device, say, card):
     """Kernel vs plain extragradient loop on all lanes from the same
     prepared inputs, at 300 and EG_STEPS steps.  Returns (max |dz| at
-    EG_STEPS, kernel s, plain s)."""
+    EG_STEPS, kernel s, plain s, the bound of that launch)."""
     import torch
     from qpn_tpu_torch.ops import eg, eg_cuda
     from qpn_tpu_torch.ops.avi import natural_residual
@@ -285,7 +346,7 @@ def compare_eg(data, device, say, card):
             f"kernel {t_k * 1e3:.4f} ms (median of {REPEATS}), plain "
             f"{t_p * 1e3:.4f} ms (median of "
             f"{REPEATS if steps < EG_STEPS else 3}) [{card}]")
-    return max_abs, t_k, t_p
+    return max_abs, t_k, t_p, eg_bound(ins, zk, EG_STEPS)
 
 
 def generic_path(data, batch, device, z_kkt, say, card):
@@ -415,7 +476,7 @@ def screen_batch(B, m, n, seed):
 
 def compare_screen(polys, truth, device, say, card, label):
     """Screen kernel vs plain loop on the same prepared inputs.  Returns
-    (max |dx|, kernel s, plain s)."""
+    (max |dx|, kernel s, plain s, the bound of that launch)."""
     import torch
     from qpn_tpu_torch.ops import screen, screen_cuda
     prob = screen.screen_prepare(polys)
@@ -455,7 +516,7 @@ def compare_screen(polys, truth, device, say, card, label):
         f"{int(wk.sum())} kernel, {int(wp.sum())} plain (margin "
         f"{SCREEN_MARGIN}); kernel {t_k * 1e3:.4f} ms, plain "
         f"{t_p * 1e3:.4f} ms (median of {REPEATS}) [{card}]")
-    return max_abs, t_k, t_p
+    return max_abs, t_k, t_p, screen_bound(ins, (xk, vk), SCREEN_STEPS)
 
 
 def geometry_entry(polys, truth, device, say, card):
@@ -513,6 +574,7 @@ def solve_zoo(device, say, card):
     from qpn_tpu_torch.utils.metrics import METRICS
     kernels = (lemke_cuda.KERNEL, eg_cuda.KERNEL, screen_cuda.KERNEL)
     METRICS.reset()
+    default_device = CONFIG.device
     walls = {"cuda": 0.0, "cpu": 0.0}
     pieces = None
     for name, kw, x0, want_qep, want_pieces in ZOO:
@@ -551,7 +613,7 @@ def solve_zoo(device, say, card):
             f"{int(c.get('admm_calls', 0))} ADMM calls, "
             f"{int(c.get('admm_blocks', 0))} ADMM blocks of 25 iterations, "
             f"{int(c.get('lp_host', 0))} host LPs [{card}]")
-    CONFIG.device = "cuda"
+    CONFIG.device = default_device      # the card again, for the rest
     CACHE.clear()
     golden_wall = 0.0
     qpn = qt.setup("simple_bilevel", gen_solution_map=True)
@@ -566,7 +628,6 @@ def solve_zoo(device, say, card):
             fail(f"simple_bilevel golden point w={w}: solved {ret.solved}, "
                  f"x_opt {ret.x_opt}")
     launches = {k: METRICS.launches[k] for k in kernels}
-    CONFIG.device = "cpu"
     say(f"solve() zoo: {len(ZOO)}/{len(ZOO)} models solved at ZOO_r05_cpu.json's counts on "
         f"both devices, wall {walls['cuda']:.3f} s device=cuda, "
         f"{walls['cpu']:.3f} s device=cpu; golden simple_bilevel 8/8 on the "
@@ -585,6 +646,8 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this smoke run needs a "
              "CUDA device")
     from qpn_tpu_torch.config import CONFIG
+    if CONFIG.device != "cuda":
+        fail(f"the port's default device is {CONFIG.device!r}, not the card")
     from qpn_tpu_torch.models.robust_avoid import scenario_batch_gavis
     from qpn_tpu_torch.ops import eg_cuda, lemke_cuda, screen_cuda
     from qpn_tpu_torch.ops.avi import (batch_from_numpy,
@@ -620,23 +683,26 @@ def main() -> None:
     # 3. ensemble
     batch = scenario_batch_gavis(num_scenarios=S, T=T_STEPS, num_obj=NUM_OBJ,
                                  num_poly_faces=FACES, seed=SEED)
-    data = batch_from_numpy(batch, device)
+    data = batch_from_numpy(batch)      # on CONFIG.device: the card
+    if data["M"].device.type != "cuda":
+        fail(f"batch_from_numpy put the ensemble on {data['M'].device}")
     B, n = data["q"].shape
     say(f"ensemble: robust_avoid S={B} T={T_STEPS} num_obj={NUM_OBJ} "
           f"n={n} structure={data['structure']}")
 
     # 4. kernel vs plain, f32, all lanes
-    err32, t_k32, t_p32, r32 = compare_engines(
+    err32, t_k32, t_p32, r32, bound32 = compare_engines(
         data, B, torch.float32, HOT, lemke_cuda.lemke_pivot_cuda, device)
     piv = r32.piv.double() + 1
     say(f"lemke_pivot f32 B={B} n={n}: status and pivots identical on all "
           f"lanes (pivots {int(piv.min())}-{int(piv.max())}, median "
           f"{float(piv.median()):.0f}), max |dz| {err32:.3g} <= {Z_TOL}; "
           f"kernel {t_k32 * 1e3:.4f} ms, plain {t_p32 * 1e3:.4f} ms "
-          f"(median of {REPEATS}) [{card}]")
+          f"(median of {REPEATS}), bound {bound32[0]:.5f} ms by "
+          f"{bound32[1]} [{card}]")
 
     # 5. kernel vs plain, f64 instance
-    err64, t_k64, t_p64, _ = compare_engines(
+    err64, t_k64, t_p64, _, _ = compare_engines(
         data, 16, torch.float64, F64, lemke_cuda.lemke_pivot_cuda, device)
     say(f"lemke_pivot f64 B=16 n={n}: status and pivots identical, max "
           f"|dz| {err64:.3g}; kernel {t_k64 * 1e3:.4f} ms, plain "
@@ -689,7 +755,7 @@ def main() -> None:
           f"{dz.max():.3g} on {int(same.sum())}/8 lanes [{card}]")
 
     # 7. extragradient kernel vs plain loop
-    eg_err, t_eg, t_eg_plain = compare_eg(data, device, say, card)
+    eg_err, t_eg, t_eg_plain, eg_bnd = compare_eg(data, device, say, card)
 
     # 8. the generic main path
     eg_launches = generic_path(data, batch, device, z_kkt, say, card)
@@ -698,39 +764,32 @@ def main() -> None:
     forced_stragglers(data, batch, device, say, card)
 
     # 10. feasibility screen kernel vs plain loop
-    CONFIG.device = "cuda"
     polys, truth = screen_batch(SCREEN_B, SCREEN_M, SCREEN_N, SEED)
     say(f"screen batch: {SCREEN_B} seeded polyhedra, dimension {SCREEN_N}, "
         f"{SCREEN_M} rows, {int(truth.sum())} empty by construction")
-    scr_err, t_scr, t_scr_plain = compare_screen(polys, truth, device, say,
-                                                 card, "seeded")
+    scr_err, t_scr, t_scr_plain, scr_bnd = compare_screen(
+        polys, truth, device, say, card, "seeded")
 
     # 11. the geometry entry point
     scr_launches = geometry_entry(polys, truth, device, say, card)
 
     # 12. solve() end to end, then the screen on robust_avoid's pieces
     pieces = solve_zoo(device, say, card)
-    CONFIG.device = "cuda"
     compare_screen([p.closure() for p in pieces], None, device, say, card,
                    "robust_avoid solution-graph closures")
-    CONFIG.device = "cpu"
 
-    print(json.dumps({"kernels": [{
-        "name": lemke_cuda.KERNEL, "route": "cuda",
-        "source": "qpn_tpu_torch/csrc/lemke_pivot.cu",
-        "replaces": "qpn_tpu/ops/lemke_pallas.py:118",
-        "launches": launches, "max_abs_err": err32,
-        "ms": t_k32 * 1e3, "plain_ms": t_p32 * 1e3}, {
-        "name": eg_cuda.KERNEL, "route": "cuda",
-        "source": "qpn_tpu_torch/csrc/eg_warmstart.cu",
-        "replaces": "qpn_tpu/ops/pallas_kernels.py:57",
-        "launches": eg_launches, "max_abs_err": eg_err,
-        "ms": t_eg * 1e3, "plain_ms": t_eg_plain * 1e3}, {
-        "name": screen_cuda.KERNEL, "route": "cuda",
-        "source": "qpn_tpu_torch/csrc/screen.cu",
-        "replaces": "qpn_tpu/ops/pallas_kernels.py:205",
-        "launches": scr_launches, "max_abs_err": scr_err,
-        "ms": t_scr * 1e3, "plain_ms": t_scr_plain * 1e3}]}))
+    if CONFIG.device != "cuda":
+        fail(f"CONFIG.device was left at {CONFIG.device!r}")
+    print(json.dumps({"kernels": [
+        kernel_row(lemke_cuda.KERNEL, "qpn_tpu_torch/csrc/lemke_pivot.cu",
+                   "qpn_tpu/ops/lemke_pallas.py:118", launches, err32, t_k32,
+                   t_p32, bound32),
+        kernel_row(eg_cuda.KERNEL, "qpn_tpu_torch/csrc/eg_warmstart.cu",
+                   "qpn_tpu/ops/pallas_kernels.py:57", eg_launches, eg_err,
+                   t_eg, t_eg_plain, eg_bnd),
+        kernel_row(screen_cuda.KERNEL, "qpn_tpu_torch/csrc/screen.cu",
+                   "qpn_tpu/ops/pallas_kernels.py:205", scr_launches,
+                   scr_err, t_scr, t_scr_plain, scr_bnd)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -38,6 +38,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .config import numeric_device
 from .enumeration import process_solution_graph
 from .geometry import setops
 from .geometry.project import project as project_poly
@@ -1316,9 +1317,15 @@ def solve(qpn: QPNet, x_init=None, parent_level_request=frozenset(),
     package's per-iteration checkpoints) is not ported yet and raises.
 
     The counters and timers of ``METRICS`` restart at every call; the
-    kernel launch counts do not (a caller reads them across calls)."""
+    kernel launch counts do not (a caller reads them across calls).
+
+    The batched work runs on ``CONFIG.device``, the card by default; without
+    a CUDA device the call raises (set ``CONFIG.device = "cpu"``)."""
     if checkpoint_path is not None:
         raise NotImplementedError(_CHECKPOINT_TODO)
+    # A missing device is the caller's to settle, not a failed solve:
+    # solve_base would catch the error and report solved=False.
+    numeric_device()
     if x_init is None:
         x_init = qpn.default_initialization
     if rng is None:

@@ -16,12 +16,14 @@ import dataclasses
 @dataclasses.dataclass
 class NumericConfig:
     # Device of the batched numeric work that the host algorithm starts from
-    # numpy data (ADMM, AVI, Lemke, the feasibility screen): "cpu" or
-    # "cuda" (or "cuda:<index>").  There is no auto-detection: the caller
-    # sets it.  The f64 sign-split glue of the host algorithm (the dual
-    # recovery of algorithm.verify_solutions_batch, the multi-start choice
-    # of avi.solve_avi) stays in numpy on the host whatever the device.
-    device: str = "cpu"
+    # numpy data (ADMM, AVI, Lemke, the feasibility screen): "cuda" (or
+    # "cuda:<index>"), the default, or "cpu" when the caller asks for it.
+    # There is no auto-detection and no fallback: with "cuda" and no CUDA
+    # device, numeric_device() raises.  The f64 sign-split glue of the host
+    # algorithm (the dual recovery of algorithm.verify_solutions_batch, the
+    # multi-start choice of avi.solve_avi) stays in numpy on the host
+    # whatever the device.
+    device: str = "cuda"
     # Row-count bucket sizes.  The geometry layer groups its LP batches by
     # the bucket of the row count (and pads rows to it, as the JAX package
     # does; masked rows change no lane's numbers); the Lemke pivot budget of
@@ -87,6 +89,19 @@ class NumericConfig:
 
 
 CONFIG = NumericConfig()
+
+
+def numeric_device():
+    """``CONFIG.device`` as a ``torch.device``.  Raises when it names a CUDA
+    device and PyTorch finds none: the CPU is used only when asked for."""
+    import torch
+    dev = torch.device(CONFIG.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f'CONFIG.device is "{CONFIG.device}" and PyTorch finds no CUDA '
+            'device; set qpn_tpu_torch.CONFIG.device = "cpu" to run on the '
+            "CPU")
+    return dev
 
 
 def screen_enabled() -> bool:

@@ -1,16 +1,26 @@
 // Per-lane logic of the fused extragradient warm start for box AVIs
 //     M z + q  ⟂  l ≤ z ≤ u,
-// shared by the Hopper kernel (eg_warmstart.cu: one thread block per lane)
-// and a host instance built with g++ for the CPU tests (eg_lane_host.cpp:
-// one "thread", tid 0 of 1).
+// shared by the Hopper kernels (eg_warmstart.cu) and a host instance built
+// with g++ for the CPU tests (eg_lane_host.cpp).
 //
 // Each step is Korpelevich's extragradient pair, in f32:
 //     z½ = Π[l,u](z − τ(Mz + q)),   z⁺ = Π[l,u](z − τ(Mz½ + q)).
-// Thread i owns rows i, i+nthr, ...; a step is two phases separated by
-// barriers (QPN_SYNC: __syncthreads() on the card, a no-op on the host):
-// phase 1 reads all of z and writes z½ of its rows, phase 2 reads all of z½
-// and writes z of its rows.  Every row's dot product runs j = 0..n-1 in
-// order, then adds q, as the plain version's (M z) + q does.
+//
+// The order of every row's sum (M x)_i is defined here, once, by a
+// partition (G, C): the row's columns are cut into G chunks of C
+// neighbouring columns (G·C ≥ n, the tail padded with zeros); chunk g is
+// summed in column order from 0, and the G partial sums are joined by a
+// butterfly, p_g ← p_g + p_{g xor o} for o = G/2, ..., 1.  Then q_i is
+// added.  Two bodies walk that order:
+//   * eg_chunk<C> + eg_tree<G>: the register kernel.  A group of G
+//     neighbouring threads of one warp owns the row; each holds its chunk
+//     of the row in registers for all steps, reads z from shared memory
+//     and joins with xor shuffles;
+//   * eg_row_sum: a loop over the same partition and the same butterfly,
+//     for the host instance.  The generic kernel's partition is (1, n): one
+//     chunk, plain column order (eg_row).
+// Floating-point addition commutes, so every thread of a group ends the
+// butterfly with the same bits, and the loop reproduces them.
 //
 // The projection is min(max(x, l), u) with NaN passing through, like
 // torch.clamp and jnp.clip: a lane that diverges to NaN stays NaN, and the
@@ -47,6 +57,66 @@ struct EGBatch {
     int B, n, steps;
 };
 
+// Threads that share a row in the register kernel.
+constexpr int kEgGroup = 4;
+
+// The chunk length C of the register kernel's instance for rows of n
+// columns: the smallest instantiated C with kEgGroup·C ≥ n, or 0 where there
+// is none (n beyond the instances: the generic kernel, whose partition is
+// (1, n)).
+QPN_EG_HD int eg_pick_chunk(int n) {
+    return n <= 16 ? 4 : n <= 40 ? 10 : n <= 64 ? 16 : n <= 128 ? 32 : 0;
+}
+
+QPN_EG_HD float eg_clip(float x, float lo, float hi) {
+    return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// One chunk's partial sum from registers: m and x hold the chunk's C
+// entries of the row and of the vector.
+template <int C>
+QPN_EG_HD float eg_chunk(const float (&m)[C], const float (&x)[C]) {
+    float acc = 0.0f;
+#if defined(__CUDA_ARCH__)
+#pragma unroll
+#endif
+    for (int k = 0; k < C; ++k) acc = acc + m[k] * x[k];
+    return acc;
+}
+
+#if defined(__CUDACC__)
+// The butterfly over a group of G neighbouring threads of a warp.
+template <int G>
+__device__ __forceinline__ float eg_tree(float acc) {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1)
+        acc = acc + __shfl_xor_sync(0xffffffffu, acc, o);
+    return acc;
+}
+#endif
+
+// (M x)_i for one row under the partition (G, C), as a loop: the chunks in
+// column order, then the same butterfly on the array of partial sums.
+template <int G>
+QPN_EG_HD float eg_row_sum(const float* Mi, const float* x, int n, int C) {
+    float part[G], next[G];
+    for (int g = 0; g < G; ++g) {
+        float acc = 0.0f;
+        for (int k = 0; k < C; ++k) {
+            const int j = g * C + k;
+            acc = acc + (j < n ? Mi[j] : 0.0f) * (j < n ? x[j] : 0.0f);
+        }
+        part[g] = acc;
+    }
+    for (int o = G / 2; o > 0; o >>= 1) {
+        for (int g = 0; g < G; ++g) next[g] = part[g] + part[g ^ o];
+        for (int g = 0; g < G; ++g) part[g] = next[g];
+    }
+    return part[0];
+}
+
+// ---- the lane in memory: the generic kernel and the host instance -------
+
 // One lane's working set (shared memory on the card).  The matrix rows are
 // ld = n | 1 floats apart: an odd stride puts the rows that neighbouring
 // threads read on different banks.
@@ -62,7 +132,6 @@ struct EGLane {
 
 QPN_EG_HD int eg_ld(int n) { return n | 1; }
 
-// Bytes of one lane's working set: about 6.7 KB at n=38.
 QPN_EG_HD size_t eg_lane_bytes(int n) {
     return ((size_t)n * eg_ld(n) + 5 * (size_t)n) * sizeof(float);
 }
@@ -80,10 +149,6 @@ QPN_EG_HD EGLane eg_lane_carve(float* base, int n) {
     return L;
 }
 
-QPN_EG_HD float eg_clip(float x, float lo, float hi) {
-    return x < lo ? lo : (x > hi ? hi : x);
-}
-
 QPN_EG_HD void eg_lane_load(const EGLane& L, const EGBatch& bt, size_t b,
                             int tid, int nthr) {
     const int n = L.n;
@@ -98,23 +163,33 @@ QPN_EG_HD void eg_lane_load(const EGLane& L, const EGBatch& bt, size_t b,
     QPN_EG_SYNC();
 }
 
-// (M x)_i + q_i for row i, summed in column order.
-QPN_EG_HD float eg_row(const EGLane& L, const float* x, int i) {
+// Thread tid of nthr owns rows tid, tid+nthr, ...; a step is two phases
+// separated by barriers: z½ from z, then z from z½.
+// (M x)_i + q_i for row i of the lane in memory.  G = 1 is one chunk: the
+// plain column order.
+template <int G>
+QPN_EG_HD float eg_row(const EGLane& L, const float* x, int i, int C) {
     const float* Mi = L.M + (size_t)i * L.ld;
-    float acc = 0.0f;
-    for (int j = 0; j < L.n; ++j) acc += Mi[j] * x[j];
-    return acc + L.q[i];
+    if (G == 1) {
+        float acc = 0.0f;
+        for (int j = 0; j < L.n; ++j) acc += Mi[j] * x[j];
+        return acc + L.q[i];
+    }
+    return eg_row_sum<G>(Mi, x, L.n, C) + L.q[i];
 }
 
-QPN_EG_HD void eg_lane_run(const EGLane& L, float tau, int steps, int tid,
-                           int nthr) {
+template <int G>
+QPN_EG_HD void eg_lane_run(const EGLane& L, float tau, int steps, int C,
+                           int tid, int nthr) {
     const int n = L.n;
     for (int s = 0; s < steps; ++s) {
         for (int i = tid; i < n; i += nthr)
-            L.zh[i] = eg_clip(L.z[i] - tau * eg_row(L, L.z, i), L.l[i], L.u[i]);
+            L.zh[i] = eg_clip(L.z[i] - tau * eg_row<G>(L, L.z, i, C), L.l[i],
+                              L.u[i]);
         QPN_EG_SYNC();
         for (int i = tid; i < n; i += nthr)
-            L.z[i] = eg_clip(L.z[i] - tau * eg_row(L, L.zh, i), L.l[i], L.u[i]);
+            L.z[i] = eg_clip(L.z[i] - tau * eg_row<G>(L, L.zh, i, C), L.l[i],
+                             L.u[i]);
         QPN_EG_SYNC();
     }
 }

@@ -4,11 +4,27 @@
 // and a host instance built with g++ for the CPU tests
 // (lemke_lane_host.cpp: one "thread", tid 0 of 1).
 //
-// The functions take the thread index and count as arguments; QPN_SYNC() is
-// __syncthreads() in device code and a no-op on the host.  Data-parallel
-// steps (basic values, ratio test, rank-1 tableau update) are split over the
-// threads; the scalar decisions (min ratio, ties, lexicographic refinement,
-// bound flip, complement rule) are thread-0 steps between barriers.
+// The functions take the thread index and count as arguments.  A pivot is
+// four phases between block barriers (QPN_SYNC: __syncthreads() in device
+// code, a no-op on the host):
+//   A. basic values and the ratio test.  A row's sum is split over a group
+//      of G = kLemkeSplit = 4 neighbouring threads: G chunks of neighbouring
+//      columns, each summed in column order, joined by a butterfly
+//      (lane_basic_value walks the same order in a loop, for the host);
+//   B. the decision, by the first warp: min ratio, tie set, the t-row rule
+//      and the lexicographic refinement are scans over the rows joined by
+//      warp votes and reductions (lk_ballot, lk_reduce_min, lk_broadcast:
+//      warp intrinsics in device code; on the host one thread scans every
+//      row and they are the identity).  min, compare and first-index do not
+//      depend on the order they are taken in, so every thread count makes
+//      the same choices;
+//   S. for a pivot, the staging of the scaled pivot row and of the entering
+//      column, one element a thread, while thread 0 does the bookkeeping
+//      (basis exchange, complement rule);
+//   C. the rank-1 update as a 2-D loop: warps walk rows, lanes walk columns.
+// A step that is no pivot (bound flip, ray, singular) ends after B.
+// Rows of the tableau are W | 1 elements apart (lane_stride): an odd stride
+// puts the rows that neighbouring threads read on different banks.
 //
 // Semantics follow the JAX package's pivot loop lane for lane
 // (qpn_tpu/ops/lemke.py::_lemke_single, qpn_tpu/ops/lemke_pallas.py):
@@ -36,14 +52,40 @@
 
 #if defined(__CUDA_ARCH__)
 #define QPN_SYNC() __syncthreads()
+#define QPN_SYNCWARP() __syncwarp()
+#define QPN_WARP 32
+#define QPN_UNROLL _Pragma("unroll")
 #else
 #define QPN_SYNC() ((void)0)
+#define QPN_SYNCWARP() ((void)0)
+#define QPN_WARP 1
+#define QPN_UNROLL
+#endif
+
+// Phase clocks, compiled in only with -DQPN_LEMKE_PROFILE (see
+// benchmarks/torch_lemke_phases.py): thread 0 adds the SM cycles of each
+// phase of every iteration to ctl->prof, and the first blocks print them.
+#if defined(QPN_LEMKE_PROFILE) && defined(__CUDA_ARCH__)
+#include <cstdio>
+#define QPN_PROF_START() long long prof_t_ = clock64()
+#define QPN_PROF(ctl, slot, on)                                   \
+    do {                                                          \
+        const long long now_ = clock64();                         \
+        if (on) (ctl)->prof[slot] += now_ - prof_t_;              \
+        prof_t_ = now_;                                           \
+    } while (0)
+#else
+#define QPN_PROF_START() ((void)0)
+#define QPN_PROF(ctl, slot, on) ((void)0)
 #endif
 
 namespace qpn {
 
 enum { LEMKE_SUCCESS = 1, LEMKE_RAY = 2, LEMKE_MAX = 3, LEMKE_SINGULAR = 4 };
 enum { ACT_NONE = 0, ACT_PIVOT = 1 };
+// Threads that share a row's sum in phase A (a power of two), and its log2.
+constexpr int kLemkeSplit = 4;
+constexpr int kLemkeSplitLog2 = 2;
 
 template <typename T> QPN_HD T lk_inf() { return T(INFINITY); }
 template <typename T> QPN_HD bool lk_isnan(T x) { return x != x; }
@@ -51,6 +93,99 @@ template <typename T> QPN_HD bool lk_isfinite(T x) {
     return x == x && x != lk_inf<T>() && x != -lk_inf<T>();
 }
 template <typename T> QPN_HD T lk_abs(T x) { return x < T(0) ? -x : x; }
+
+// ---- votes and reductions over the deciding warp -------------------------
+// Warp intrinsics over the 32 lanes in device code; on the host one thread
+// scans everything and they are the identity (bit 0 alone).
+
+// The minimum under `<` of every thread's v: a NaN never enters it.
+template <typename T> QPN_HD T lk_reduce_min(T v) {
+#if defined(__CUDA_ARCH__)
+    for (int o = 16; o > 0; o >>= 1) {
+        const T w = __shfl_xor_sync(0xffffffffu, v, o);
+        if (w < v) v = w;
+    }
+#endif
+    return v;
+}
+
+// One bit per thread whose flag is set.
+QPN_HD unsigned lk_ballot(bool flag) {
+#if defined(__CUDA_ARCH__)
+    return __ballot_sync(0xffffffffu, flag);
+#else
+    return flag ? 1u : 0u;
+#endif
+}
+
+// The value that thread `src` holds.
+template <typename T> QPN_HD T lk_broadcast(T v, int src) {
+#if defined(__CUDA_ARCH__)
+    v = __shfl_sync(0xffffffffu, v, src);
+#endif
+    (void)src;
+    return v;
+}
+
+QPN_HD int lk_popc(unsigned m) {
+#if defined(__CUDA_ARCH__)
+    return __popc(m);
+#else
+    return __builtin_popcount(m);
+#endif
+}
+
+// index of the lowest set bit of m (m != 0)
+QPN_HD int lk_lowest(unsigned m) {
+#if defined(__CUDA_ARCH__)
+    return __ffs((int)m) - 1;
+#else
+    return __builtin_ctz(m);
+#endif
+}
+
+// Append r to list (at count and above) from every thread whose flag is
+// set, in thread order; returns the new count.  Called by all threads.
+QPN_HD int lk_append(int* list, int count, int r, bool flag, int lane) {
+    const unsigned m = lk_ballot(flag);
+    if (flag) list[count + lk_popc(m & ((1u << lane) - 1u))] = r;
+    return count + lk_popc(m);
+}
+
+// Scans of the rows in chunks of nl (row base + lane), called together by
+// the threads of the deciding warp (lane of nl; 0 of 1 on the host); every
+// thread gets the same answer.
+
+// min of v[0:n] under `<`, from +inf: NaN entries are skipped.
+template <typename T>
+QPN_HD T lk_scan_min(const T* v, int n, int lane, int nl) {
+    T m = lk_inf<T>();
+    for (int r = lane; r < n; r += nl)
+        if (v[r] < m) m = v[r];
+    return lk_reduce_min(m);
+}
+
+// The tie set of the ratio test: list[0:count] = the rows r with
+// theta[r] <= thr, ascending; *first_tagged = the first of them with
+// tag[r] == want, or n.  Returns count.
+template <typename T>
+QPN_HD int lk_scan_ties(const T* theta, const int* tag, int n, T thr,
+                        int want, int* list, int* first_tagged, int lane,
+                        int nl) {
+    int count = 0, first = n;
+    for (int base = 0; base < n; base += nl) {
+        const int r = base + lane;
+        // both loads before either vote, so that their latencies overlap
+        const T th = r < n ? theta[r] : lk_inf<T>();
+        const int tg = r < n ? tag[r] : want - 1;
+        const bool tie = r < n && th <= thr;
+        const unsigned mt = lk_ballot(tie && tg == want);
+        if (mt != 0u && first == n) first = base + lk_lowest(mt);
+        count = lk_append(list, count, r, tie, lane);
+    }
+    *first_tagged = first;
+    return count;
+}
 
 // Batched inputs and outputs in device (or host) memory, row-major:
 // tableau (B, n, 3n+2) with columns z|u|v|t then rhs; per-lane vectors
@@ -81,15 +216,20 @@ struct LemkeBatch {
 // Scalars of one lane, shared by its threads.
 template <typename T>
 struct LaneCtl {
-    T edir, ev, piv_elt;
-    int ent, status, piv, k, jstar, act;
+    T edir, ev, pe;
+    int ent, status, piv, k, jstar, col, act;
+#if defined(QPN_LEMKE_PROFILE)
+    // cycles of: basic values and ratios, decision, staging, update; inside
+    // the decision: min ratio, tie set, lexicographic refinement, the rest
+    long long prof[8];
+#endif
 };
 
 // One lane's working set (shared memory on the card).
 template <typename T>
 struct Lane {
-    int n;
-    T* tab;      // (n, 3n+2)
+    int n, ld;   // ld: elements between tableau rows
+    T* tab;      // (n, ld), 3n+2 used
     T* val;      // (3n+1) nonbasic values
     T* vlb;      // (3n+1) variable bounds
     T* vub;
@@ -98,26 +238,30 @@ struct Lane {
     T* xB;       // (n) basic values
     T* d;        // (n) entering column times direction
     T* theta;    // (n) ratios
-    T* other;    // (n) entering column, pivot row zeroed
+    T* other;    // (n) staged entering column
     T* pr;       // (3n+2) scaled pivot row
     int* basis;  // (n)
-    unsigned char* cand;  // (n) tie candidates
+    int* clist;  // (n) the tie candidates' rows, ascending
     LaneCtl<T>* ctl;
 };
 
 QPN_HD size_t lk_align16(size_t x) { return (x + 15) & ~size_t(15); }
 
+// Elements between tableau rows: odd, so that a warp's rows (all at one
+// column) fall on different banks.
+QPN_HD int lane_stride(int n) { return (3 * n + 2) | 1; }
+
 template <typename T>
 QPN_HD size_t lane_floats(int n) {
     const size_t W = 3 * (size_t)n + 2, NV = W - 1;
-    return (size_t)n * W + 3 * NV + 6 * (size_t)n + W;
+    return (size_t)n * lane_stride(n) + 3 * NV + 6 * (size_t)n + W;
 }
 
 // Bytes of one lane's working set: f32 at n=38 is about 20 KB.
 template <typename T>
 QPN_HD size_t lane_bytes(int n) {
     return lk_align16(sizeof(LaneCtl<T>)) + lk_align16(lane_floats<T>(n) * sizeof(T))
-         + lk_align16((size_t)n * sizeof(int)) + lk_align16((size_t)n);
+         + 2 * lk_align16((size_t)n * sizeof(int));
 }
 
 // Carve a lane's working set out of a 16-byte aligned buffer.
@@ -126,9 +270,10 @@ QPN_HD Lane<T> lane_carve(unsigned char* base, int n) {
     const size_t W = 3 * (size_t)n + 2, NV = W - 1;
     Lane<T> L;
     L.n = n;
+    L.ld = lane_stride(n);
     L.ctl = reinterpret_cast<LaneCtl<T>*>(base);
     T* f = reinterpret_cast<T*>(base + lk_align16(sizeof(LaneCtl<T>)));
-    L.tab = f;       f += (size_t)n * W;
+    L.tab = f;       f += (size_t)n * L.ld;
     L.val = f;       f += NV;
     L.vlb = f;       f += NV;
     L.vub = f;       f += NV;
@@ -142,7 +287,7 @@ QPN_HD Lane<T> lane_carve(unsigned char* base, int n) {
     unsigned char* rest = base + lk_align16(sizeof(LaneCtl<T>))
                         + lk_align16(lane_floats<T>(n) * sizeof(T));
     L.basis = reinterpret_cast<int*>(rest);
-    L.cand = rest + lk_align16((size_t)n * sizeof(int));
+    L.clist = reinterpret_cast<int*>(rest + lk_align16((size_t)n * sizeof(int)));
     return L;
 }
 
@@ -150,8 +295,12 @@ template <typename T>
 QPN_HD void lane_load(const Lane<T>& L, const LemkeBatch<T>& bt, size_t b,
                       int tid, int nthr) {
     const int n = L.n, W = 3 * n + 2, NV = W - 1;
+    const int lane = tid % QPN_WARP, wp = tid / QPN_WARP;
+    const int nw = nthr / QPN_WARP;
     const T* tb = bt.tab_in + b * (size_t)n * W;
-    for (int i = tid; i < n * W; i += nthr) L.tab[i] = tb[i];
+    for (int r = wp; r < n; r += nw)
+        for (int j = lane; j < W; j += QPN_WARP)
+            L.tab[r * L.ld + j] = tb[r * W + j];
     for (int j = tid; j < NV; j += nthr) {
         L.val[j] = bt.val_in[b * NV + j];
         L.vlb[j] = bt.vlb[b * NV + j];
@@ -162,6 +311,7 @@ QPN_HD void lane_load(const Lane<T>& L, const LemkeBatch<T>& bt, size_t b,
         L.leff[r] = bt.leff[b * n + r];
         L.ueff[r] = bt.ueff[b * n + r];
     }
+    QPN_SYNC();
     if (tid == 0) {
         LaneCtl<T>* c = L.ctl;
         c->ent = bt.ent_in[b];
@@ -171,8 +321,14 @@ QPN_HD void lane_load(const Lane<T>& L, const LemkeBatch<T>& bt, size_t b,
         c->piv = 0;
         c->k = 1;
         c->jstar = 0;
-        c->piv_elt = T(0);
+        c->col = 0;
+        c->pe = T(0);
         c->act = ACT_NONE;
+#if defined(QPN_LEMKE_PROFILE)
+        for (int i = 0; i < 8; ++i) c->prof[i] = 0;
+#endif
+        // the entering variable temporarily carries its start value
+        if (c->status == 0 && c->k < bt.max_pivots) L.val[c->ent] = c->ev;
     }
     QPN_SYNC();
 }
@@ -192,91 +348,119 @@ QPN_HD void lane_store(const Lane<T>& L, const LemkeBatch<T>& bt, size_t b,
     }
 }
 
-// xB[r] = rhs[r] - tab[r, 0:3n+1] . val  for rows r = tid, tid+nthr, ...
-template <typename T>
-QPN_HD void lane_basic_values(const Lane<T>& L, int tid, int nthr) {
-    const int n = L.n, W = 3 * n + 2, NV = W - 1;
-    for (int r = tid; r < n; r += nthr) {
-        const T* row = L.tab + (size_t)r * W;
-        T s = row[NV];
-        for (int j = 0; j < NV; ++j) s -= row[j] * L.val[j];
-        L.xB[r] = s;
-    }
+// ---- phase A ---------------------------------------------------------------
+// xB[r] = rhs[r] - tab[r, 0:3n+1] . val under the split G = kLemkeSplit:
+// chunk g holds the columns [g·C, (g+1)·C) with C = ceil((3n+1)/G); its
+// partial sum starts from rhs[r] (g = 0) or 0 and subtracts its products in
+// column order; the partial sums are joined by the butterfly
+// p_g ← p_g + p_{g xor o}, o = G/2, ..., 1.
+
+// G is a power of two: shifts, where a division would cost the card some
+// forty instructions on every pivot's critical path.
+QPN_HD int lane_chunk(int n) {
+    return (3 * n + 1 + kLemkeSplit - 1) >> kLemkeSplitLog2;
 }
 
-// Thread 0: ray / bound flip / pivot-row choice after the ratio test.
+// Chunk g's partial sum for row r; eight products at a time, so that their
+// shared-memory loads overlap, then their subtractions in order.
 template <typename T>
-QPN_HD void lane_decide(const Lane<T>& L, T tol, T piv_tol) {
-    const int n = L.n, W = 3 * n + 2, T_ID = 3 * n;
-    LaneCtl<T>* c = L.ctl;
-    const T INF = lk_inf<T>();
+QPN_HD T lane_basic_partial(const Lane<T>& L, int r, int g) {
+    const int NV = 3 * L.n + 1, C = lane_chunk(L.n);
+    const T* row = L.tab + r * L.ld;
+    const T* val = L.val;
+    const int end = (g + 1) * C < NV ? (g + 1) * C : NV;
+    T s = g == 0 ? row[NV] : T(0);
+    int j = g * C;
+    for (; j + 8 <= end; j += 8) {
+        T p[8];
+        QPN_UNROLL
+        for (int k = 0; k < 8; ++k) p[k] = row[j + k] * val[j + k];
+        QPN_UNROLL
+        for (int k = 0; k < 8; ++k) s -= p[k];
+    }
+    for (; j < end; ++j) s -= row[j] * val[j];
+    return s;
+}
+
+// The butterfly over a group of G neighbouring threads of a warp (device),
+// every thread ending with the same bits.
+template <typename T>
+QPN_HD T lane_group_sum(T v) {
+#if defined(__CUDA_ARCH__)
+    QPN_UNROLL
+    for (int o = kLemkeSplit / 2; o > 0; o >>= 1)
+        v = v + __shfl_xor_sync(0xffffffffu, v, o);
+#endif
+    return v;
+}
+
+// The same sum as a loop over the chunks (host, and the final values).
+template <typename T>
+QPN_HD T lane_basic_value(const Lane<T>& L, int r) {
+    constexpr int G = kLemkeSplit;
+    T part[G], next[G];
+    for (int g = 0; g < G; ++g) part[g] = lane_basic_partial(L, r, g);
+    for (int o = G / 2; o > 0; o >>= 1) {
+        for (int g = 0; g < G; ++g) next[g] = part[g] + part[g ^ o];
+        for (int g = 0; g < G; ++g) part[g] = next[g];
+    }
+    return part[0];
+}
+
+// All rows' basic values into xB, groups of G threads on rows base + slot.
+// On the host (nthr = 1) one thread walks every row with the loop above.
+template <typename T>
+QPN_HD void lane_basic_values(const Lane<T>& L, int tid, int nthr,
+                              bool with_ratios, T piv_tol) {
+    const int n = L.n;
+    const LaneCtl<T>* c = L.ctl;
     const int ent = c->ent;
-    const T edir = c->edir, ev = c->ev;
-    c->act = ACT_NONE;
-
-    T tstar = INF;
-    for (int r = 0; r < n; ++r)
-        if (L.theta[r] < tstar) tstar = L.theta[r];
-    const T theta_e = edir > T(0) ? L.vub[ent] - ev : ev - L.vlb[ent];
-
-    if (!lk_isfinite(tstar) && !lk_isfinite(theta_e)) {
-        c->status = LEMKE_RAY;               // no pivot counted
-        return;
+    const T edir = c->edir;
+    const T INF = lk_inf<T>();
+#if defined(__CUDA_ARCH__)
+    const int g = tid & (kLemkeSplit - 1), slot = tid >> kLemkeSplitLog2;
+    const int P = nthr >> kLemkeSplitLog2;
+#else
+    const int g = 0, slot = tid, P = nthr;
+#endif
+    for (int base = 0; base < n; base += P) {
+        const int r = base + slot;
+        const bool row = r < n;
+#if defined(__CUDA_ARCH__)
+        const T x = lane_group_sum(
+            row ? lane_basic_partial(L, r, g) : T(0));
+#else
+        const T x = row ? lane_basic_value(L, r) : T(0);
+#endif
+        if (!row || g != 0) continue;
+        L.xB[r] = x;
+        if (!with_ratios) continue;
+        const T dr = edir * L.tab[r * L.ld + ent];
+        const int bv = L.basis[r];
+        T th;
+        if (dr > piv_tol) th = (x - L.vlb[bv]) / dr;
+        else if (dr < -piv_tol) th = (x - L.vub[bv]) / dr;
+        else th = INF;
+        if (lk_isnan(th)) th = INF;
+        if (th < T(0)) th = T(0);
+        L.d[r] = dr;
+        L.theta[r] = th;
     }
-    if (theta_e <= tstar) {                  // bound flip: no basis change
-        const int i = ent % n;
-        L.val[ent] = edir > T(0) ? L.vub[ent] : L.vlb[ent];
-        c->ent = edir > T(0) ? 2 * n + i : n + i;
-        c->edir = T(1);
-        c->ev = T(0);
-        c->piv += 1;
-        return;
-    }
-
-    const T thr = tstar + tol * (T(1) + lk_abs(tstar));
-    int js = -1;
-    for (int r = 0; r < n; ++r)              // t exits on a tie: terminate
-        if (L.theta[r] <= thr && L.basis[r] == T_ID) { js = r; break; }
-    if (js < 0) {
-        int ncand = 0;
-        for (int r = 0; r < n; ++r) {
-            L.cand[r] = L.theta[r] <= thr;
-            ncand += L.cand[r];
-        }
-        // lexicographic refinement over the -B^{-1} block (u-columns)
-        for (int kk = 0; kk < n && ncand > 1; ++kk) {
-            T kmin = INF;
-            for (int r = 0; r < n; ++r) {
-                if (!L.cand[r]) continue;
-                const T dr = lk_abs(L.d[r]) > piv_tol ? L.d[r] : T(1);
-                const T key = -L.tab[(size_t)r * W + n + kk] / dr;
-                if (key < kmin) kmin = key;
-            }
-            const T kthr = kmin + T(1e-12) * (T(1) + lk_abs(kmin));
-            ncand = 0;
-            for (int r = 0; r < n; ++r) {
-                if (!L.cand[r]) continue;
-                const T dr = lk_abs(L.d[r]) > piv_tol ? L.d[r] : T(1);
-                const T key = -L.tab[(size_t)r * W + n + kk] / dr;
-                L.cand[r] = key <= kthr;
-                ncand += L.cand[r];
-            }
-        }
-        js = 0;                              // argmax convention: 0 if none
-        for (int r = 0; r < n; ++r)
-            if (L.cand[r]) { js = r; break; }
-    }
-    const T pe = L.tab[(size_t)js * W + ent];
-    if (lk_abs(pe) < piv_tol) {
-        c->status = LEMKE_SINGULAR;          // tableau untouched, no pivot
-        return;
-    }
-    c->jstar = js;
-    c->piv_elt = pe;
-    c->act = ACT_PIVOT;
 }
 
-// Thread 0, after a pivot: basis bookkeeping and the Lemke complement rule.
+// ---- phase B ---------------------------------------------------------------
+
+// Thread 0, at the end of an iteration: count it, and let the next one's
+// entering variable carry its start value.
+template <typename T>
+QPN_HD void lane_advance(const Lane<T>& L, int max_pivots) {
+    LaneCtl<T>* c = L.ctl;
+    c->k += 1;
+    if (c->status == 0 && c->k < max_pivots) L.val[c->ent] = c->ev;
+}
+
+// Thread 0, after a pivot is decided: basis bookkeeping and the Lemke
+// complement rule.  Touches basis, val and ctl only.
 template <typename T>
 QPN_HD void lane_commit(const Lane<T>& L) {
     const int n = L.n, T_ID = 3 * n;
@@ -309,53 +493,221 @@ QPN_HD void lane_commit(const Lane<T>& L) {
     }
 }
 
-// The pivot loop of one lane; every thread of the lane calls it.
+// Lexicographic key of candidate row r in pass kk.
+template <typename T>
+QPN_HD T lane_lex_key(const Lane<T>& L, int r, int kk, T piv_tol) {
+    const T dr = lk_abs(L.d[r]) > piv_tol ? L.d[r] : T(1);
+    return -L.tab[r * L.ld + L.n + kk] / dr;
+}
+
+// Lexicographic refinement of the ncand tie candidates in L.clist over the
+// -B^{-1} block (u-columns n+kk); returns how many are left, in L.clist.
+// Pass kk keeps the candidates whose key is within eps of the least key; a
+// pass that keeps them all changes nothing.  The threads look at nl passes
+// at once, one each, take the first that drops a candidate, apply it, and
+// go on behind it: the passes' outcomes are those of the loop kk = 0, 1, ...
+template <typename T>
+QPN_HD int lane_lex_refine(const Lane<T>& L, int ncand, T piv_tol, int lane,
+                           int nl) {
+    const int n = L.n;
+    const T INF = lk_inf<T>();
+    int kk0 = 0;
+    while (ncand > 1 && kk0 < n) {
+        const int kk = kk0 + lane;
+        T kthr = T(0);
+        bool drops = false;
+        if (kk < n) {
+            T kmin = INF, kmax = -INF;
+            bool nan = false;
+            for (int c = 0; c < ncand; ++c) {
+                const T key = lane_lex_key(L, L.clist[c], kk, piv_tol);
+                if (key < kmin) kmin = key;
+                if (key > kmax) kmax = key;
+                nan = nan || lk_isnan(key);
+            }
+            kthr = kmin + T(1e-12) * (T(1) + lk_abs(kmin));
+            drops = nan || !(kmax <= kthr);
+        }
+        const unsigned m = lk_ballot(drops);
+        if (m == 0u) {
+            kk0 += nl;
+            continue;
+        }
+        const int src = lk_lowest(m);
+        kthr = lk_broadcast(kthr, src);
+        int kept = 0;
+        for (int base = 0; base < ncand; base += nl) {
+            const int c = base + lane;
+            const int r = c < ncand ? L.clist[c] : 0;
+            const bool keep =
+                c < ncand && lane_lex_key(L, r, kk0 + src, piv_tol) <= kthr;
+            QPN_SYNCWARP();                  // reads before the writes below
+            kept = lk_append(L.clist, kept, r, keep, lane);
+        }
+        QPN_SYNCWARP();
+        ncand = kept;
+        kk0 += src + 1;
+    }
+    return ncand;
+}
+
+// Phase B, called together by the nl threads of the deciding warp (lane of
+// nl; 0 of 1 on the host): ray / bound flip / pivot-row choice after the
+// ratio test; thread 0 writes the outcome to ctl, with the bookkeeping of a
+// step that is no pivot.  Every branch is taken by all the threads alike.
+template <typename T>
+QPN_HD void lane_decide(const Lane<T>& L, T tol, T piv_tol, int max_pivots,
+                        int lane, int nl) {
+    const int n = L.n, T_ID = 3 * n;
+    LaneCtl<T>* c = L.ctl;
+    const int ent = c->ent;
+    const T edir = c->edir, ev = c->ev;
+    int act = ACT_NONE, status = 0, js = 0;
+    bool flip = false;
+    T pe = T(0);
+
+    QPN_PROF_START();
+    const T tstar = lk_scan_min(L.theta, n, lane, nl);
+    QPN_PROF(c, 4, lane == 0);
+    const T theta_e = edir > T(0) ? L.vub[ent] - ev : ev - L.vlb[ent];
+
+    if (!lk_isfinite(tstar) && !lk_isfinite(theta_e)) {
+        status = LEMKE_RAY;                  // no pivot counted
+    } else if (theta_e <= tstar) {
+        flip = true;                         // bound flip: no basis change
+    } else {
+        const T thr = tstar + tol * (T(1) + lk_abs(tstar));
+        int ncand = lk_scan_ties(L.theta, L.basis, n, thr, T_ID, L.clist,
+                                 &js, lane, nl);
+        QPN_SYNCWARP();
+        QPN_PROF(c, 5, lane == 0);
+        if (js == n) {                       // else t exits on a tie
+            ncand = lane_lex_refine(L, ncand, piv_tol, lane, nl);
+            js = ncand > 0 ? L.clist[0] : 0; // argmax convention: 0 if none
+        }
+        QPN_PROF(c, 6, lane == 0);
+        pe = L.tab[js * L.ld + ent];
+        if (lk_abs(pe) < piv_tol) status = LEMKE_SINGULAR;  // no pivot
+        else act = ACT_PIVOT;
+    }
+
+    if (lane == 0) {
+        c->act = act;
+        if (act == ACT_PIVOT) {              // lane_stage goes on
+            c->jstar = js;
+            c->col = ent;
+            c->pe = pe;
+            QPN_PROF(c, 7, true);
+            return;
+        }
+        if (status != 0) {
+            c->status = status;
+        } else {                             // bound flip
+            const int i = ent % n;
+            L.val[ent] = edir > T(0) ? L.vub[ent] : L.vlb[ent];
+            c->ent = edir > T(0) ? 2 * n + i : n + i;
+            c->edir = T(1);
+            c->ev = T(0);
+            c->piv += 1;
+        }
+        lane_advance(L, max_pivots);
+    }
+    QPN_PROF(c, 7, lane == 0);
+}
+
+// After a pivot is decided, by all the lane's threads: the scaled pivot row
+// (pr) and the entering column (other) are staged for the update, one
+// element a thread, while thread 0 does the bookkeeping.  Where the block
+// has more than one warp, the first warp stages nothing.
+template <typename T>
+QPN_HD void lane_stage(const Lane<T>& L, int max_pivots, int tid, int nthr) {
+    const int n = L.n, W = 3 * n + 2;
+    const LaneCtl<T>* c = L.ctl;
+    const int js = c->jstar, col = c->col;
+    const T pe = c->pe;
+    const int first = nthr > QPN_WARP ? QPN_WARP : 0;
+    if (tid >= first) {
+        const T* prow = L.tab + js * L.ld;
+        for (int i = tid - first; i < W + n; i += nthr - first) {
+            if (i < W) L.pr[i] = prow[i] / pe;
+            else L.other[i - W] = L.tab[(i - W) * L.ld + col];
+        }
+    }
+    if (tid == 0) {
+        lane_commit(L);
+        lane_advance(L, max_pivots);
+    }
+}
+
+// ---- phase C ---------------------------------------------------------------
+// The rank-1 update from the staged pivot row and entering column; warps
+// walk rows, lanes walk columns.  A thread keeps its column's pivot-row
+// entry in a register and takes four rows at a time, all loads before the
+// stores, so that the shared-memory latencies overlap.
+template <typename T>
+QPN_HD void lane_update(const Lane<T>& L, int tid, int nthr) {
+    const int n = L.n, W = 3 * n + 2, ld = L.ld;
+    const int lane = tid % QPN_WARP, wp = tid / QPN_WARP;
+    const int nw = nthr / QPN_WARP;
+    const int js = L.ctl->jstar;
+    T* tab = L.tab;
+    const T* other = L.other;
+    for (int j = lane; j < W; j += QPN_WARP) {
+        const T p = L.pr[j];
+        int r = wp;
+        for (; r + 3 * nw < n; r += 4 * nw) {
+            T* e0 = tab + r * ld + j;
+            T* e1 = e0 + nw * ld;
+            T* e2 = e1 + nw * ld;
+            T* e3 = e2 + nw * ld;
+            const T o0 = other[r], o1 = other[r + nw];
+            const T o2 = other[r + 2 * nw], o3 = other[r + 3 * nw];
+            const T v0 = *e0, v1 = *e1, v2 = *e2, v3 = *e3;
+            *e0 = r == js ? p : v0 - o0 * p;
+            *e1 = r + nw == js ? p : v1 - o1 * p;
+            *e2 = r + 2 * nw == js ? p : v2 - o2 * p;
+            *e3 = r + 3 * nw == js ? p : v3 - o3 * p;
+        }
+        for (; r < n; r += nw) {
+            T* e = tab + r * ld + j;
+            *e = r == js ? p : *e - other[r] * p;
+        }
+    }
+}
+
+// The pivot loop of one lane; every thread of the lane calls it.  nthr is a
+// multiple of QPN_WARP (so of kLemkeSplit too).
 template <typename T>
 QPN_HD void lane_run(const Lane<T>& L, int tid, int nthr, T tol, T piv_tol,
                      int max_pivots) {
-    const int n = L.n, W = 3 * n + 2;
     LaneCtl<T>* c = L.ctl;
-    const T INF = lk_inf<T>();
+    QPN_PROF_START();
     while (c->status == 0 && c->k < max_pivots) {
-        // the entering variable temporarily carries its start value
-        if (tid == 0) L.val[c->ent] = c->ev;
+        lane_basic_values(L, tid, nthr, true, piv_tol);
         QPN_SYNC();
-        const int ent = c->ent;
-        const T edir = c->edir;
-        lane_basic_values(L, tid, nthr);
-        for (int r = tid; r < n; r += nthr) {          // ratio test
-            const T dr = edir * L.tab[(size_t)r * W + ent];
-            const int bv = L.basis[r];
-            T th;
-            if (dr > piv_tol) th = (L.xB[r] - L.vlb[bv]) / dr;
-            else if (dr < -piv_tol) th = (L.xB[r] - L.vub[bv]) / dr;
-            else th = INF;
-            if (lk_isnan(th)) th = INF;
-            if (th < T(0)) th = T(0);
-            L.d[r] = dr;
-            L.theta[r] = th;
-        }
+        QPN_PROF(c, 0, tid == 0);
+        if (tid < QPN_WARP)
+            lane_decide(L, tol, piv_tol, max_pivots, tid, QPN_WARP);
         QPN_SYNC();
-        if (tid == 0) lane_decide(L, tol, piv_tol);
-        QPN_SYNC();
+        QPN_PROF(c, 1, tid == 0);
         if (c->act == ACT_PIVOT) {
-            const int js = c->jstar;
-            const T pe = c->piv_elt;
-            for (int j = tid; j < W; j += nthr)
-                L.pr[j] = L.tab[(size_t)js * W + j] / pe;
-            for (int r = tid; r < n; r += nthr)
-                L.other[r] = r == js ? T(0) : L.tab[(size_t)r * W + ent];
+            lane_stage(L, max_pivots, tid, nthr);
             QPN_SYNC();
-            for (int i = tid; i < n * W; i += nthr) {  // rank-1 update
-                const int r = i / W, j = i - r * W;
-                L.tab[i] = r == js ? L.pr[j] : L.tab[i] - L.other[r] * L.pr[j];
-            }
-            if (tid == 0) lane_commit(L);   // touches basis/val/ctl only
+            QPN_PROF(c, 2, tid == 0);
+            lane_update(L, tid, nthr);
+            QPN_SYNC();
+            QPN_PROF(c, 3, tid == 0);
         }
-        if (tid == 0) c->k += 1;
-        QPN_SYNC();
     }
-    lane_basic_values(L, tid, nthr);
+#if defined(QPN_LEMKE_PROFILE) && defined(__CUDA_ARCH__)
+    if (tid == 0 && blockIdx.x < 2)
+        printf("lemke_phases block %d iterations %d cycles ratios %lld "
+               "decide %lld stage %lld update %lld | in decide: min %lld "
+               "ties %lld lex %lld rest %lld\n", (int)blockIdx.x, c->k - 1,
+               c->prof[0], c->prof[1], c->prof[2], c->prof[3], c->prof[4],
+               c->prof[5], c->prof[6], c->prof[7]);
+#endif
+    lane_basic_values(L, tid, nthr, false, piv_tol);
     if (tid == 0 && c->status == 0) c->status = LEMKE_MAX;
     QPN_SYNC();
 }

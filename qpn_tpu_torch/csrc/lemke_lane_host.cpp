@@ -34,4 +34,22 @@ void qpn_lemke_pivot_host_f64(QPN_LEMKE_PARAMS(double)) {
     run_lanes(QPN_LEMKE_BATCH(double));
 }
 
+// The decision's scans (host bodies), for the tests that hold them against
+// numpy.
+double qpn_lk_scan_min_f64(const double* v, int n) {
+    return qpn::lk_scan_min(v, n, 0, 1);
+}
+
+float qpn_lk_scan_min_f32(const float* v, int n) {
+    return qpn::lk_scan_min(v, n, 0, 1);
+}
+
+int qpn_lk_scan_ties_f64(const double* theta, const int* tag, int n,
+                         double thr, int want, int* list, int* first_tagged) {
+    return qpn::lk_scan_ties(theta, tag, n, thr, want, list, first_tagged, 0,
+                             1);
+}
+
+int qpn_lemke_lane_stride(int n) { return qpn::lane_stride(n); }
+
 }  // extern "C"

@@ -5,19 +5,30 @@
 // pivot path of each lane runs inside one launch, with no device-memory
 // traffic between pivots.
 //
-// Design: one thread block per lane, a grid of B blocks.  The lane's tableau
-// (n, 3n+2) and its bookkeeping live in dynamic shared memory for the whole
-// path (f32 at n=38: about 20 KB; up to n of about 130 in f32 fits the
-// 227 KB a block can opt into).  The data-parallel steps of a pivot (basic
-// values, ratio test, rank-1 update) are split over the block's threads; the
-// scalar decisions are thread-0 steps between barriers (lemke_lane.cuh).
-// Lanes run independently: a finished lane's block exits.
+// Design: one thread block of 256 threads per lane, a grid of B blocks.
+// The lane's tableau (n, 3n+2) and its bookkeeping live in dynamic shared
+// memory for the whole path (f32 at n=38: about 20 KB; up to n of about 130
+// in f32 fits the 227 KB a block can opt into), rows an odd number of
+// elements apart.  A pivot is four phases between barriers
+// (lemke_lane.cuh): basic values and the ratio test, each row's sum split
+// over four threads of a warp; the decision by the first warp, as scans
+// joined by warp votes and shuffles (min ratio, tie set, and a
+// lexicographic refinement that looks at 32 passes at once); the staging of
+// the scaled pivot row and the entering column, one element a thread,
+// beside thread 0's bookkeeping; the rank-1 update with warps on rows and
+// lanes on columns.  The block size and the split of a row's sum are
+// compile-time constants (kThreads here, kLemkeSplit in lemke_lane.cuh): of
+// the sizes measured on an H100 (32, 128, 256 threads; splits 1, 4, 8) 256
+// with 4 was the fastest.  Lanes run independently: a finished lane's block
+// exits.
 //
 // What bounds it on this card: latency.  A lane takes about 70 dependent
-// pivots, each a handful of barrier-separated phases over about 17 KB of
-// shared memory, with the thread-0 scans over n rows on the critical path;
-// the arithmetic is negligible and device memory is touched only at load
-// and store.  Several lanes per block or a warp per lane are later work.
+// pivots; the arithmetic (about 1.8e4 operations a pivot) and the device
+// memory traffic (the tableau once in, the basis once out) are negligible
+// against the chain of phases.  The design shortens the chain: no phase
+// runs on one thread but the bookkeeping, no integer division, no bank
+// conflict between a warp's rows, and loads batched ahead of the stores
+// that may alias them.
 //
 // Templated on float (the hot f32 tier) and double (the straggler re-pivot).
 // Built with nvcc -O3 -fmad=false, no fast math (utils/cuda_build.py).
@@ -31,7 +42,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;   // a multiple of 32 and of qpn::kLemkeSplit
 constexpr int QPN_ERR_SMEM = -1;
 
 template <typename T>
@@ -40,10 +51,10 @@ lemke_pivot_kernel(qpn::LemkeBatch<T> bt) {
     extern __shared__ __align__(16) unsigned char smem[];
     const qpn::Lane<T> L = qpn::lane_carve<T>(smem, bt.n);
     const size_t b = blockIdx.x;
-    qpn::lane_load(L, bt, b, threadIdx.x, blockDim.x);
-    qpn::lane_run(L, threadIdx.x, blockDim.x, bt.tol, bt.piv_tol,
+    qpn::lane_load(L, bt, b, threadIdx.x, kThreads);
+    qpn::lane_run(L, threadIdx.x, kThreads, bt.tol, bt.piv_tol,
                   bt.max_pivots);
-    qpn::lane_store(L, bt, b, threadIdx.x, blockDim.x);
+    qpn::lane_store(L, bt, b, threadIdx.x, kThreads);
 }
 
 template <typename T>

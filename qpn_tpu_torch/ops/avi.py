@@ -37,7 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import CONFIG, bucket
+from ..config import CONFIG, bucket, numeric_device
 from ..utils.metrics import METRICS
 from . import batch_qp, lemke
 from .eg import eg_step, eg_warmstart, ruiz
@@ -133,10 +133,13 @@ class AVIResult(NamedTuple):
     converged: torch.Tensor  # (B,) bool
 
 
-def batch_from_numpy(batch: dict, device="cpu") -> dict:
+def batch_from_numpy(batch: dict, device=None) -> dict:
     """The JAX package's ensemble dict (numpy ``M, q, l, u, z0, mask`` plus
     ``structure``, as ``models.robust_avoid.scenario_batch_gavis`` returns
-    it) as the port's tensors on ``device``: f64 data, bool mask."""
+    it) as the port's tensors on ``device`` (None: ``CONFIG.device``): f64
+    data, bool mask."""
+    if device is None:
+        device = numeric_device()
     out = {k: torch.as_tensor(np.asarray(batch[k], dtype=np.float64),
                               device=device)
            for k in ("M", "q", "l", "u", "z0")}
@@ -649,7 +652,7 @@ def solve_avi(avi: AVI, z0, w, convergence_tolerance: float = 1e-10,
         starts.append(rng.standard_normal(n) * scale)
     Z0 = np.stack(starts)
     B = Z0.shape[0]
-    dev = torch.device(CONFIG.device)
+    dev = numeric_device()
 
     def rep(a):
         return torch.as_tensor(np.repeat(np.asarray(a)[None], B, axis=0),

@@ -44,7 +44,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import CONFIG
+from ..config import CONFIG, numeric_device
 from ..utils.metrics import METRICS
 
 SOLVED = 1
@@ -353,7 +353,7 @@ def solve_qp_batch(P, q, A, l, u, row_mask, *, max_iter=4000, eps=1e-9,
 
 def _solve_on_device(P, q, A, l, u, row_mask, **kw) -> QPSolution:
     """Move host arrays to ``CONFIG.device``, solve, return numpy."""
-    dev = torch.device(CONFIG.device)
+    dev = numeric_device()
     args = [torch.as_tensor(a, dtype=torch.float64, device=dev)
             for a in (P, q, A, l, u)]
     rm = torch.as_tensor(row_mask, dtype=torch.bool, device=dev)

@@ -17,7 +17,8 @@ Layout:
   ``(M, q, l, u, z0, tau, steps) -> z`` on the prepared f32 tensors:
   :func:`eg_steps_torch`, the plain batched PyTorch loop, and
   ``ops/eg_cuda.eg_warmstart_cuda``, the hand-written Hopper kernel (one
-  thread block per lane, the lane's matrix in shared memory).
+  thread block per lane, the lane's matrix in registers, each row split
+  over four threads of a warp).
 * :func:`eg_warmstart` — prepare, run the engine that ``CONFIG.eg_kernel``
   picks for the tensors' device, unscale.
 

@@ -52,6 +52,8 @@ def _host_lib() -> ctypes.CDLL:
                                 ["eg_lane.cuh"])
         lib.qpn_eg_warmstart_host_f32.restype = None
         lib.qpn_eg_warmstart_host_f32.argtypes = _PARAMS
+        lib.qpn_eg_pick_chunk.restype = ctypes.c_int
+        lib.qpn_eg_pick_chunk.argtypes = [ctypes.c_int]
         _HOST_LIB = lib
     return _HOST_LIB
 
@@ -96,7 +98,8 @@ def _args(M, q, l, u, z0, tau, out, steps):
 def eg_warmstart_cuda(M, q, l, u, z0, tau, steps: int) -> torch.Tensor:
     """Run ``steps`` extragradient steps of every lane in the CUDA kernel
     (one launch).  M (B,n,n); q/l/u/z0 (B,n); tau (B,); all f32 on one CUDA
-    device."""
+    device.  The launcher picks the kernel from n: the register kernel up to
+    n = 128, beyond that the generic shared-memory kernel."""
     if M.device.type != "cuda":
         raise ValueError("eg_warmstart_cuda takes CUDA tensors; CPU tensors "
                          "go to eg.eg_steps_torch")
@@ -122,7 +125,8 @@ def eg_warmstart_cuda(M, q, l, u, z0, tau, steps: int) -> torch.Tensor:
 
 
 def eg_steps_host(M, q, l, u, z0, tau, steps: int) -> torch.Tensor:
-    """The kernel's lane code built for the host, on CPU tensors."""
+    """The kernel's lane code built for the host, on CPU tensors: every sum
+    in the order of the kernel that the launcher picks for this n."""
     if M.device.type != "cpu":
         raise ValueError("eg_steps_host takes CPU tensors")
     _check(M, q, l, u, z0, tau, steps)
@@ -130,3 +134,9 @@ def eg_steps_host(M, q, l, u, z0, tau, steps: int) -> torch.Tensor:
     _host_lib().qpn_eg_warmstart_host_f32(
         *_args(M, q, l, u, z0, tau, out, steps))
     return out
+
+
+def host_pick_chunk(n: int) -> int:
+    """Columns per thread of the register kernel's instance for rows of
+    ``n`` columns (0: none, the generic kernel), from the kernel's header."""
+    return _host_lib().qpn_eg_pick_chunk(int(n))

@@ -46,7 +46,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..config import CONFIG, bucket
+from ..config import CONFIG, bucket, numeric_device
 
 _INF = np.inf
 
@@ -909,7 +909,7 @@ def solve_lp_lemke_batch(c, A, l, u, row_mask, *, tol=1e-7):
     max_pivots = 256
     while max_pivots < min(4096, 12 * Np + 128):
         max_pivots *= 2
-    dev = torch.device(CONFIG.device)
+    dev = numeric_device()
     f64 = torch.float64
     t = [torch.as_tensor(a, dtype=f64, device=dev) for a in (M, q, lA, uA)]
     zt, st_t, piv_t, _, _ = solve_lemke_batch_state_auto(

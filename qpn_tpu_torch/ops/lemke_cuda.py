@@ -57,8 +57,24 @@ def _host_lib() -> ctypes.CDLL:
         for fn in (lib.qpn_lemke_pivot_host_f32, lib.qpn_lemke_pivot_host_f64):
             fn.restype = None
             fn.argtypes = _PARAMS
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for fn, res, args in (
+                (lib.qpn_lk_scan_min_f64, ctypes.c_double, [vp, ci]),
+                (lib.qpn_lk_scan_min_f32, ctypes.c_float, [vp, ci]),
+                (lib.qpn_lk_scan_ties_f64, ci,
+                 [vp, vp, ci, ctypes.c_double, ci, vp,
+                  ctypes.POINTER(ci)]),
+                (lib.qpn_lemke_lane_stride, ci, [ci])):
+            fn.restype, fn.argtypes = res, args
         _HOST_LIB = lib
     return _HOST_LIB
+
+
+def host_scans() -> ctypes.CDLL:
+    """The host library, whose ``qpn_lk_scan_*`` functions are the host
+    bodies of the decision's scans (``csrc/lemke_lane.cuh``); the CPU tests
+    hold them against numpy."""
+    return _host_lib()
 
 
 def build() -> None:
@@ -116,8 +132,8 @@ def _args(init: LemkeInit, out: PivotResult, tol, piv_tol, max_pivots):
     return [*ptrs, B, n, float(tol), float(piv_tol), int(max_pivots)]
 
 
-def lemke_pivot_cuda(init: LemkeInit, *, tol, piv_tol,
-                     max_pivots) -> PivotResult:
+def lemke_pivot_cuda(init: LemkeInit, *, tol, piv_tol, max_pivots
+                     ) -> PivotResult:
     """Run the pivot loop of every lane in the CUDA kernel (one launch)."""
     if init.T.device.type != "cuda":
         raise ValueError("lemke_pivot_cuda takes CUDA tensors; CPU tensors "
@@ -145,9 +161,10 @@ def lemke_pivot_cuda(init: LemkeInit, *, tol, piv_tol,
     return out
 
 
-def lemke_pivot_host(init: LemkeInit, *, tol, piv_tol,
-                     max_pivots) -> PivotResult:
-    """The kernel's lane code built for the host, on CPU tensors."""
+def lemke_pivot_host(init: LemkeInit, *, tol, piv_tol, max_pivots
+                     ) -> PivotResult:
+    """The kernel's lane code built for the host, on CPU tensors, every sum
+    in the kernel's order."""
     if init.T.device.type != "cpu":
         raise ValueError("lemke_pivot_host takes CPU tensors")
     _check(init)

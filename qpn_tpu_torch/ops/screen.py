@@ -36,7 +36,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..config import CONFIG
+from ..config import CONFIG, numeric_device
 
 
 class ScreenProblem(NamedTuple):
@@ -121,7 +121,7 @@ def feasibility_screen(polys, x0=None, steps: int = 120, lr: float = 0.05,
     if B == 0:
         return np.zeros(0, dtype=bool), []
     prob = screen_prepare(polys, x0)
-    dev = torch.device(CONFIG.device)
+    dev = numeric_device()
     run = engine or screen_engine(dev)
     xs, vs = run(*(torch.as_tensor(a, device=dev) for a in prob),
                  steps=steps, lr=lr)

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import CONFIG
+from ..config import numeric_device
 from ..ops.avi import solve_avi_batch
 
 
@@ -100,7 +100,7 @@ def level_sweep_scan(M, Ncarry, o, l, u, nd, carry0, tol=1e-9, max_iter=60):
     hybrid semismooth-Newton solver from z = 0; the level's decision block
     becomes the next carry.  Returns (carry, zs (L, k), resids (L,)) as
     numpy arrays."""
-    dev = torch.device(CONFIG.device)
+    dev = numeric_device()
 
     def t(a):
         return torch.as_tensor(np.asarray(a), dtype=torch.float64, device=dev)

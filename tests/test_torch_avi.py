@@ -22,6 +22,13 @@ from qpn_tpu_torch.utils.metrics import METRICS
 TOL = 1e-8
 
 
+@pytest.fixture(autouse=True)
+def _cpu_device(monkeypatch):
+    """These tests run on the CPU: they ask the port for it (its default
+    device is the card)."""
+    monkeypatch.setattr(CONFIG, "device", "cpu")
+
+
 def _ensemble(S, seed):
     return scenario_batch_gavis(num_scenarios=S, T=2, num_obj=1,
                                 num_poly_faces=4, seed=seed)

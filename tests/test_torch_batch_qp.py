@@ -35,6 +35,13 @@ torch.set_num_threads(1)
 TOL = 1e-7
 
 
+@pytest.fixture(autouse=True)
+def _cpu_device(monkeypatch):
+    """These tests run on the CPU: they ask the port for it (its default
+    device is the card)."""
+    monkeypatch.setattr(CONFIG, "device", "cpu")
+
+
 def _problems(kind, B=8, m=10, n=5, seed=1):
     """Seeded QPs/LPs with one masked padding row; ``pinf`` adds two
     contradictory rows, ``dinf`` leaves an LP unbounded below."""

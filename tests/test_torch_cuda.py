@@ -98,7 +98,82 @@ def test_kernel_rejects_a_lane_too_large_for_shared_memory(cuda_device):
         lemke_pivot_cuda(init, max_pivots=16, **HOT)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [2, 3])
+@pytest.mark.parametrize("dtype,kw", [(torch.float32, HOT),
+                                      (torch.float64, F64)],
+                         ids=["f32", "f64"])
+def test_kernel_bits_match_its_host_instance(cuda_device, dtype, kw, seed):
+    """The kernel's warp votes, shuffles and butterflies give the bits of
+    the loops that walk the same order on the host (the g++ instance), and
+    the plain loop's status and pivot counts."""
+    from qpn_tpu_torch.ops.lemke_cuda import lemke_pivot_host
+    t = _data(cuda_device, S=32, seed=seed)
+    init = lemke.lemke_setup(*(t[k].to(dtype) for k in
+                               ("M", "q", "l", "u", "z0")), t["mask"],
+                             tol=kw["tol"])
+    rk = lemke_pivot_cuda(init, max_pivots=1024, **kw)
+    torch.cuda.synchronize()
+    rp = lemke.lemke_pivot_torch(init, max_pivots=1024, **kw)
+    assert torch.equal(rk.status, rp.status)
+    assert torch.equal(rk.piv, rp.piv)
+    cpu = lemke.LemkeInit(*(a.cpu() for a in init))
+    rh = lemke_pivot_host(cpu, max_pivots=1024, **kw)
+    for name in ("status", "piv", "basis", "val", "xB"):
+        assert torch.equal(getattr(rk, name).cpu(), getattr(rh, name)), name
+
+
+@pytest.mark.gpu
+def test_default_device_puts_the_ensemble_on_the_card(cuda_device):
+    from qpn_tpu_torch.config import NumericConfig
+    assert NumericConfig().device == "cuda" and CONFIG.device == "cuda"
+    b = scenario_batch_gavis(num_scenarios=2, T=2, num_obj=1,
+                             num_poly_faces=4, seed=0)
+    assert batch_from_numpy(b)["M"].device.type == "cuda"
+
+
 # --- the extragradient kernel (csrc/eg_warmstart.cu) -----------------------
+
+def _eg_random(device, n, B=8, seed=0):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, n, n)) / np.sqrt(n)
+    M = np.einsum("bij,bkj->bik", A, A) + 0.1 * np.eye(n)[None]
+    l = np.where(rng.random((B, n)) < 0.5, 0.0, -np.inf)
+    u = np.where(rng.random((B, n)) < 0.3, 1.0, np.inf)
+    arrays = (M, rng.standard_normal((B, n)), l, u, np.zeros((B, n)))
+    return eg.eg_prepare(*(torch.as_tensor(a, device=device) for a in arrays),
+                         torch.ones(B, n, dtype=torch.bool, device=device))
+
+
+# one n for each kernel the launcher can pick: the register kernel's four
+# templated sizes, and the generic kernel beyond them
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [5, 38, 50, 100, 130])
+def test_eg_instances_match_plain_loop_and_host_bits(cuda_device, n):
+    """Each instance of the kernel against the plain loop (1e-5 of the lane
+    scale after 300 steps: f32 sums in another order) and, bit for bit,
+    against the host loop that walks the same partition of every sum."""
+    p = _eg_random(cuda_device, n, seed=n)
+    ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
+    zk = eg_cuda.eg_warmstart_cuda(*ins, 300)
+    torch.cuda.synchronize()
+    zp = eg.eg_steps_torch(*ins, 300)
+    scale = 1.0 + float(zp.abs().max())
+    assert float((zk - zp).abs().max()) <= 1e-5 * scale
+    zh = eg_cuda.eg_steps_host(*(a.cpu() for a in ins), 300)
+    assert torch.equal(zk.cpu(), zh)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [38, 130], ids=["register", "generic"])
+def test_eg_kernel_keeps_nan(cuda_device, n):
+    p = _eg_random(cuda_device, n, B=3)
+    z0 = p.z0.clone()
+    z0[1, 5] = float("nan")
+    z = eg_cuda.eg_warmstart_cuda(p.M, p.q, p.l, p.u, z0, p.tau, 4)
+    assert bool(torch.isnan(z[1]).any())
+    assert bool(torch.isfinite(z[[0, 2]]).all())
+
 
 def _eg_inputs(t, S=None):
     keys = ("M", "q", "l", "u", "z0", "mask")
@@ -253,12 +328,12 @@ def test_screen_kernel_rejects_a_block_too_large_for_shared_memory(
 @pytest.mark.gpu
 def test_is_empty_batch_on_the_card_goes_through_the_screen(
         cuda_device, monkeypatch):
-    """geometry.is_empty_batch with device="cuda" and the screen on: the
-    verdicts of the exact LPs, at least one screen launch."""
+    """geometry.is_empty_batch on the default device (the card) with the
+    screen on: the verdicts of the exact LPs, at least one screen launch."""
     from qpn_tpu_torch.geometry import is_empty_batch
     from qpn_tpu_torch.geometry.query_cache import CACHE
     polys, truth = _screen_polys(64, 18, 18, seed=1)
-    monkeypatch.setattr(CONFIG, "device", "cuda")
+    assert CONFIG.device == "cuda"
     monkeypatch.setattr(CONFIG, "use_screen", True)
     CACHE.clear()
     before = METRICS.launches[screen_cuda.KERNEL]

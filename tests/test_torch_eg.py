@@ -20,9 +20,17 @@ from qpn_tpu.ops import pallas_kernels as pk
 
 from qpn_tpu_torch.config import CONFIG
 from qpn_tpu_torch.ops import eg
-from qpn_tpu_torch.ops.eg_cuda import eg_steps_host, eg_warmstart_cuda
+from qpn_tpu_torch.ops.eg_cuda import (eg_steps_host, eg_warmstart_cuda,
+                                       host_pick_chunk)
 
 Z_RTOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _cpu_device(monkeypatch):
+    """These tests run on the CPU: they ask the port for it (its default
+    device is the card)."""
+    monkeypatch.setattr(CONFIG, "device", "cpu")
 
 
 def _lcp():
@@ -114,6 +122,104 @@ def test_kernel_lane_host_matches_plain_loop(steps):
         assert torch.equal(zh, p.z0)
     scale = 1.0 + float(zp.abs().max())
     assert float((zh - zp).abs().max()) <= Z_RTOL * scale
+
+
+def _box_avi(n, seed, B=4):
+    """Seeded monotone box AVIs: PSD M, mixed finite and missing bounds."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, n, n)) / np.sqrt(n)
+    M = np.einsum("bij,bkj->bik", A, A) + 0.1 * np.eye(n)[None]
+    q = rng.standard_normal((B, n))
+    l = np.where(rng.random((B, n)) < 0.5, 0.0, -np.inf)
+    u = np.where(rng.random((B, n)) < 0.3, 1.0, np.inf)
+    return M, q, l, u, np.zeros((B, n)), np.ones((B, n), dtype=bool)
+
+
+# one n for each kernel the launcher can pick: the register kernel's four
+# chunk lengths (4, 10, 16 and 32 columns a thread), and the generic kernel
+PARTITION_N = [5, 38, 50, 70, 130]
+
+
+@pytest.mark.parametrize("steps", [0, 1, 7, 300])
+@pytest.mark.parametrize("n", PARTITION_N)
+def test_kernel_partitions_match_plain_loop(n, steps):
+    """The lane code under each partition of a row's sum that the launcher
+    can pick (the register kernel's chunks and butterfly; the generic
+    kernel's column order) against the plain loop on the same prepared
+    inputs.  Both step in f32 and differ only in the order of each sum, a
+    few ulps a step, and the iteration contracts: within 1e-5 of the lane
+    scale."""
+    p = eg.eg_prepare(*_tensors(_box_avi(n, seed=n)))
+    zh = eg_steps_host(p.M, p.q, p.l, p.u, p.z0, p.tau, steps)
+    zp = eg.eg_steps_torch(p.M, p.q, p.l, p.u, p.z0, p.tau, steps)
+    if steps == 0:
+        assert torch.equal(zh, p.z0)
+    scale = 1.0 + float(zp.abs().max())
+    assert float((zh - zp).abs().max()) <= Z_RTOL * scale
+
+
+@pytest.mark.parametrize("n", PARTITION_N)
+def test_kernel_partitions_match_pallas_reference(n):
+    """The same lane code against the JAX package's Pallas kernel (interpret
+    mode) from the unprepared problem, 300 steps, same bound."""
+    problem = _box_avi(n, seed=100 + n)
+    ref = pk.eg_warmstart(*problem, steps=300)
+    z = eg.eg_warmstart(*_tensors(problem), steps=300, engine=eg_steps_host)
+    scale = 1.0 + np.abs(ref).max()
+    np.testing.assert_allclose(z.numpy(), ref, rtol=0, atol=Z_RTOL * scale)
+
+
+def _row_sums(M, x, chunk):
+    """(M x) in f32 with each row's sum in the kernel's order: four chunks of
+    ``chunk`` columns, each from 0 in column order, joined by the butterfly
+    (p0 + p2) + (p1 + p3); ``chunk`` 0 is plain column order."""
+    f = np.float32
+    B, n, _ = M.shape
+    out = np.zeros((B, n), dtype=f)
+    for b in range(B):
+        for i in range(n):
+            if chunk == 0:
+                acc = f(0)
+                for j in range(n):
+                    acc = f(acc + f(M[b, i, j] * x[b, j]))
+                out[b, i] = acc
+                continue
+            part = []
+            for g in range(4):
+                acc = f(0)
+                for j in range(g * chunk, min((g + 1) * chunk, n)):
+                    acc = f(acc + f(M[b, i, j] * x[b, j]))
+                part.append(acc)
+            out[b, i] = f(f(part[0] + part[2]) + f(part[1] + part[3]))
+    return out
+
+
+@pytest.mark.parametrize("n,chunk", [(16, 4), (38, 10), (64, 16), (128, 32),
+                                     (129, 0)])
+def test_partition_the_launcher_picks(n, chunk):
+    """The launcher's pick from n: rows split over 4 threads up to n = 128
+    (10 columns a thread at the flagship n = 38), beyond that the generic
+    kernel's column order; one half-step of the host lane code gives the
+    bits of that order spelled out in numpy."""
+    assert host_pick_chunk(n) == chunk
+    p = eg.eg_prepare(*_tensors(_box_avi(n, seed=n, B=2)))
+    inf = torch.full_like(p.q, float("inf"))
+    z1 = eg_steps_host(p.M, p.q, -inf, inf, p.z0 + 1, p.tau, 1).numpy()
+    f = np.float32
+    M, q, tau = p.M.numpy(), p.q.numpy(), p.tau.numpy()[:, None]
+    z = (p.z0 + 1).numpy()
+    zh = (z - tau * (_row_sums(M, z, chunk) + q).astype(f)).astype(f)
+    want = (z - tau * (_row_sums(M, zh, chunk) + q).astype(f)).astype(f)
+    np.testing.assert_array_equal(z1, want)
+
+
+@pytest.mark.parametrize("n", [5, 130], ids=["register", "generic"])
+def test_nan_lane_stays_nan_in_every_partition(n):
+    p = eg.eg_prepare(*_tensors(_box_avi(n, seed=9)))
+    z0 = p.z0.clone()
+    z0[1, 2] = float("nan")
+    z = eg_steps_host(p.M, p.q, p.l, p.u, z0, p.tau, 4)
+    assert torch.isnan(z[1]).any() and not torch.isnan(z[0]).any()
 
 
 def test_eg_warmstart_examples():

@@ -39,6 +39,13 @@ TOL = 1e-8
 KEYS = ("M", "q", "l", "u", "z0", "mask")
 
 
+@pytest.fixture(autouse=True)
+def _cpu_device(monkeypatch):
+    """These tests run on the CPU: they ask the port for it (its default
+    device is the card)."""
+    monkeypatch.setattr(config.CONFIG, "device", "cpu")
+
+
 def _flagship(S=8, seed=0):
     b = scenario_batch_gavis(num_scenarios=S, T=2, num_obj=1,
                              num_poly_faces=4, seed=seed)

@@ -25,6 +25,7 @@ for name in ("simple_bilevel", "four_player_matrix_game", "robust_avoid",
              "chainstore", "trilevel_escape", "shepherd_sheep",
              "robust_constrained", "control_avoid", "interpolation_avoid"):
     qpn_tpu_torch.setup(name)
+qpn_tpu_torch.CONFIG.device = "cpu"     # the default is the card
 qpn_tpu_torch.solve(qpn_tpu_torch.setup("shepherd_sheep"))
 qpn_tpu_torch.models.robust_avoid.scenario_batch_gavis(num_scenarios=2, T=2)
 bad = sorted(m for m in sys.modules

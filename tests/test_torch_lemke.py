@@ -29,6 +29,13 @@ from qpn_tpu_torch.utils.metrics import METRICS
 HOT = dict(tol=1e-6, piv_tol=1e-5)
 
 
+@pytest.fixture(autouse=True)
+def _cpu_device(monkeypatch):
+    """These tests run on the CPU: they ask the port for it (its default
+    device is the card)."""
+    monkeypatch.setattr(CONFIG, "device", "cpu")
+
+
 def _rand_psd_lcp(B, n, seed):
     rng = np.random.default_rng(seed)
     A = rng.standard_normal((B, n, n))

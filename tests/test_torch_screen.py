@@ -26,6 +26,13 @@ TOL = 1e-5
 STEPS, LR = 120, 0.05
 
 
+@pytest.fixture(autouse=True)
+def _cpu_device(monkeypatch):
+    """These tests run on the CPU: they ask the port for it (its default
+    device is the card)."""
+    monkeypatch.setattr(CONFIG, "device", "cpu")
+
+
 def _pallas_cases(P, box):
     return [
         box([0.0, 0.0], [1.0, 1.0]),

@@ -33,6 +33,13 @@ INF = np.inf
 TOL = 1e-7
 
 
+@pytest.fixture(autouse=True)
+def _cpu_device(monkeypatch):
+    """These tests run on the CPU: they ask the port for it (its default
+    device is the card)."""
+    monkeypatch.setattr(CONFIG, "device", "cpu")
+
+
 def _emptiness(G):
     P = G.Poly
     closed = P(np.array([[1.0], [1.0]]), [-INF, 0.0], [0.0, INF],

@@ -63,6 +63,13 @@ ZOO = {
 }
 
 
+@pytest.fixture(autouse=True)
+def _cpu_device(monkeypatch):
+    """These tests run on the CPU: they ask the port for it (its default
+    device is the card)."""
+    monkeypatch.setattr(CONFIG, "device", "cpu")
+
+
 def _solve(pkg, name):
     kw, x0, _, _ = ZOO[name]
     qpn = pkg.setup(name, **kw)

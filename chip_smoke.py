@@ -54,7 +54,20 @@ Phases, one line each, with their seconds; any failure exits non-zero:
    a ``device="cpu"`` solve on the same machine; wall time per model both
    ways, the ADMM counters and the kernels' launch counts (the screen's is
    expected to be 0: no zoo model reaches it); then phase 10's comparison
-   on the closures of robust_avoid's solution-graph pieces.
+   on the closures of robust_avoid's solution-graph pieces;
+13. the shared-matrix route at full width: robust_avoid T=8, num_obj=4,
+   num_poly_faces=4, S=1024, seed 0 (n=608 per lane), tol 1e-8, through
+   ``solve_kkt_avi_batch`` so that the routing is on the path: every lane
+   counted in ``kkt_shared_route`` and certified, the natural residual
+   re-audited in numpy, the generic escalation cold; solves/s as the median
+   of 3 warm calls, the route's ``stats`` with ``phase_t``, peak device
+   memory; the label hash on the card against its host mirror; then the
+   route on the flagship ensemble (T=2, one solution) against the KKT
+   path's z, and on 8 lanes of the large ensemble on the CPU;
+14. the hard seed (seed 2, S=32) of the same model: the ADMM rung runs on
+   the card (``shared_kkt_chip_admm_rung`` above 0), every lane certified,
+   three repeats identical bit for bit in z, per-lane iterations and rung
+   populations.
 
 Then one JSON line for the kernels (launches on the main paths, error
 against the plain version, the kernel's, the plain version's and the bound's
@@ -132,6 +145,13 @@ GOLDEN = [
     ([0.0, 0.0], [[0.0, 0.0]], 3),
 ]
 X_OPT_TOL = 1e-6      # solve() on the card vs on the CPU, same machine
+# The shared-matrix route's design scale (the JAX package's bench row) and
+# its hard seed.
+LARGE = dict(num_scenarios=1024, T=8, num_obj=4, num_poly_faces=4, seed=0)
+HARD = dict(num_scenarios=32, T=8, num_obj=4, num_poly_faces=4, seed=2)
+SHARED_Z_TOL = 1e-8   # shared route vs KKT path at T=2: one solution
+SHARED_RUNGS = ("shared_kkt_chip_admm_rung", "shared_kkt_admm_escalation",
+                "shared_kkt_generic_escalation")
 # Published peaks of one H100 SXM: device memory rate and f32 rate outside
 # the tensor cores (what these three f32 kernels can use).
 PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
@@ -636,6 +656,139 @@ def solve_zoo(device, say, card):
     return pieces
 
 
+def shared_large(data, z_kkt, device, say, card):
+    """Phase 13: the shared-matrix route at its design scale, through the
+    routed entry point."""
+    import numpy as np
+    import torch
+    from qpn_tpu_torch.models.robust_avoid import scenario_batch_gavis
+    from qpn_tpu_torch.ops import shared_kkt
+    from qpn_tpu_torch.ops.avi import batch_from_numpy, solve_kkt_avi_batch
+    from qpn_tpu_torch.utils.metrics import METRICS
+    t0 = time.perf_counter()
+    batch = scenario_batch_gavis(**LARGE)
+    big = batch_from_numpy(batch)
+    t_build = time.perf_counter() - t0
+    B, n = big["q"].shape
+    args = (big["M"], big["q"], big["l"], big["u"], big["mask"],
+            big["structure"])
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    METRICS.reset()
+    res = solve_kkt_avi_batch(*args, tol=SOLVE_TOL)
+    torch.cuda.synchronize(device)
+    peak = torch.cuda.max_memory_allocated(device)
+    routed = int(METRICS.counters["kkt_shared_route"])
+    rungs = {k: int(METRICS.counters[k]) for k in SHARED_RUNGS}
+    z = res.z.cpu().numpy()
+    conv = float(res.converged.double().mean())
+    if routed != B:
+        fail(f"shared route: kkt_shared_route counted {routed} of {B} lanes")
+    if z.shape != (B, n) or not np.isfinite(z).all():
+        fail(f"shared route: z has shape {z.shape} or non-finite values")
+    if conv != 1.0:
+        fail(f"shared route: conv {conv}")
+    M0 = batch["M"][0]
+    F = z @ M0.T + batch["q"]
+    resid = np.abs(z - np.clip(z - F, batch["l"], batch["u"])).max(axis=1)
+    if not resid.max() <= SOLVE_TOL:
+        fail(f"shared route, numpy audit: max natural residual "
+             f"{resid.max()!r}")
+    if rungs["shared_kkt_generic_escalation"] != 0:
+        fail(f"shared route: the generic escalation ran ({rungs})")
+    # the same call with the ledger, then the timed calls
+    stats = {}
+    shared_kkt.solve_kkt_avi_shared(big["M"], big["q"], big["l"], big["u"],
+                                    big["mask"], tol=SOLVE_TOL,
+                                    structure=big["structure"], stats=stats)
+    t_call = timed(lambda: solve_kkt_avi_batch(*args, tol=SOLVE_TOL), device,
+                   3)
+    # the label hash on the card is its host mirror's, bit for bit
+    rng = np.random.default_rng(SEED)
+    at_l = rng.random((64, n)) < 0.3
+    at_u = (rng.random((64, n)) < 0.3) & ~at_l
+    h_dev = shared_kkt._label_hash_dev(
+        torch.as_tensor(at_l, device=device),
+        torch.as_tensor(at_u, device=device)).cpu().numpy()
+    h_host = shared_kkt._label_hash(at_l, at_u, shared_kkt._hash_weights(n))
+    if not np.array_equal(h_dev, h_host):
+        fail("shared route: the label hash on the card is not its host "
+             "mirror's")
+    say(f"shared route solve_kkt_avi_batch robust_avoid S={B} T={LARGE['T']} "
+        f"num_obj={LARGE['num_obj']} n={n} tol={SOLVE_TOL}: "
+        f"kkt_shared_route {routed}, conv {conv}, max resid "
+        f"{resid.max():.3g} (numpy audit), rungs {rungs}; "
+        f"{B / t_call:.1f} solves/s ({t_call:.3f} s a call, median of 3 "
+        f"warm calls); stats {json.dumps(stats)}; peak device memory "
+        f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the "
+        f"ensemble's {base / 2**30:.2f}); ensemble built in {t_build:.1f} s "
+        f"on the host [{card}]")
+    # small-input references: one solution at T=2, so z against the KKT
+    # path's on the flagship ensemble; the CPU path on 8 lanes of this one
+    res2 = shared_kkt.solve_kkt_avi_shared(
+        data["M"], data["q"], data["l"], data["u"], data["mask"],
+        tol=SOLVE_TOL, structure=data["structure"])
+    dz = float((res2.z - z_kkt).abs().max())
+    if not (bool(res2.converged.all()) and dz <= SHARED_Z_TOL):
+        fail(f"shared route on the flagship ensemble: conv "
+             f"{float(res2.converged.double().mean())}, z differs from the "
+             f"KKT path's by {dz!r}")
+    cpu = shared_kkt.solve_kkt_avi_shared(
+        M0, *(torch.as_tensor(batch[k][:8]) for k in ("q", "l", "u")), None,
+        tol=SOLVE_TOL, structure=batch["structure"])
+    if cpu.z.device.type != "cpu" or not bool(cpu.converged.all()):
+        fail("shared route, CPU path on 8 lanes: not every lane certified")
+    dc = float((cpu.z - res.z[:8].cpu()).abs().max())
+    say(f"shared route references: flagship ensemble (T=2, S={S}) z within "
+        f"{dz:.3g} of the KKT path's (<= {SHARED_Z_TOL}); CPU path on 8 "
+        f"lanes of the large ensemble certified, max resid "
+        f"{float(cpu.resid.max()):.3g}, z within {dc:.3g} of the card's (M "
+        f"is rank-deficient at T=8: not a gate) [{card}]")
+
+
+def shared_hard(device, say, card):
+    """Phase 14: the hard seed, whose round-0-singular lanes go to the ADMM
+    rung on the card; three repeats must be identical bit for bit."""
+    import torch
+    from qpn_tpu_torch.models.robust_avoid import scenario_batch_gavis
+    from qpn_tpu_torch.ops import shared_kkt
+    from qpn_tpu_torch.ops.avi import batch_from_numpy
+    from qpn_tpu_torch.utils.metrics import METRICS
+    hard = batch_from_numpy(scenario_batch_gavis(**HARD))
+    B, n = hard["q"].shape
+    runs, secs = [], []
+    for _ in range(3):
+        METRICS.reset()
+        stats = {}
+        t0 = time.perf_counter()
+        res = shared_kkt.solve_kkt_avi_shared(
+            hard["M"], hard["q"], hard["l"], hard["u"], hard["mask"],
+            tol=SOLVE_TOL, structure=hard["structure"], stats=stats)
+        torch.cuda.synchronize(device)
+        secs.append(time.perf_counter() - t0)
+        rungs = {k: int(METRICS.counters[k]) for k in SHARED_RUNGS}
+        if not bool(res.converged.all()):
+            fail(f"hard seed: {int((~res.converged).sum())} of {B} lanes "
+                 "not certified")
+        runs.append((res.z.clone(), res.iters.clone(), rungs,
+                     stats["host_solves"], stats))
+    z0, it0, rungs0, hs0, stats0 = runs[0]
+    if rungs0["shared_kkt_chip_admm_rung"] < 1:
+        fail(f"hard seed: the ADMM rung did not run ({rungs0})")
+    for z, it, rungs, hs, _ in runs[1:]:
+        if not (torch.equal(z, z0) and torch.equal(it, it0)
+                and rungs == rungs0 and hs == hs0):
+            fail("hard seed: three repeats are not identical (z equal: "
+                 f"{torch.equal(z, z0)}, iterations equal: "
+                 f"{torch.equal(it, it0)}, rungs {rungs} against {rungs0})")
+    say(f"shared route hard seed S={B} n={n} seed={HARD['seed']}: every lane "
+        f"certified, max resid {float(res.resid.max()):.3g}, "
+        f"rungs {rungs0}, three repeats identical bit for bit (z, per-lane "
+        f"iterations, rung populations, host solves); {min(secs):.3f}-"
+        f"{max(secs):.3f} s a call; stats {json.dumps(stats0)} [{card}]")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "qpn_tpu_torch")):
         fail("the qpn_tpu_torch package is not next to chip_smoke.py")
@@ -777,6 +930,12 @@ def main() -> None:
     pieces = solve_zoo(device, say, card)
     compare_screen([p.closure() for p in pieces], None, device, say, card,
                    "robust_avoid solution-graph closures")
+
+    # 13. the shared-matrix route at its design scale
+    shared_large(data, z_kkt, device, say, card)
+
+    # 14. the hard seed: the ADMM rung on the card, three repeats
+    shared_hard(device, say, card)
 
     if CONFIG.device != "cuda":
         fail(f"CONFIG.device was left at {CONFIG.device!r}")

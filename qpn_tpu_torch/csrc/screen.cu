@@ -6,29 +6,30 @@
 // launch, with no device-memory traffic between steps, and the kernel
 // returns the final x and max |v| per polyhedron.
 //
-// Design: one thread block per polyhedron, a grid of B blocks.  The row-
-// normalised A (m x n f32, odd row stride), l, u, v and x are loaded into
-// dynamic shared memory once and stay there for all steps.  Each step is
-// two phases, each followed by a barrier: one thread per row computes
-// (Ax)_r and the signed violation v_r; one thread per column computes
-// g_j = Σ_r A_rj v_r and updates x_j (screen_lane.cuh).  After the last
-// step a block reduction gives max |v|.  The block has the fewest warps
-// that cover max(m, n), at most 256 threads (32 at robust_avoid's 18 x 18
-// pieces), so a batch of thousands of polyhedra fills the card's SMs with
-// many resident blocks each.
+// What bounds it on this card: neither bytes nor operations but the chain
+// of 2·steps dependent phases, each a short sum per thread; every
+// polyhedron has its own A, so a step is two matrix-vector products and the
+// tensor cores do not apply.  The time is the number of instructions a
+// phase issues and the latency of handing x and v from one phase to the
+// next.
 //
-// What bounds it on this card: latency, not bytes or operations.  A step is
-// two dependent sums of length n and m read from shared memory, with a
-// barrier after each; at 18 x 18 a polyhedron does 2·18² multiply-adds per
-// step, so the 120 steps are a chain of short phases whose length is the
-// shared-memory load latency times n (or m) plus two barriers.  The design
-// keeps device memory out of that chain (everything stays resident; the odd
-// row stride avoids bank conflicts) and adds no third barrier; splitting
-// the sums over a warp, or packing several polyhedra into one block, is
-// later work.
+// Design, two kernels picked from the shape alone (screen_lane.cuh):
+//
+// * max(m, n) ≤ 32, the warp kernel: one polyhedron in one warp, kWarps of
+//   them in a block.  Thread t keeps row t and column t of A in registers
+//   for all steps (loaded once; instances templated on ceilings of m and n
+//   that are multiples of 4, so the sums unroll and nothing is indexed at
+//   run time).  x and v pass through one shared-memory line each: a thread
+//   stores its own entry, __syncwarp(), and every thread reads the line
+//   back with 16-byte loads from one address (a broadcast: 5 loads for 18
+//   entries).  No block barrier anywhere; max |v| by a shuffle butterfly.
+// * larger polyhedra, the generic kernel: one thread block per polyhedron,
+//   A (odd row stride), l, u, v and x in dynamic shared memory, a thread per
+//   row, then per column, a block barrier after each phase.
 //
 // Built with nvcc -O3 -fmad=false, no fast math (utils/cuda_build.py), so
-// each product and sum rounds separately, as in the plain PyTorch version.
+// each product and sum rounds separately, as in the plain PyTorch version,
+// and both kernels sum in the order of the g++ host instance.
 //
 // C interface (ctypes): qpn_screen_f32 returns 0 or a cudaError_t, or
 // QPN_ERR_SMEM when a polyhedron does not fit in shared memory.
@@ -40,13 +41,67 @@
 namespace {
 
 constexpr int kMaxThreads = 256;
+constexpr int kWarps = 4;           // polyhedra in a block of the warp kernel
 constexpr int QPN_ERR_SMEM = -1;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 int block_threads(int m, int n) {
     const int work = m > n ? m : n;
     int threads = (work + 31) / 32 * 32;
     return threads > kMaxThreads ? kMaxThreads : threads;
 }
+
+template <int MC, int NC>
+__global__ void __launch_bounds__(kWarps * qpn::kScreenWarp)
+screen_warp_kernel(qpn::ScreenBatch bt) {
+    __shared__ qpn::ScreenVec4 lines[kWarps][(MC + NC) / 4];
+    const int w = threadIdx.x / qpn::kScreenWarp;
+    const int t = threadIdx.x % qpn::kScreenWarp;
+    const size_t b = (size_t)blockIdx.x * kWarps + w;
+    if (b >= (size_t)bt.B) return;      // the whole warp: no block barrier
+    const int m = bt.m, n = bt.n;
+    qpn::ScreenVec4* vline = lines[w];
+    qpn::ScreenVec4* xline = lines[w] + MC / 4;
+    float* vf = reinterpret_cast<float*>(vline);
+    float* xf = reinterpret_cast<float*>(xline);
+    for (int k = t; k < MC + NC; k += qpn::kScreenWarp) vf[k] = 0.0f;
+    qpn::ScreenRegs<MC, NC> R;
+    qpn::screen_regs_load(R, bt, b, t);
+    __syncwarp();
+    if (t < n) xf[t] = R.x;
+    __syncwarp();
+    float v = 0.0f;
+    for (int s = 0;; ++s) {
+        if (t < m) {
+            v = qpn::screen_regs_violation(R, xline);
+            vf[t] = v;
+        }
+        if (s == bt.steps) break;
+        __syncwarp();
+        if (t < n) {
+            qpn::screen_regs_update(R, vline, bt.lr);
+            xf[t] = R.x;
+        }
+        __syncwarp();
+    }
+    float vmax = qpn::screen_nanmax(0.0f, qpn::screen_abs(v));
+#pragma unroll
+    for (int d = qpn::kScreenWarp / 2; d > 0; d /= 2)
+        vmax = qpn::screen_nanmax(vmax, __shfl_xor_sync(kFullMask, vmax, d));
+    if (t < n) bt.x_out[b * n + t] = R.x;
+    if (t == 0) bt.v_out[b] = vmax;
+}
+
+template <int MC, int NC>
+cudaError_t launch_warp(const qpn::ScreenBatch& bt, cudaStream_t stream) {
+    const int blocks = (bt.B + kWarps - 1) / kWarps;
+    screen_warp_kernel<MC, NC>
+        <<<blocks, kWarps * qpn::kScreenWarp, 0, stream>>>(bt);
+    return cudaGetLastError();
+}
+
+using WarpLaunch = cudaError_t (*)(const qpn::ScreenBatch&, cudaStream_t);
+const WarpLaunch kWarpLaunch[8][8] = QPN_SCREEN_TABLE(launch_warp);
 
 __global__ void __launch_bounds__(kMaxThreads)
 screen_kernel(qpn::ScreenBatch bt) {
@@ -60,6 +115,9 @@ screen_kernel(qpn::ScreenBatch bt) {
 
 int launch(const qpn::ScreenBatch& bt, cudaStream_t stream) {
     if (bt.B <= 0 || bt.n <= 0 || bt.m <= 0) return 0;
+    if (qpn::screen_fits_warp(bt.m, bt.n))
+        return kWarpLaunch[qpn::screen_ceiling_index(bt.m)]
+                          [qpn::screen_ceiling_index(bt.n)](bt, stream);
     const int threads = block_threads(bt.m, bt.n);
     const size_t bytes = qpn::screen_lane_bytes(bt.m, bt.n, threads);
     int dev = 0, optin = 0;

@@ -1,19 +1,34 @@
 // Per-polyhedron logic of the f32 feasibility screen for batches of
 // polyhedra  l ≤ A x ≤ u  (A row-normalised by the caller), shared by the
-// Hopper kernel (screen.cu: one thread block per polyhedron) and a host
-// instance built with g++ for the CPU tests (screen_lane_host.cpp: one
-// "thread", tid 0 of 1).
+// Hopper kernels (screen.cu) and a host instance built with g++ for the CPU
+// tests (screen_lane_host.cpp).
 //
 // Each of `steps` projected-subgradient steps is
 //     v = max(l − Ax, 0) + min(u − Ax, 0),   x ← x + lr · Aᵀv,
 // v being the signed violation of each row (positive below l, negative
-// above u).  A step is two phases separated by barriers (QPN_SCREEN_SYNC:
-// __syncthreads() on the card, a no-op on the host): phase 1 gives each
-// thread rows r = tid, tid+nthr, ... and computes (Ax)_r and v_r, summing
-// over the columns in order; phase 2 gives each thread columns j and
-// computes g_j = Σ_r A_rj v_r over the rows in order, then updates x_j.
-// After the last step one more phase 1 gives the final v, and a block
-// reduction its max |v|.
+// above u).  A step is two phases: phase 1 computes (Ax)_r and v_r for each
+// row, summing over the columns in order; phase 2 computes
+// g_j = Σ_r A_rj v_r over the rows in order and updates x_j.  After the last
+// step one more phase 1 gives the final v, and a reduction its max |v|.
+// The order of both sums is the same in the two instances below, so they
+// give the same bits.
+//
+// Two instances, picked from the shape alone (screen_fits_warp):
+//
+// * the warp instance, for max(m, n) ≤ 32: one polyhedron in one warp, A in
+//   registers for all steps.  Thread t keeps row t of A (phase 1) and column
+//   t of A (phase 2), loaded once, in arrays whose lengths are compile-time
+//   ceilings NC ≥ n and MC ≥ m (multiples of 4), so every loop unrolls.  x
+//   and v are exchanged through one shared-memory line each, read back as
+//   16-byte vectors that every thread loads from the same address (a
+//   broadcast).  Entries beyond n and m are zero in A and stay exactly zero
+//   in x and v (their threads never write), so each adds +0 at the end of a
+//   sum and leaves its bits as they are.  On the host the 32 threads are a
+//   loop (ScreenWarpHost).
+// * the generic instance, for larger polyhedra: one thread block per
+//   polyhedron, A, l, u, v and x in shared memory, a thread per row in phase
+//   1 and per column in phase 2, barriers between (QPN_SCREEN_SYNC:
+//   __syncthreads() on the card, a no-op for the host's one "thread").
 //
 // max and min propagate NaN, as jnp.maximum / jnp.minimum and torch do
 // (fmaxf/fminf would drop it and could turn a diverged polyhedron into a
@@ -50,10 +65,10 @@ struct ScreenBatch {
     float lr;
 };
 
-// One polyhedron's working set (shared memory on the card).  Rows of A are
-// ld = n | 1 floats apart: the odd stride puts the rows that neighbouring
-// threads read in phase 1 on different banks, while phase 2's threads read
-// neighbouring columns of one row.
+// The generic instance.  One polyhedron's working set (shared memory on the
+// card).  Rows of A are ld = n | 1 floats apart: the odd stride puts the rows
+// that neighbouring threads read in phase 1 on different banks, while phase
+// 2's threads read neighbouring columns of one row.
 struct ScreenLane {
     int m, n, ld;
     float* A;     // (m, ld)
@@ -159,6 +174,118 @@ QPN_SCREEN_HD void screen_lane_store(const ScreenLane& L, const ScreenBatch& bt,
     }
 }
 
+
+// --------------------------------------------------------------------------
+//  The warp instance: one polyhedron in one warp, A in registers.
+// --------------------------------------------------------------------------
+
+constexpr int kScreenWarp = 32;     // threads, and the largest m and n
+
+QPN_SCREEN_HD bool screen_fits_warp(int m, int n) {
+    return m <= kScreenWarp && n <= kScreenWarp;
+}
+
+// Index of the compile-time ceiling of k rows or columns: ceilings are 4, 8,
+// ..., 32, one 16-byte vector load apart.
+QPN_SCREEN_HD int screen_ceiling_index(int k) { return (k + 3) / 4 - 1; }
+
+struct alignas(16) ScreenVec4 {
+    float a, b, c, d;
+};
+
+// What thread t keeps for all steps.
+template <int MC, int NC>
+struct ScreenRegs {
+    float row[NC];   // A[t][0..n), zeros beyond (all zeros for t >= m)
+    float col[MC];   // A[0..m)[t], zeros beyond (all zeros for t >= n)
+    float l, u;      // bounds of row t
+    float x;         // x_t
+};
+
+template <int MC, int NC>
+QPN_SCREEN_HD void screen_regs_load(ScreenRegs<MC, NC>& R,
+                                    const ScreenBatch& bt, size_t b, int t) {
+    const int m = bt.m, n = bt.n;
+    const float* Ab = bt.A + b * (size_t)m * n;
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+        R.row[j] = (t < m && j < n) ? Ab[(size_t)t * n + j] : 0.0f;
+#pragma unroll
+    for (int r = 0; r < MC; ++r)
+        R.col[r] = (r < m && t < n) ? Ab[(size_t)r * n + t] : 0.0f;
+    R.l = t < m ? bt.l[b * m + t] : 0.0f;
+    R.u = t < m ? bt.u[b * m + t] : 0.0f;
+    R.x = t < n ? bt.x0[b * n + t] : 0.0f;
+}
+
+// Σ_k a[k] · line[k] over k in order, the line read four entries at a time.
+template <int C>
+QPN_SCREEN_HD float screen_line_dot(const float (&a)[C],
+                                    const ScreenVec4* line) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < C / 4; ++k) {
+        const ScreenVec4 q = line[k];
+        acc += a[4 * k] * q.a;
+        acc += a[4 * k + 1] * q.b;
+        acc += a[4 * k + 2] * q.c;
+        acc += a[4 * k + 3] * q.d;
+    }
+    return acc;
+}
+
+// Phase 1 of thread t: v_t from the x line (only threads t < m have a row).
+template <int MC, int NC>
+QPN_SCREEN_HD float screen_regs_violation(const ScreenRegs<MC, NC>& R,
+                                          const ScreenVec4* xline) {
+    const float ax = screen_line_dot<NC>(R.row, xline);
+    return screen_nanmax(R.l - ax, 0.0f) + screen_nanmin(R.u - ax, 0.0f);
+}
+
+// Phase 2 of thread t: x_t += lr · g_t from the v line (threads t < n).
+template <int MC, int NC>
+QPN_SCREEN_HD void screen_regs_update(ScreenRegs<MC, NC>& R,
+                                      const ScreenVec4* vline, float lr) {
+    const float g = screen_line_dot<MC>(R.col, vline);
+    R.x = R.x + lr * g;
+}
+
+QPN_SCREEN_HD float screen_abs(float v) { return v < 0.0f ? -v : v; }
+
+#if !defined(__CUDACC__)
+// The warp instance on the host: the 32 threads of one polyhedron as a
+// loop, each phase over all threads before the next (what __syncwarp()
+// orders on the card).
+template <int MC, int NC>
+void screen_warp_host(const ScreenBatch& bt) {
+    const int m = bt.m, n = bt.n;
+    for (size_t b = 0; b < (size_t)bt.B; ++b) {
+        ScreenRegs<MC, NC> R[kScreenWarp];
+        ScreenVec4 vline[MC / 4] = {}, xline[NC / 4] = {};
+        float* vf = &vline[0].a;
+        float* xf = &xline[0].a;
+        for (int t = 0; t < kScreenWarp; ++t) {
+            screen_regs_load(R[t], bt, b, t);
+            if (t < n) xf[t] = R[t].x;
+        }
+        for (int s = 0; s <= bt.steps; ++s) {
+            for (int t = 0; t < m; ++t)
+                vf[t] = screen_regs_violation(R[t], xline);
+            if (s == bt.steps) break;
+            for (int t = 0; t < n; ++t) {
+                screen_regs_update(R[t], vline, bt.lr);
+                xf[t] = R[t].x;
+            }
+        }
+        float vmax = 0.0f;
+        for (int t = 0; t < m; ++t)
+            vmax = screen_nanmax(vmax, screen_abs(vf[t]));
+        for (int t = 0; t < n; ++t) bt.x_out[b * n + t] = R[t].x;
+        bt.v_out[b] = vmax;
+    }
+}
+#endif
+
 }  // namespace qpn
 
 // The C interface's parameter list and the batch built from it.
@@ -167,3 +294,13 @@ QPN_SCREEN_HD void screen_lane_store(const ScreenLane& L, const ScreenBatch& bt,
         float *x_out, float *v_out, int B, int m, int n, int steps, float lr
 #define QPN_SCREEN_BATCH \
     qpn::ScreenBatch{A, l, u, x0, x_out, v_out, B, m, n, steps, lr}
+
+// One entry for each pair of ceilings (MC, NC) of the warp instance, indexed
+// [screen_ceiling_index(m)][screen_ceiling_index(n)].
+#define QPN_SCREEN_ROW(F, MC)                                              \
+    {F<MC, 4>, F<MC, 8>, F<MC, 12>, F<MC, 16>, F<MC, 20>, F<MC, 24>,      \
+     F<MC, 28>, F<MC, 32>}
+#define QPN_SCREEN_TABLE(F)                                                \
+    {QPN_SCREEN_ROW(F, 4), QPN_SCREEN_ROW(F, 8), QPN_SCREEN_ROW(F, 12),   \
+     QPN_SCREEN_ROW(F, 16), QPN_SCREEN_ROW(F, 20), QPN_SCREEN_ROW(F, 24), \
+     QPN_SCREEN_ROW(F, 28), QPN_SCREEN_ROW(F, 32)}

@@ -1,17 +1,20 @@
-// Host instance of the feasibility screen kernel's lane code
+// Host instance of the feasibility screen kernels' lane code
 // (screen_lane.cuh), built with plain g++ and loaded with ctypes by the CPU
-// tests: each polyhedron runs the same phase functions as a thread block on
-// the card, as thread 0 of 1 with no-op barriers.  Not on any production
-// path.
+// tests.  It picks the instance as the card's launcher does, from the shape
+// alone: polyhedra that fit a warp run the warp instance's register code with
+// the 32 threads as a loop; larger ones run the generic phase functions as
+// thread 0 of 1 with no-op barriers.  Not on any production path.
 
 #include <vector>
 
 #include "screen_lane.cuh"
 
-extern "C" {
+namespace {
 
-void qpn_screen_host_f32(QPN_SCREEN_PARAMS) {
-    const qpn::ScreenBatch bt = QPN_SCREEN_BATCH;
+using WarpHost = void (*)(const qpn::ScreenBatch&);
+const WarpHost kWarpHost[8][8] = QPN_SCREEN_TABLE(qpn::screen_warp_host);
+
+void generic_host(const qpn::ScreenBatch& bt) {
     std::vector<float> buf(qpn::screen_lane_bytes(bt.m, bt.n, 1)
                            / sizeof(float));
     for (size_t b = 0; b < (size_t)bt.B; ++b) {
@@ -21,6 +24,28 @@ void qpn_screen_host_f32(QPN_SCREEN_PARAMS) {
         qpn::screen_lane_run(L, bt.steps, bt.lr, 0, 1);
         qpn::screen_lane_store(L, bt, b, 0, 1);
     }
+}
+
+}  // namespace
+
+extern "C" {
+
+void qpn_screen_host_f32(QPN_SCREEN_PARAMS) {
+    const qpn::ScreenBatch bt = QPN_SCREEN_BATCH;
+    if (bt.B <= 0 || bt.m <= 0 || bt.n <= 0) return;
+    if (qpn::screen_fits_warp(bt.m, bt.n))
+        kWarpHost[qpn::screen_ceiling_index(bt.m)]
+                 [qpn::screen_ceiling_index(bt.n)](bt);
+    else
+        generic_host(bt);
+}
+
+// The generic instance at any shape: the tests hold the warp instance to
+// its bits.
+void qpn_screen_host_generic_f32(QPN_SCREEN_PARAMS) {
+    const qpn::ScreenBatch bt = QPN_SCREEN_BATCH;
+    if (bt.B <= 0 || bt.m <= 0 || bt.n <= 0) return;
+    generic_host(bt);
 }
 
 }  // extern "C"

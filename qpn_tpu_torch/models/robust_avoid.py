@@ -126,6 +126,26 @@ def setup(T: int = 3, num_obj: int = 1, num_poly_faces: int = 4,
     return net
 
 
+def hard_chunk_job(S: int, T: int, num_obj: int, pf: int, seed: int,
+                   tol: float = 1e-8):
+    """One work unit of the degenerate trajectory class: build the seed's
+    scenario certificate ensemble and solve it end to end through the shared
+    route on ``CONFIG.device`` (seed 2 at T=8, num_obj=4 is the
+    dual-degenerate-heavy class the δ-ladder cannot certify).  Module-level,
+    so that a process pool can ship it to workers by reference.  Returns
+    (converged fraction, max residual, |z| checksum); the checksum lets a
+    caller assert that a worker's result is bit-identical to a serial
+    run's."""
+    from ..ops.shared_kkt import solve_kkt_avi_shared
+    b = scenario_batch_gavis(num_scenarios=S, T=T, num_obj=num_obj,
+                             num_poly_faces=pf, seed=seed)
+    r = solve_kkt_avi_shared(b["M"][0], b["q"], b["l"], b["u"], None,
+                             tol=tol, structure=b["structure"])
+    z = r.z.cpu().numpy()
+    return (float(r.converged.double().mean()), float(r.resid.max()),
+            float(np.abs(z).sum()))
+
+
 def scenario_batch_gavis(num_scenarios: int = 64, T: int = 3,
                          num_obj: int = 1, num_poly_faces: int = 4,
                          seed: int = 0):

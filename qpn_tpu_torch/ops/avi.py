@@ -207,10 +207,14 @@ def solve_kkt_avi_batch(M, q, l, u, var_mask, structure, tol=1e-10,
     ``nd`` decisions and ``m`` rows), solve it with the batched ADMM engine,
     rebuild ``(λ, s)``, and Newton-polish the lanes above ``tol``.
 
+    Ensembles tagged ``structure["shared_M"]`` (one matrix replicated over
+    the lanes, no padding) at ``n >= CONFIG.shared_kkt_min_n`` go to the
+    shared-matrix route (``ops/shared_kkt.solve_kkt_avi_shared``): at that
+    size a pivot tableau per lane is bound by memory traffic.  Counted in
+    ``METRICS["kkt_shared_route"]``.
+
     Tensors: M (B,n,n), q/l/u (B,n) of any float dtype (the solve is f64),
-    var_mask (B,n) bool, all on one device.  Not ported yet, and raising
-    ``NotImplementedError``: the shared-matrix route for large ``shared_M``
-    ensembles."""
+    var_mask (B,n) bool, all on one device."""
     if method == "admm":
         return _solve_kkt_avi_admm(M, q, l, u, var_mask, structure, tol)
     if method != "lemke":
@@ -222,10 +226,10 @@ def solve_kkt_avi_batch(M, q, l, u, var_mask, structure, tol=1e-10,
     B, n, _ = M.shape
     if (structure.get("shared_M") and n >= CONFIG.shared_kkt_min_n
             and bool(vm.all()) and bool((M == M[:1]).all())):
-        raise NotImplementedError(
-            f"shared-matrix ensemble with n={n} >= shared_kkt_min_n="
-            f"{CONFIG.shared_kkt_min_n}: the shared-matrix route "
-            "(qpn_tpu/ops/shared_kkt.py) is not ported yet — ROADMAP slice 3")
+        from .shared_kkt import solve_kkt_avi_shared
+        METRICS.bump("kkt_shared_route", B)
+        return solve_kkt_avi_shared(M[0], q, l, u, None, tol=tol,
+                                    structure=structure)
     # power-of-two pivot budget, as the JAX package sizes it
     max_pivots = 256
     while max_pivots < min(4096, 16 * n + 256):

@@ -27,10 +27,8 @@ of ``mixed`` (the port computes in f64; per lane, the JAX package's mixed
 epochs of four check blocks give the iterates of its non-mixed ones), the QR
 detour of the polish (the port takes an LU), bucket padding of the shapes
 (padded rows and variables change no lane's numbers), the AOT cache and
-small-dispatch placement.  Not ported yet, with the callers that need them
-(the shared-matrix route, ROADMAP slice 3): the warm start ``x_init`` /
-``y_init``, ``polish=False`` and the banded x-update (``ops/banded.py``);
-the lockstep broker and ``_sharding`` (slice 4).
+small-dispatch placement.  Not ported yet: the banded x-update
+(``ops/banded.py``); the lockstep broker and ``_sharding`` (slice 4).
 
 Status codes mirror the OSQP codes the reference branches on
 (qp_processing.jl:7, sets.jl:683-701): 1 solved, 2 solved-inaccurate,
@@ -230,14 +228,21 @@ def _polish(d0: _Lanes, x, z, y):
 
 
 def solve_qp_batch(P, q, A, l, u, row_mask, *, max_iter=4000, eps=1e-9,
-                   rho0=0.1, sigma=1e-6, alpha=1.6,
-                   check_every=25) -> QPSolution:
+                   rho0=0.1, sigma=1e-6, alpha=1.6, check_every=25,
+                   x_init=None, y_init=None, polish=True) -> QPSolution:
     """Solve a batch of box-constrained QPs by ADMM, in f64 on the device of
     the inputs.
 
     Args: P (B,n,n), q (B,n), A (B,m,n), l/u (B,m), row_mask (B,m) bool;
     masked rows need a=0 (their bounds are ignored).  Returns a QPSolution
     of tensors.
+
+    ``x_init`` (B,n) / ``y_init`` (B,m) start the iteration from a primal /
+    dual estimate in the caller's coordinates; as in the JAX package, giving
+    either one also starts z at the projection of A·x onto the bounds, where
+    a call without them starts z at 0.  ``polish=False`` skips the terminal
+    active-set polish for callers that certify by their own means (the
+    shared-matrix route's ADMM rung).
 
     Counts ``admm_calls``, ``admm_lanes`` and ``admm_blocks`` (blocks of
     ``check_every`` iterations, each a host read of the masks) in
@@ -274,6 +279,13 @@ def solve_qp_batch(P, q, A, l, u, row_mask, *, max_iter=4000, eps=1e-9,
     x = torch.zeros(B, n, dtype=f64, device=dev)
     z = torch.zeros(B, m, dtype=f64, device=dev)
     y = torch.zeros(B, m, dtype=f64, device=dev)
+    if x_init is not None or y_init is not None:
+        # warm start in scaled coordinates (x = Dsc·x̂, y = Esc·ŷ)
+        if x_init is not None:
+            x = x_init.to(f64) / Dsc
+        z = torch.clamp(_mv(As, x), lc, uc)
+        if y_init is not None:
+            y = y_init.to(f64) / torch.where(Esc == 0, 1.0, Esc)
 
     adapt_every = max(100 // check_every, 1) * check_every
     k = torch.zeros(B, dtype=torch.int64, device=dev)
@@ -333,7 +345,7 @@ def solve_qp_batch(P, q, A, l, u, row_mask, *, max_iter=4000, eps=1e-9,
     prim, dual = _residuals(d0, x, z, y)[:2]
     do = torch.nonzero((status == SOLVED)
                        | ((prim <= 1e-3) & (dual <= 1e-3)))[:, 0]
-    if do.numel():
+    if polish and do.numel():
         x[do], z[do], y[do] = _polish(d0.take(do), x[do], z[do], y[do])
     prim, dual = _residuals(d0, x, z, y)[:2]
     good = (prim <= 1e-6) & (dual <= 1e-6)

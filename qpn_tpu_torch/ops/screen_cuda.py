@@ -7,9 +7,12 @@
 projected-subgradient steps and its max |violation|, exactly like the plain
 PyTorch loop ``screen.screen_steps_torch`` it is held against.  It takes CUDA
 tensors only and raises on anything the kernel does not take; there is no
-fallback to the plain loop.  The kernel is built with nvcc on first use
-(``utils/cuda_build.py``) and launched on the current stream; every launch is
-counted in ``METRICS.launches["feasibility_screen"]``.
+fallback to the plain loop.  The launcher picks one of two kernels from the
+shape alone (one polyhedron in a warp with A in registers up to 32 rows and
+columns, else a thread block per polyhedron); there is no launch option.
+The kernel is built with nvcc on first use (``utils/cuda_build.py``) and
+launched on the current stream; every launch is counted in
+``METRICS.launches["feasibility_screen"]``.
 
 :func:`screen_steps_host` runs the same lane code built with g++ on CPU
 tensors — the CPU tests' window on the kernel's logic.
@@ -51,8 +54,8 @@ def _host_lib() -> ctypes.CDLL:
     if _HOST_LIB is None:
         lib = load_host_library("screen_lane_host", ["screen_lane_host.cpp"],
                                 ["screen_lane.cuh"])
-        lib.qpn_screen_host_f32.restype = None
-        lib.qpn_screen_host_f32.argtypes = _PARAMS
+        for fn in (lib.qpn_screen_host_f32, lib.qpn_screen_host_generic_f32):
+            fn.restype, fn.argtypes = None, _PARAMS
         _HOST_LIB = lib
     return _HOST_LIB
 
@@ -126,14 +129,19 @@ def feasibility_screen_cuda(A, l, u, x0, steps: int, lr: float):
     return x_out, v_out
 
 
-def screen_steps_host(A, l, u, x0, steps: int, lr: float):
-    """The kernel's lane code built for the host, on CPU tensors."""
+def screen_steps_host(A, l, u, x0, steps: int, lr: float,
+                      generic: bool = False):
+    """The kernels' lane code built for the host, on CPU tensors: the
+    instance the card's launcher would pick for this shape (the warp
+    instance up to 32 rows and columns), or with ``generic`` the generic
+    instance at any shape."""
     if A.device.type != "cpu":
         raise ValueError("screen_steps_host takes CPU tensors")
     _check(A, l, u, x0, steps)
     B, m, n = A.shape
     x_out = torch.empty_like(x0)
     v_out = torch.empty(B, dtype=torch.float32)
-    _host_lib().qpn_screen_host_f32(
-        *_args(A, l, u, x0, x_out, v_out, steps, lr))
+    lib = _host_lib()
+    run = lib.qpn_screen_host_generic_f32 if generic else lib.qpn_screen_host_f32
+    run(*_args(A, l, u, x0, x_out, v_out, steps, lr))
     return x_out, v_out

@@ -113,14 +113,22 @@ def test_admm_method_is_not_ported():
 
 
 def test_shared_route_is_not_ported(monkeypatch):
-    """A shared_M ensemble at or above shared_kkt_min_n belongs to the
-    shared-matrix route (ROADMAP slice 3): the port raises instead of
-    pivoting it."""
-    monkeypatch.setattr(CONFIG, "shared_kkt_min_n", 38)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        _solve(_ensemble(8, 0), tol=TOL)
+    """The shared-matrix route is ported now (the name is the test's
+    history): a shared_M ensemble at or above shared_kkt_min_n goes to it
+    (counted per lane) and certifies at the pivot route's z within 1e-8 (the
+    KKT solution is unique); below the gate it is pivoted."""
+    b = _ensemble(8, 0)
     monkeypatch.setattr(CONFIG, "shared_kkt_min_n", 39)
-    assert bool(_solve(_ensemble(8, 0), tol=TOL).converged.all())
+    before = METRICS.counters.get("kkt_shared_route", 0.0)
+    piv = _solve(b, tol=TOL)
+    assert bool(piv.converged.all())
+    assert METRICS.counters.get("kkt_shared_route", 0.0) == before
+    monkeypatch.setattr(CONFIG, "shared_kkt_min_n", 38)
+    res = _solve(b, tol=TOL)
+    assert METRICS.counters["kkt_shared_route"] == before + 8
+    assert bool(res.converged.all())
+    np.testing.assert_allclose(res.z.numpy(), piv.z.numpy(), rtol=0,
+                               atol=1e-8)
 
 
 def test_uncertified_lanes_are_reported():

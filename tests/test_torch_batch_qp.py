@@ -107,6 +107,86 @@ def test_two_tier_stragglers_match_reference(monkeypatch, tier1):
     assert (np.abs(got.iters - np.asarray(want.iters)) <= 25).all()
 
 
+def _engine_both(args, **kw):
+    """solve_qp_batch of both packages on the same numpy inputs."""
+    t = [torch.as_tensor(a) for a in args]
+    init = {k: torch.as_tensor(v) for k, v in kw.items()
+            if k in ("x_init", "y_init")}
+    rest = {k: v for k, v in kw.items() if k not in init}
+    got = batch_qp.solve_qp_batch(*t, **init, **rest)
+    want = ref_qp.solve_qp_batch(*args, **kw)
+    return (batch_qp.QPSolution(*(v.numpy() for v in got)),
+            batch_qp.QPSolution(*(np.asarray(v) for v in want)))
+
+
+# x to 1e-9 where both polish (the polish lands the active set's solution);
+# without the polish x is the ADMM iterate at its stopping block, which the
+# two packages reach through sums in another order: 1e-9 still holds when
+# they stop in the same block, and the stopping tolerance eps otherwise
+@pytest.mark.parametrize("polish", [True, False])
+@pytest.mark.parametrize("start", ["x", "y", "xy", "zeros"])
+def test_warm_start_and_polish_flag_match_reference(start, polish):
+    """x_init / y_init and polish=False against the JAX package: equal
+    statuses, iteration counts within one 25-iteration block, x within 1e-9
+    (same block) or eps."""
+    args = _problems("qp", B=8, seed=11)
+    P, c, A, l, u, mask = args
+    cold, _ = _engine_both(args)
+    rng = np.random.default_rng(5)
+    kw = {}
+    if "x" in start:
+        kw["x_init"] = cold.x + 1e-3 * rng.standard_normal(cold.x.shape)
+    if "y" in start:
+        kw["y_init"] = cold.y + 1e-3 * rng.standard_normal(cold.y.shape)
+    if start == "zeros":
+        kw = dict(x_init=np.zeros_like(cold.x), y_init=np.zeros_like(cold.y))
+    eps = 1e-6
+    got, want = _engine_both(args, eps=eps, polish=polish, **kw)
+    np.testing.assert_array_equal(got.status, want.status)
+    assert np.isin(got.status, (batch_qp.SOLVED,
+                                batch_qp.SOLVED_INACCURATE)).all()
+    dk = np.abs(got.iters - want.iters)
+    assert (dk <= 25).all()
+    same = dk == 0
+    assert same.any()
+    tight = same | polish
+    np.testing.assert_allclose(got.x[tight], want.x[tight], rtol=0, atol=1e-9)
+    np.testing.assert_allclose(got.x, want.x, rtol=0, atol=10 * eps)
+    if start == "xy":
+        # a start near the primal and dual solution pays: fewer iterations
+        # than the cold solve's
+        cold_eps, _ = _engine_both(args, eps=eps, polish=polish)
+        assert got.iters.sum() < cold_eps.iters.sum()
+
+
+def test_zero_start_is_not_the_cold_start():
+    """Given x_init = 0 the engine starts z at clip(0, l, u), not at 0, as
+    the JAX package does: other iterates than a call without a start."""
+    args = _problems("qp", B=4, seed=12)
+    t = [torch.as_tensor(a) for a in args]
+    z0 = torch.zeros(4, 5, dtype=torch.float64)
+    cold = batch_qp.solve_qp_batch(*t, max_iter=25, polish=False)
+    warm = batch_qp.solve_qp_batch(*t, max_iter=25, polish=False, x_init=z0)
+    assert not torch.equal(cold.x, warm.x)
+    ref = ref_qp.solve_qp_batch(*args, max_iter=25, polish=False,
+                                x_init=z0.numpy())
+    np.testing.assert_allclose(warm.x.numpy(), np.asarray(ref.x), rtol=0,
+                               atol=1e-9)
+
+
+def test_polish_false_leaves_the_admm_iterate():
+    """polish=False returns the unpolished iterate: its residuals are those
+    of the eps test (1e-4), where the polished solve is near 1e-9 (the polish
+    regularises its KKT system by 1e-9)."""
+    args = _problems("qp", B=6, seed=13)
+    t = [torch.as_tensor(a) for a in args]
+    raw = batch_qp.solve_qp_batch(*t, eps=1e-4, polish=False)
+    pol = batch_qp.solve_qp_batch(*t, eps=1e-4, polish=True)
+    assert torch.equal(raw.iters, pol.iters)
+    assert float((pol.prim_res + pol.dual_res).max()) <= 1e-7
+    assert float((raw.prim_res + raw.dual_res).min()) > 1e-7
+
+
 def test_single_problem_wrapper_matches_reference():
     P, c, A, l, u, mask = _problems("qp", B=1, seed=7)
     got = batch_qp.solve_qp_np(P[0], c[0], A[0], l[0], u[0])

@@ -301,6 +301,66 @@ def test_screen_kernel_matches_plain_loop(cuda_device, B, m, n):
     assert float(((vk - vp).abs() / (1.0 + vp)).max()) <= 1e-4
 
 
+def _ragged_screen(B, m, n, seed):
+    """Prepared inputs of polyhedra whose row counts run from 1 to m (zero
+    rows pad the batch), with one-sided and free rows."""
+    from qpn_tpu_torch.geometry import Poly
+    rng = np.random.default_rng(seed)
+    polys = []
+    for b in range(B):
+        mb = m if b == 0 else 1 + (b * 5) % m
+        A = rng.standard_normal((mb, n))
+        ax = A @ (0.3 * rng.standard_normal(n))
+        w = 0.2 + rng.random(mb)
+        l, u = ax - w, ax + w
+        u[rng.random(mb) < 0.3] = np.inf
+        l[rng.random(mb) < 0.2] = -np.inf
+        polys.append(Poly(A, l, u, normalize=False, dedupe=False))
+    return [torch.as_tensor(a) for a in screen.screen_prepare(polys)]
+
+
+# the warp kernel's register ceilings are multiples of 4 up to 32: shapes
+# at, below and above an edge, and the first ones the generic kernel takes
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n", [(1, 5), (5, 1), (8, 8), (9, 8), (8, 9),
+                                 (18, 18), (18, 26), (32, 32), (33, 5),
+                                 (5, 33), (32, 33)])
+def test_screen_kernel_bits_match_its_host_instance(cuda_device, m, n):
+    """Both kernels sum in the order of the g++ instance (registers, shared-
+    memory lines and the zero padding change no bit), on ragged row counts
+    and a batch that does not fill its last block; within 1e-4 of the plain
+    loop."""
+    cpu = _ragged_screen(37, m, n, seed=m * 100 + n)
+    ins = [a.to(cuda_device) for a in cpu]
+    xk, vk = screen_cuda.feasibility_screen_cuda(*ins, 120, 0.05)
+    torch.cuda.synchronize()
+    xh, vh = screen_cuda.screen_steps_host(*cpu, 120, 0.05)
+    assert torch.equal(xk.cpu(), xh) and torch.equal(vk.cpu(), vh)
+    xp, vp = screen.screen_steps_torch(*ins, 120, 0.05)
+    scale = 1.0 + xp.abs().amax(1, keepdim=True)
+    assert float(((xk - xp).abs() / scale).max()) <= 1e-4
+    assert float(((vk - vp).abs() / (1.0 + vp)).max()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", [float("nan"), float("inf"), -float("inf")])
+@pytest.mark.parametrize("m,n", [(9, 8), (18, 18), (33, 5)])
+def test_screen_kernel_nan_and_inf_as_its_host_instance(cuda_device, m, n,
+                                                        bad):
+    """A NaN or infinite start entry: NaN where the host instance has NaN,
+    its bits elsewhere."""
+    cpu = _ragged_screen(5, m, n, seed=7)
+    cpu[3][1, n - 1] = bad
+    xk, vk = screen_cuda.feasibility_screen_cuda(
+        *(a.to(cuda_device) for a in cpu), 10, 0.05)
+    xh, vh = screen_cuda.screen_steps_host(*cpu, 10, 0.05)
+    xk, vk = xk.cpu(), vk.cpu()
+    assert torch.equal(torch.isnan(xk), torch.isnan(xh))
+    assert torch.equal(torch.isnan(vk), torch.isnan(vh))
+    assert torch.equal(xk[~torch.isnan(xk)], xh[~torch.isnan(xh)])
+    assert torch.equal(vk[~torch.isnan(vk)], vh[~torch.isnan(vh)])
+
+
 @pytest.mark.gpu
 def test_screen_kernel_keeps_nan(cuda_device):
     """A NaN start stays NaN in x and max |v| (no fmaxf/fminf)."""

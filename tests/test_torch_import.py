@@ -19,7 +19,7 @@ import qpn_tpu_torch.ops.screen_cuda, qpn_tpu_torch.geometry.setops
 import qpn_tpu_torch.geometry.project, qpn_tpu_torch.geometry.vertices
 import qpn_tpu_torch.geometry.rays, qpn_tpu_torch.geometry.query_cache
 import qpn_tpu_torch.enumeration, qpn_tpu_torch.requests
-import qpn_tpu_torch.parallel.sharded
+import qpn_tpu_torch.parallel.sharded, qpn_tpu_torch.ops.shared_kkt
 for name in ("simple_bilevel", "four_player_matrix_game", "robust_avoid",
              "deep_synthetic", "rock_paper_scissors", "toll_setting",
              "chainstore", "trilevel_escape", "shepherd_sheep",
@@ -27,7 +27,10 @@ for name in ("simple_bilevel", "four_player_matrix_game", "robust_avoid",
     qpn_tpu_torch.setup(name)
 qpn_tpu_torch.CONFIG.device = "cpu"     # the default is the card
 qpn_tpu_torch.solve(qpn_tpu_torch.setup("shepherd_sheep"))
-qpn_tpu_torch.models.robust_avoid.scenario_batch_gavis(num_scenarios=2, T=2)
+b = qpn_tpu_torch.models.robust_avoid.scenario_batch_gavis(num_scenarios=2,
+                                                           T=2)
+qpn_tpu_torch.ops.shared_kkt.solve_kkt_avi_shared(
+    b["M"], b["q"], b["l"], b["u"], b["mask"], structure=b["structure"])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "qpn_tpu"))
 print(",".join(bad))

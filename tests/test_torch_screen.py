@@ -164,6 +164,72 @@ def test_nan_propagates(engine):
     assert not w.any() and not w_ref.any()
 
 
+def _ragged(P, B, m, n, seed):
+    """Polyhedra of dimension n whose row counts run from 1 to m (the batch
+    pads them with zero rows), with one-sided and free rows."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in range(B):
+        mb = m if b == 0 else 1 + (b * 5) % m
+        A = rng.standard_normal((mb, n))
+        ax = A @ (0.3 * rng.standard_normal(n))
+        w = 0.2 + rng.random(mb)
+        l, u = ax - w, ax + w
+        u[rng.random(mb) < 0.3] = np.inf
+        l[rng.random(mb) < 0.2] = -np.inf
+        out.append(P(A, l, u, normalize=False, dedupe=False))
+    return out
+
+
+# the warp instance's ceilings are multiples of 4 up to 32: one shape at,
+# below and above an edge for rows and for columns, and the first shapes
+# that go to the generic instance
+EDGE_SHAPES = [(1, 5), (5, 1), (8, 8), (9, 8), (8, 9), (18, 26), (32, 32),
+               (33, 5), (5, 33), (32, 33)]
+
+
+@pytest.mark.parametrize("m,n", EDGE_SHAPES)
+def test_host_instance_at_the_register_edges(monkeypatch, m, n):
+    """The g++ instance the launcher's rule picks for (m, n), on ragged row
+    counts: against the Pallas kernel in interpret mode and the plain loop
+    (TOL, as above), and bit for bit against the generic instance, which
+    sums in the same order without the zero padding of the registers."""
+    polys = _ragged(Poly, 6, m, n, seed=m * 100 + n)
+    _, x_ref, v_ref, _ = _reference(monkeypatch,
+                                    _ragged(RefPoly, 6, m, n, m * 100 + n))
+    ins = [torch.as_tensor(a) for a in screen.screen_prepare(polys)]
+    assert ins[0].shape == (6, m, n)
+    x, v = screen_cuda.screen_steps_host(*ins, STEPS, LR)
+    xg, vg = screen_cuda.screen_steps_host(*ins, STEPS, LR, generic=True)
+    assert torch.equal(x, xg) and torch.equal(v, vg)
+    xp, vp = screen.screen_steps_torch(*ins, STEPS, LR)
+    for xr, vr in ((x_ref, v_ref), (xp.numpy(), vp.numpy())):
+        scale = 1.0 + np.abs(xr).max(axis=1, keepdims=True)
+        assert (np.abs(x.numpy() - xr) / scale).max() <= TOL
+        assert (np.abs(v.numpy() - vr) / (1.0 + vr)).max() <= TOL
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf"), -float("inf")])
+@pytest.mark.parametrize("m,n", [(9, 8), (18, 18), (33, 5)])
+def test_host_instance_keeps_nan_and_inf(m, n, bad):
+    """A NaN or infinite start entry spoils that polyhedron only (0·inf is
+    NaN in every engine), and the register instance's padding entries do
+    not change which values come out: the bits of the generic instance."""
+    ins = [torch.as_tensor(a)
+           for a in screen.screen_prepare(_ragged(Poly, 4, m, n, seed=7))]
+    ins[3][1, n - 1] = bad
+    x, v = screen_cuda.screen_steps_host(*ins, 10, LR)
+    xg, vg = screen_cuda.screen_steps_host(*ins, 10, LR, generic=True)
+    xp, vp = screen.screen_steps_torch(*ins, 10, LR)
+    for xe, ve in ((xg, vg), (xp, vp)):
+        assert torch.equal(torch.isnan(x), torch.isnan(xe))
+        assert torch.equal(torch.isnan(v), torch.isnan(ve))
+    fin = ~torch.isnan(x)
+    assert torch.equal(x[fin], xg[fin])
+    assert not bool(torch.isfinite(v[1]))
+    assert bool(torch.isfinite(v[[0, 2, 3]]).all())
+
+
 def test_engine_choice_and_wrapper_checks(monkeypatch):
     """screen_kernel "auto" takes the plain loop for CPU tensors; the CUDA
     wrapper refuses CPU tensors (no fallback) and a bad mode raises."""

@@ -67,7 +67,30 @@ Phases, one line each, with their seconds; any failure exits non-zero:
 14. the hard seed (seed 2, S=32) of the same model: the ADMM rung runs on
    the card (``shared_kkt_chip_admm_rung`` above 0), every lane certified,
    three repeats identical bit for bit in z, per-lane iterations and rung
-   populations.
+   populations;
+15. lockstep ensembles through ``parallel.lockstep.solve_many_lockstep`` on
+   the card: 16 simple_bilevel scenarios (x0 = [0.1 i, 1, 0, 0], as
+   ``benchmarks/scaling_bench.py``) and robust_avoid at the zoo's
+   configuration, S=3 (the default init, and the flat init plus
+   0.05·N(0,1) from ``default_rng(1)`` and ``(2)``): every scenario solved,
+   x_opt within 1e-6 of its serial solve on the card (each timed in the
+   phase) with equal piece counts, at least one fused wave, fused ADMM calls
+   below the serial sum; walls both ways (the lockstep wall's share in the
+   fused engine calls, each serial solve's), waves, ADMM calls and blocks,
+   host-LP waves, kernel launches;
+16. the banded x-update (``ops/banded.py``) against the dense one in
+   ``batch_qp.solve_qp_batch`` on the card (``benchmarks/banded_bench.py``'s
+   sweep: B=64, k=6, T = 8..64, median of 3 warm calls each, x within
+   1e-6), the measured crossover, which must equal the shipped
+   ``config.banded_min_blocks()`` on the card, and one call of
+   ``solve_qp_batch_padded`` through the automatic route switched on
+   (``banded_route`` counts its lanes);
+17. ``solve(robust_avoid, checkpoint_path=...)`` on the card, then
+   ``load_state`` and ``resume``: x_opt and pieces equal to phase 12's; and
+   ``parallel.procpool.map_processes`` from this CUDA parent (spawned
+   workers, which take the card from the parent's CONFIG): identical
+   results, conv 1.0, the checksum within 1e-9 of the same job in this
+   process.
 
 Then one JSON line for the kernels (launches on the main paths, error
 against the plain version, the kernel's, the plain version's and the bound's
@@ -152,9 +175,6 @@ HARD = dict(num_scenarios=32, T=8, num_obj=4, num_poly_faces=4, seed=2)
 SHARED_Z_TOL = 1e-8   # shared route vs KKT path at T=2: one solution
 SHARED_RUNGS = ("shared_kkt_chip_admm_rung", "shared_kkt_admm_escalation",
                 "shared_kkt_generic_escalation")
-# Published peaks of one H100 SXM: device memory rate and f32 rate outside
-# the tensor cores (what these three f32 kernels can use).
-PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
 
 
 def tensor_bytes(*tensors) -> int:
@@ -164,8 +184,10 @@ def tensor_bytes(*tensors) -> int:
 def bound(nbytes: float, flops: float):
     """(least ms the card could take, which resource sets it, bytes, flops):
     every input read once and every output written once over the memory
-    rate, against the operations over the f32 rate."""
-    t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
+    rate, against the operations over the f32 rate outside the tensor
+    cores (what these three f32 kernels can use)."""
+    from qpn_tpu_torch.utils.flops import H100_HBM_BYTES_S, H100_PEAK_F32
+    t_b, t_f = nbytes / H100_HBM_BYTES_S, flops / H100_PEAK_F32
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations",
             nbytes, flops)
 
@@ -220,8 +242,8 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def timed(fn, device, repeats=REPEATS):
-    """Median wall seconds of ``repeats`` warm calls (one warm-up first),
+def timed_all(fn, device, repeats=REPEATS):
+    """Wall seconds of each of ``repeats`` warm calls (one warm-up first),
     host clock around work that ends in a device synchronize."""
     fn()
     _sync(device)
@@ -231,7 +253,12 @@ def timed(fn, device, repeats=REPEATS):
         fn()
         _sync(device)
         times.append(time.perf_counter() - t0)
-    return statistics.median(times)
+    return times
+
+
+def timed(fn, device, repeats=REPEATS):
+    """Median of :func:`timed_all`."""
+    return statistics.median(timed_all(fn, device, repeats))
 
 
 def device_timed(fn, device, repeats=REPEATS):
@@ -585,7 +612,8 @@ def geometry_entry(polys, truth, device, say, card):
 
 def solve_zoo(device, say, card):
     """solve() end to end on the card and on the CPU.  Returns the pieces of
-    robust_avoid's solution graph from the card's solve."""
+    robust_avoid's solution graph from the card's solve, and that solve's
+    (result, counters, wall seconds)."""
     import numpy as np
     import qpn_tpu_torch as qt
     from qpn_tpu_torch.config import CONFIG
@@ -622,6 +650,7 @@ def solve_zoo(device, say, card):
             if dev == "cuda" and name == "robust_avoid":
                 pieces = [p for pu in ret.Sol.values() if pu is not None
                           for p in pu]
+                ra_card = (ret, c, wall)
         dx = float(np.abs(row["cuda"][1] - row["cpu"][1]).max())
         if not dx <= X_OPT_TOL:
             fail(f"solve {name}: x_opt on the card differs from the CPU's by "
@@ -653,7 +682,7 @@ def solve_zoo(device, say, card):
         f"{walls['cpu']:.3f} s device=cpu; golden simple_bilevel 8/8 on the "
         f"card ({golden_wall:.3f} s); kernel launches on the card (zoo and "
         f"golden points): {launches} [{card}]")
-    return pieces
+    return pieces, ra_card
 
 
 def shared_large(data, z_kkt, device, say, card):
@@ -787,6 +816,247 @@ def shared_hard(device, say, card):
         f"rungs {rungs0}, three repeats identical bit for bit (z, per-lane "
         f"iterations, rung populations, host solves); {min(secs):.3f}-"
         f"{max(secs):.3f} s a call; stats {json.dumps(stats0)} [{card}]")
+
+
+def _kernel_launches():
+    from qpn_tpu_torch.ops import eg_cuda, lemke_cuda, screen_cuda
+    from qpn_tpu_torch.utils.metrics import METRICS
+    return {k: METRICS.launches[k] for k in (lemke_cuda.KERNEL, eg_cuda.KERNEL,
+                                             screen_cuda.KERNEL)}
+
+
+def _n_pieces(ret):
+    return {k: len(list(v)) for k, v in ret.Sol.items() if v is not None}
+
+
+def lockstep_ensemble(name, qpns, x0s, device, say, card):
+    """One lockstep ensemble on the card against its serial solves, each
+    timed here.  Returns the largest |dx_opt|."""
+    import numpy as np
+    import qpn_tpu_torch as qt
+    from qpn_tpu_torch.geometry.query_cache import CACHE
+    from qpn_tpu_torch.parallel.lockstep import solve_many_lockstep
+    from qpn_tpu_torch.utils.metrics import METRICS
+    serial = []
+    for qpn, x0 in zip(qpns, x0s):
+        CACHE.clear()
+        t0 = time.perf_counter()
+        ret = qt.solve(qpn(), x0)
+        _sync(device)
+        serial.append((ret, dict(METRICS.counters),
+                       time.perf_counter() - t0))
+    keys = ("admm_calls", "admm_blocks", "qep_solves", "pieces_projected")
+    sums = {k: sum(c.get(k, 0) for _, c, _ in serial) for k in keys}
+    CACHE.clear()
+    nets = [qpn() for qpn in qpns]
+    METRICS.reset()                     # the counts of this path alone
+    t0 = time.perf_counter()
+    outs, broker = solve_many_lockstep(nets, x0s)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    fused = {k: METRICS.counters.get(k, 0) for k in keys + (
+        "broker_lp_host_waves", "broker_lp_host_fused")}
+    launches = _kernel_launches()
+    dx = 0.0
+    for i, (o, (s, _, _)) in enumerate(zip(outs, serial)):
+        if not (o.solved and s.solved):
+            fail(f"lockstep {name}: scenario {i} solved {o.solved} under the "
+                 f"broker, {s.solved} serially")
+        d = float(np.abs(np.asarray(o.x_opt) - np.asarray(s.x_opt)).max())
+        if not d <= X_OPT_TOL or _n_pieces(o) != _n_pieces(s):
+            fail(f"lockstep {name}: scenario {i} x_opt differs from its "
+                 f"serial solve by {d!r}, pieces {_n_pieces(o)} against "
+                 f"{_n_pieces(s)}")
+        dx = max(dx, d)
+    if broker.waves < 1:
+        fail(f"lockstep {name}: the broker fused no wave")
+    if not fused["admm_calls"] < sums["admm_calls"]:
+        fail(f"lockstep {name}: {fused['admm_calls']} fused ADMM calls, not "
+             f"below the serial sum {sums['admm_calls']}")
+    walls = [w for _, _, w in serial]
+    t_serial = sum(walls)
+    per = (", ".join(f"{w:.3f}" for w in walls) if len(walls) <= 4 else
+           f"{min(walls):.3f}-{max(walls):.3f}")
+    say(f"lockstep {name} S={len(nets)}: every scenario solved at its serial "
+        f"solve's pieces, x_opt within {dx:.3g} (gate {X_OPT_TOL}); wall "
+        f"{wall:.3f} s lockstep, of which {broker.dispatch_s:.3f} s in the "
+        f"fused engine calls, against {t_serial:.3f} s for the serial loop "
+        f"({t_serial / wall:.2f}x; serial solves {per} s); "
+        f"{broker.waves} waves; admm_calls "
+        f"{int(fused['admm_calls'])} against {int(sums['admm_calls'])} "
+        f"serial, admm_blocks {int(fused['admm_blocks'])} against "
+        f"{int(sums['admm_blocks'])}; QEP {int(fused['qep_solves'])} and "
+        f"pieces {int(fused['pieces_projected'])} against "
+        f"{int(sums['qep_solves'])} and {int(sums['pieces_projected'])}; "
+        f"broker_lp_host_waves {int(fused['broker_lp_host_waves'])}, "
+        f"broker_lp_host_fused {int(fused['broker_lp_host_fused'])}; kernel "
+        f"launches {launches} [{card}]")
+    return dx
+
+
+def lockstep_phase(device, say, card):
+    """Phase 15: scaling_bench's lockstep ensemble and a robust_avoid
+    ensemble through ``solve_many_lockstep`` on the card."""
+    import numpy as np
+    import qpn_tpu_torch as qt
+    sb = [lambda: qt.setup("simple_bilevel", gen_solution_map=False)] * 16
+    sb_x0 = [np.array([0.1 * i, 1.0, 0.0, 0.0]) for i in range(16)]
+    lockstep_ensemble("simple_bilevel", sb, sb_x0, device, say, card)
+    kw = dict(T=2, num_obj=1, num_poly_faces=3)
+    flat = qt.setup("robust_avoid", **kw).get_flat_initialization()
+    ra_x0 = [None] + [flat + 0.05 * np.random.default_rng(k).standard_normal(
+        flat.shape) for k in (1, 2)]
+    lockstep_ensemble("robust_avoid", [lambda: qt.setup("robust_avoid", **kw)]
+                      * 3, ra_x0, device, say, card)
+
+
+def banded_phase(device, say, card):
+    """Phase 16: benchmarks/banded_bench.py's sweep on the card, dense
+    against banded x-update of ``solve_qp_batch``, then the automatic route
+    of ``solve_qp_batch_padded`` once.  The measured crossover is the
+    smallest block count from which the banded route was faster at every
+    larger count of the sweep, or 0 when the dense route won throughout;
+    the banded route is faster at a count when each of its 3 calls beat
+    each dense call, so that no single noisy call decides.  The phase
+    fails when the crossover differs from ``config.banded_min_blocks()``,
+    the value the port ships for the card."""
+    import numpy as np
+    import torch
+    from qpn_tpu_torch import config
+    from qpn_tpu_torch.ops import batch_qp
+    from qpn_tpu_torch.ops.banded import dense_from_blocks, horizon_kkt_blocks
+    from qpn_tpu_torch.utils.metrics import METRICS
+    rng = np.random.default_rng(0)
+    B, k = 64, 6
+    rows, faster = [], []
+    for T in (8, 16, 32, 64):
+        n = T * k
+        Ps, qs = [], []
+        for _ in range(B):
+            A_, B_, C_, g = horizon_kkt_blocks(T, k, rng)
+            Q = dense_from_blocks(A_, B_, C_)
+            Ps.append(0.5 * (Q + Q.T) + 0.5 * np.eye(n))
+            qs.append(g.flatten())
+        host = (np.stack(Ps), np.stack(qs),
+                np.repeat(np.eye(n)[None], B, axis=0), np.full((B, n), -2.0),
+                np.full((B, n), 2.0))
+        args = [torch.as_tensor(a, device=device) for a in host] + [
+            torch.ones(B, n, dtype=torch.bool, device=device)]
+        out = {}
+        for bk in (0, k):
+            out[bk] = batch_qp.solve_qp_batch(*args, banded_k=bk)
+            out[bk] = (out[bk], timed_all(
+                lambda: batch_qp.solve_qp_batch(*args, banded_k=bk), device,
+                3))
+        (dense, all_d), (band, all_b) = out[0], out[k]
+        t_d, t_b = statistics.median(all_d), statistics.median(all_b)
+        dx = float((dense.x - band.x).abs().max())
+        if not (bool((band.status == batch_qp.SOLVED).all()) and dx <= 1e-6):
+            fail(f"banded T={T}: statuses {band.status.unique().tolist()}, x "
+                 f"differs from the dense route's by {dx!r}")
+        rows.append(f"T={T} n={n}: dense {t_d:.4f} s ({min(all_d):.4f}-"
+                    f"{max(all_d):.4f}), banded {t_b:.4f} s ({min(all_b):.4f}"
+                    f"-{max(all_b):.4f}), {t_d / t_b:.2f}x, x within "
+                    f"{dx:.2g}")
+        faster.append((T, max(all_b) < min(all_d)))
+    crossover = 0
+    for T, win in reversed(faster):
+        if not win:
+            break
+        crossover = T
+    # the automatic route once: detection on a 16-block trajectory batch,
+    # with the route switched on for this call at the sweep's smallest size
+    P, q, A, lo, hi = host
+    P, q, A, lo, hi = (a[:4, :96, :96] if a.ndim == 3 else a[:4, :96]
+                       for a in (P, q, A, lo, hi))
+    shipped = config.banded_min_blocks()
+    if crossover != shipped:
+        fail(f"banded crossover measured {crossover}, but the port ships "
+             f"config.banded_min_blocks() = {shipped} for the card: "
+             + "; ".join(rows))
+    METRICS.reset()
+    batch_qp.banded_min_blocks = lambda: 8
+    try:
+        sol = batch_qp.solve_qp_batch_padded(P, q, A, lo, hi,
+                                             np.ones((4, 96), bool))
+    finally:
+        batch_qp.banded_min_blocks = config.banded_min_blocks
+    routed = int(METRICS.counters.get("banded_route", 0))
+    if routed != 4 or not (sol.status == batch_qp.SOLVED).all():
+        fail(f"banded auto route: banded_route {routed} of 4 lanes, statuses "
+             f"{sol.status.tolist()}")
+    say(f"banded x-update B={B} k={k} solve_qp_batch, median of 3 warm "
+        f"calls: " + "; ".join(rows) + f"; crossover "
+        f"{crossover or 'none (dense faster at every size)'}, equal to the "
+        f"shipped config.banded_min_blocks() = {shipped}; automatic route "
+        f"(solve_qp_batch_padded, 16 blocks, switched on for the call): "
+        f"banded_route {routed} [{card}]")
+
+
+def checkpoint_phase(ra_card, device, say, card):
+    """Phase 17: a checkpointed robust_avoid solve on the card and its
+    resume, then the process pool started from this CUDA parent: its
+    workers take the parent's device, the card, and must give this
+    process's own result."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import qpn_tpu_torch as qt
+    from qpn_tpu_torch.geometry.query_cache import CACHE
+    from qpn_tpu_torch.config import numeric_device
+    from qpn_tpu_torch.models.robust_avoid import hard_chunk_job
+    from qpn_tpu_torch.parallel.procpool import map_processes
+    from qpn_tpu_torch.utils.checkpoint import load_state, resume
+    kw = dict(T=2, num_obj=1, num_poly_faces=3)
+    ref_ret = ra_card[0]
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
+                           dir=os.path.join(HERE, "build"))
+    try:
+        path = os.path.join(tmp, "robust_avoid")
+        CACHE.clear()
+        t0 = time.perf_counter()
+        ret = qt.solve(qt.setup("robust_avoid", **kw), checkpoint_path=path)
+        t_ck = time.perf_counter() - t0
+        state = load_state(path)
+        CACHE.clear()
+        t0 = time.perf_counter()
+        res = resume(qt.setup("robust_avoid", **kw), path)
+        t_res = time.perf_counter() - t0
+        n_frontiers = len(os.listdir(path + ".frontiers"))
+    finally:
+        shutil.rmtree(tmp)
+    for what, r in (("checkpointed solve", ret), ("resume", res)):
+        d = float(np.abs(np.asarray(r.x_opt) - ref_ret.x_opt).max())
+        if not (r.solved and d <= X_OPT_TOL
+                and _n_pieces(r) == _n_pieces(ref_ret)):
+            fail(f"checkpoint: {what} solved {r.solved}, x_opt {d!r} from "
+                 f"phase 12's, pieces {_n_pieces(r)} against "
+                 f"{_n_pieces(ref_ret)}")
+    if not (state["meta"] == {"solved": True}
+            and np.array_equal(state["x"], ret.x_opt)):
+        fail(f"checkpoint: the file holds {state['meta']}")
+    job = (2, 2, 1, 3, 0, 1e-8)
+    t0 = time.perf_counter()
+    out = map_processes(hard_chunk_job, [job] * 2, n_workers=2)
+    t_pool = time.perf_counter() - t0
+    devs = map_processes(numeric_device, [()] * 2, n_workers=2)
+    want = hard_chunk_job(*job)         # this process, on the card
+    d_sum = abs(out[0][2] - want[2]) / want[2]
+    if not (out[0] == out[1] and out[0][0] == 1.0 == want[0]
+            and d_sum <= 1e-9 and [d.type for d in devs] == ["cuda"] * 2):
+        fail(f"map_processes from the CUDA parent: {out} on {devs}, against "
+             f"{want} in this process")
+    say(f"checkpoint robust_avoid on the card: solved with checkpoint_path "
+        f"({t_ck:.3f} s, {n_frontiers} frontier files), load_state holds x_opt "
+        f"and {sorted(state['Sol'])} solution graphs; resume ({t_res:.3f} s) "
+        f"and the checkpointed solve at phase 12's x_opt and pieces "
+        f"{_n_pieces(ref_ret)}; map_processes(hard_chunk_job, {job} x 2, "
+        f"n_workers=2) from this CUDA parent, workers on {devs[0]}: "
+        f"identical results {out[0]}, conv 1.0, |z| checksum within "
+        f"{d_sum:.3g} (relative, gate 1e-9) of this process's "
+        f"({'bit-identical' if out[0] == want else 'not bit-identical'}; "
+        f"{t_pool:.1f} s) [{card}]")
 
 
 def main() -> None:
@@ -927,7 +1197,7 @@ def main() -> None:
     scr_launches = geometry_entry(polys, truth, device, say, card)
 
     # 12. solve() end to end, then the screen on robust_avoid's pieces
-    pieces = solve_zoo(device, say, card)
+    pieces, ra_card = solve_zoo(device, say, card)
     compare_screen([p.closure() for p in pieces], None, device, say, card,
                    "robust_avoid solution-graph closures")
 
@@ -936,6 +1206,15 @@ def main() -> None:
 
     # 14. the hard seed: the ADMM rung on the card, three repeats
     shared_hard(device, say, card)
+
+    # 15. lockstep ensembles: the scenarios' batched calls fused
+    lockstep_phase(device, say, card)
+
+    # 16. the banded x-update against the dense one
+    banded_phase(device, say, card)
+
+    # 17. checkpoint and resume; the process pool from this parent
+    checkpoint_phase(ra_card, device, say, card)
 
     if CONFIG.device != "cuda":
         fail(f"CONFIG.device was left at {CONFIG.device!r}")

@@ -9,7 +9,10 @@ batched ADMM (``ops.batch_qp``) and the feasibility screen (``ops.screen``).
 Three loops run in hand-written Hopper kernels for CUDA tensors: the Lemke
 pivot loop (``csrc/lemke_pivot.cu``), the extragradient warm start
 (``csrc/eg_warmstart.cu``) and the feasibility screen (``csrc/screen.cu``).
-The host algorithm puts its batched work on ``CONFIG.device``.  The package
+The host algorithm puts its batched work on ``CONFIG.device``; scenario
+ensembles run serially (``solve_many``), with their batched calls fused
+(``parallel.lockstep.solve_many_lockstep``) or in spawned processes
+(``parallel.procpool.solve_many_processes``).  The package
 imports neither ``jax`` nor ``qpn_tpu``; ``qpn_tpu`` stays the reference that
 the tests hold this package against.
 """
@@ -23,3 +26,6 @@ from .models import setup  # noqa: F401
 from .algorithm import solve, solve_many  # noqa: F401
 from .ops.avi import solve_kkt_avi_batch, batch_from_numpy  # noqa: F401
 from .utils.metrics import METRICS  # noqa: F401
+from .printing import install_reprs as _install_reprs
+
+_install_reprs()

@@ -23,9 +23,10 @@ depth); the batched numeric work underneath (ADMM, AVI, Lemke, the
 feasibility screen) runs on ``CONFIG.device``.  The f64 sign-split glue stays
 on the host on every device: the dual recovery of
 :func:`verify_solutions_batch` and the multi-start choice of
-``ops.avi.solve_avi``.  Not ported yet: checkpointing (``utils/
-checkpoint.py``; ``solve(checkpoint_path=...)`` raises) and the lockstep
-broker of ``solve``'s ensembles (ROADMAP slice 4).
+``ops.avi.solve_avi``.  ``solve(checkpoint_path=...)`` saves the iterate
+each outer iteration (``utils/checkpoint.py``); ensembles of ``solve`` calls
+fuse their batched work under the lockstep broker
+(``parallel/lockstep.solve_many_lockstep``).
 """
 
 from __future__ import annotations
@@ -49,11 +50,6 @@ from .ops.avi import GAVI, Status, solve_gavi
 from .utils.metrics import METRICS
 
 logger = logging.getLogger("qpn_tpu_torch")
-
-_CHECKPOINT_TODO = ("checkpoint_path: checkpointing (qpn_tpu/utils/"
-                    "checkpoint.py) is not ported yet — ROADMAP slice 2, "
-                    "utils/checkpoint.py")
-
 
 # --------------------------------------------------------------------------
 #  QP solve + convexity audit — qp_processing.jl:1-55
@@ -1055,8 +1051,6 @@ def solve_base(qpn: QPNet, x_init, request=frozenset(),
                proj_vectors: Optional[List[np.ndarray]] = None,
                rng: Optional[np.random.Generator] = None,
                checkpoint_path: Optional[str] = None):
-    if checkpoint_path is not None:
-        raise NotImplementedError(_CHECKPOINT_TODO)
     if rng is None:
         rng = np.random.default_rng()
     if proj_vectors is None:
@@ -1076,6 +1070,11 @@ def solve_base(qpn: QPNet, x_init, request=frozenset(),
             proj_vals = np.array([x @ v for v in proj_vectors])
             logger.debug("Iteration %d at level %d. %s", iters, level,
                          proj_vals)
+            if level == 1 and checkpoint_path is not None:
+                from .utils.checkpoint import save_state
+                save_state(checkpoint_path, x,
+                           iterate_cache=qpn.iterate_cache,
+                           meta={"iteration": iters})
             if qpn.options.check_for_cycling:
                 if qpn.options.num_projections == 0:
                     raise RuntimeError(
@@ -1313,16 +1312,17 @@ def solve(qpn: QPNet, x_init=None, parent_level_request=frozenset(),
           checkpoint_path: Optional[str] = None):
     """Entry point (requests.jl:1-22).  The request-negotiation state machine
     in the reference is dead code behind an early return (requests.jl:22) —
-    solve delegates directly to solve_base.  ``checkpoint_path`` (the JAX
-    package's per-iteration checkpoints) is not ported yet and raises.
+    solve delegates directly to solve_base.  ``checkpoint_path`` saves the
+    iterate + cycling fingerprints each outer iteration, the enumeration
+    frontiers under ``<checkpoint_path>.frontiers``, and the solution graphs
+    at the end (utils/checkpoint; ``resume`` continues from the file).
 
-    The counters and timers of ``METRICS`` restart at every call; the
-    kernel launch counts do not (a caller reads them across calls).
+    The counters and timers of ``METRICS`` restart at every call, except
+    under a lockstep broker, where the scenario threads share them; the
+    kernel launch counts never do (a caller reads them across calls).
 
     The batched work runs on ``CONFIG.device``, the card by default; without
     a CUDA device the call raises (set ``CONFIG.device = "cpu"``)."""
-    if checkpoint_path is not None:
-        raise NotImplementedError(_CHECKPOINT_TODO)
     # A missing device is the caller's to settle, not a failed solve:
     # solve_base would catch the error and report solved=False.
     numeric_device()
@@ -1330,8 +1330,19 @@ def solve(qpn: QPNet, x_init=None, parent_level_request=frozenset(),
         x_init = qpn.default_initialization
     if rng is None:
         rng = np.random.default_rng(seed)
-    qpn.frontier_store = None
-    METRICS.reset(launches=False)
+    if checkpoint_path is not None:
+        from .utils.checkpoint import FrontierStore
+        qpn.frontier_store = FrontierStore(str(checkpoint_path) + ".frontiers")
+    else:
+        # a later solve() WITHOUT a checkpoint path must not silently resume
+        # (or keep writing) frontiers from an earlier checkpointed run
+        qpn.frontier_store = None
+    # under a lockstep broker N scenario threads run solve() concurrently;
+    # resetting the process-global METRICS here would wipe the other
+    # scenarios' counters mid-run
+    from .parallel.lockstep import active_broker
+    if active_broker() is None:
+        METRICS.reset(launches=False)
     qpn.metrics = METRICS
     if level == 1:
         # chain networks in the fast class solve their (init-independent)
@@ -1342,7 +1353,12 @@ def solve(qpn: QPNet, x_init=None, parent_level_request=frozenset(),
             x_init = x_sweep
     with METRICS.timer("solve"):
         ret = solve_base(qpn, x_init, parent_level_request, relaxable_inds,
-                         level=level, proj_vectors=proj_vectors, rng=rng)
+                         level=level, proj_vectors=proj_vectors, rng=rng,
+                         checkpoint_path=checkpoint_path)
+    if checkpoint_path is not None and ret.solved:
+        from .utils.checkpoint import save_state
+        save_state(checkpoint_path, ret.x_opt, Sol=ret.Sol,
+                   iterate_cache=qpn.iterate_cache, meta={"solved": True})
     return ret
 
 
@@ -1350,9 +1366,9 @@ def solve_many(qpns, x_inits=None, seed: int = 1):
     """Solve a scenario ensemble of QPNets.
 
     The host loops are per-scenario; each scenario's batched work runs on
-    ``CONFIG.device``.  Returns a list of per-scenario results.  (The JAX
-    package's device-lockstep batching across the outer loop belongs to the
-    parallel layer, ROADMAP slice 4.)"""
+    ``CONFIG.device``.  Returns a list of per-scenario results.
+    ``parallel.lockstep.solve_many_lockstep`` runs the same ensemble with
+    the scenarios' batched calls fused."""
     qpns = list(qpns)
     if x_inits is None:
         x_inits = [None] * len(qpns)

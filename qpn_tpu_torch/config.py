@@ -86,6 +86,15 @@ class NumericConfig:
     # prune first and a blockwise exemplar screen instead of materializing
     # all O(N²) pairs.
     prune_dedup_threshold: int = 512
+    # Route block-tridiagonal trajectory KKTs through the cyclic-reduction
+    # x-update (ops/banded.py): QP batches of solve_qp_batch_padded with at
+    # least ``banded_auto_min_n`` variables whose P / A'A patterns are
+    # block-banded with at least banded_min_blocks() blocks.
+    banded_auto: bool = True
+    banded_auto_min_n: int = 48
+    # Block-count crossover on the CPU (the dense Cholesky wins below): the
+    # JAX package's value, so that CPU runs take its route.
+    banded_min_blocks_cpu: int = 64
 
 
 CONFIG = NumericConfig()
@@ -116,6 +125,18 @@ def screen_enabled() -> bool:
         if native_available():
             return False
     return CONFIG.device.startswith("cuda")
+
+
+def banded_min_blocks() -> int:
+    """Minimum block count for the automatic banded route on
+    ``CONFIG.device``; 0 when the route is off there.  It is off on the
+    card, where the dense x-update was faster at every block count measured
+    (chip_smoke.py phase 16, B=64, k=6, T=8..64, which fails when its
+    crossover differs from this value); an explicit banded_k still takes
+    the banded route."""
+    if CONFIG.device.startswith("cuda"):
+        return 0
+    return CONFIG.banded_min_blocks_cpu
 
 
 def bucket(n: int, buckets) -> int:

@@ -22,7 +22,7 @@ primitives:
 
 Ragged batches are grouped by (dim, row-bucket), as in the JAX package (the
 masked padding rows change no lane's result).  Not ported yet: the mesh/ring
-duplicate prune above ``prune_dedup_threshold`` (ROADMAP slice 4); the port
+duplicate prune above ``prune_dedup_threshold`` (ROADMAP M5); the port
 runs its single-device path.
 """
 
@@ -704,7 +704,7 @@ def remove_subsets(pu: Optional[PolyUnion], tol: float = 1e-6):
     materialization would dominate (the regime the ring prune exists for,
     sets.jl:889-905 hazard): a signature-duplicate prune runs FIRST (the
     single-device path; the JAX package's mesh/ring path waits for ROADMAP
-    slice 4), and the geometric stage then uses a vectorized exemplar
+    M5), and the geometric stage then uses a vectorized exemplar
     screen so only certificate-ambiguous pairs materialize as LPs."""
     if pu is None:
         return None
@@ -760,7 +760,7 @@ def piece_signature(p: Poly) -> np.ndarray:
 def _dedup_signatures(pu: PolyUnion) -> PolyUnion:
     """Drop exact (5-digit) duplicate pieces, keeping the LAST of each group
     — the member the serial containment loop would keep (the JAX package's
-    single-device path; its mesh/ring path waits for ROADMAP slice 4)."""
+    single-device path; its mesh/ring path waits for ROADMAP M5)."""
     from ..utils.metrics import METRICS
     N = len(pu)
     sig = np.stack([piece_signature(p) for p in pu.polys])

@@ -510,21 +510,29 @@ def solve_avi_batch_mixed(M, q, l, u, z0, var_mask, tol=1e-10,
                            max_iter=max(520, max_iter // 8))
 
 
-def solve_avi_batch_padded(M, q, l, u, z0, var_mask, _sharding=None,
-                           **kw) -> AVIResult:
+def solve_avi_batch_padded(M, q, l, u, z0, var_mask, _no_broker=False,
+                           _sharding=None, **kw) -> AVIResult:
     """:func:`solve_avi_batch` with the variable dimension padded to its
     ``CONFIG.row_buckets`` bucket (identity rows pinned at 0), as
     ``qpn_tpu/ops/avi.py::solve_avi_batch_padded`` pads it.
 
     The padding changes the numbers and is kept: the padding rows enter the
     extragradient step's ‖M‖∞.  The batch is not padded, since each lane's
-    result is independent of the others.  The JAX package's lockstep
-    broker and ``_sharding`` belong to the parallel layer (ROADMAP slice 4)
-    and are not ported; ``_sharding`` raises."""
+    result is independent of the others.  Under a lockstep broker
+    (``parallel/lockstep.py``) the call parks and fuses with the other
+    scenarios' requests; the broker's fused dispatch passes
+    ``_no_broker=True``.  ``_sharding`` (a mesh-sharded dispatch) belongs to
+    the ``torch.distributed`` slice of the port (ROADMAP M5) and raises."""
     if _sharding is not None:
         raise NotImplementedError(
-            "_sharding: the parallel layer (qpn_tpu/parallel/) is not "
-            "ported yet — ROADMAP slice 4")
+            "_sharding: the mesh-sharded dispatch belongs to the "
+            "torch.distributed slice of the port (ROADMAP M5) and is not "
+            "ported yet")
+    if not _no_broker:
+        from ..parallel.lockstep import active_broker
+        br = active_broker()
+        if br is not None:
+            return br.submit("avi", M, q, l, u, z0, var_mask, **kw)
     B, n = q.shape
     pad = bucket(n, CONFIG.row_buckets) - n
     if pad == 0:

@@ -18,17 +18,20 @@ Layout:
   lane runs while it is under ``max_iter`` iterations and has no terminal
   status, so each lane's iterates and count are those of the JAX package's
   lane.  The host reads the masks once per ``check_every`` iterations.
+  ``banded_k`` factors the x-update by cyclic reduction (``ops/banded.py``)
+  for block-tridiagonal trajectory KKTs.
 * :func:`solve_qp_batch_padded` and :func:`solve_qp_np` — the host wrappers
-  (numpy in, numpy out) with the two-tier straggler re-solve; the work runs
-  on ``CONFIG.device``.
+  (numpy in, numpy out) with the two-tier straggler re-solve and the banded
+  route's detection; the work runs on ``CONFIG.device``.  Under a lockstep
+  broker (``parallel/lockstep.py``) the call parks and fuses with the other
+  scenarios' requests.
 
 Dropped from the JAX package, as ROADMAP's rules say: the split-f32 products
 of ``mixed`` (the port computes in f64; per lane, the JAX package's mixed
 epochs of four check blocks give the iterates of its non-mixed ones), the QR
 detour of the polish (the port takes an LU), bucket padding of the shapes
 (padded rows and variables change no lane's numbers), the AOT cache and
-small-dispatch placement.  Not ported yet: the banded x-update
-(``ops/banded.py``); the lockstep broker and ``_sharding`` (slice 4).
+small-dispatch placement.
 
 Status codes mirror the OSQP codes the reference branches on
 (qp_processing.jl:7, sets.jl:683-701): 1 solved, 2 solved-inaccurate,
@@ -42,8 +45,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import CONFIG, numeric_device
+from ..config import CONFIG, banded_min_blocks, numeric_device
 from ..utils.metrics import METRICS
+from .banded import cr_factor, cr_solve, detect_banded_k, kkt_blocks
 
 SOLVED = 1
 SOLVED_INACCURATE = 2
@@ -119,10 +123,51 @@ class _Lanes:
         return _Lanes(**{k: v[idx] for k, v in self.__dict__.items()})
 
 
+class _DenseFactor:
+    """Cholesky factors of the x-update's K(ρ) = P + σI + ρG, per lane."""
+
+    def __init__(self, L):
+        self.L = L
+
+    def take(self, idx) -> "_DenseFactor":
+        return _DenseFactor(self.L[idx])
+
+    def assign(self, idx, other: "_DenseFactor") -> None:
+        self.L[idx] = other.L
+
+    def solve(self, rhs):
+        return torch.cholesky_solve(rhs[:, :, None], self.L)[:, :, 0]
+
+
+class _BandedFactor:
+    """Cyclic-reduction factors of a block-tridiagonal K(ρ) with k×k blocks
+    (``ops/banded.py``), per lane."""
+
+    def __init__(self, cr, k: int):
+        self.cr, self.k = cr, k
+
+    def take(self, idx) -> "_BandedFactor":
+        return _BandedFactor(self.cr.take(idx), self.k)
+
+    def assign(self, idx, other: "_BandedFactor") -> None:
+        self.cr.assign(idx, other.cr)
+
+    def solve(self, rhs):
+        B, n = rhs.shape
+        return cr_solve(self.cr, rhs.reshape(B, n // self.k,
+                                             self.k)).reshape(B, n)
+
+
+def _factor(K, banded_k: int):
+    if banded_k:
+        return _BandedFactor(cr_factor(*kkt_blocks(K, banded_k)), banded_k)
+    return _DenseFactor(_cholesky(K))
+
+
 def _iterate(d: _Lanes, L, R, x, z, y, dx, dy, *, sigma, alpha):
     """One ADMM iteration on every lane of ``d`` (``iter_once``)."""
     rhs = sigma * x - d.q + _mtv(d.A, R * z - y)
-    x_new = torch.cholesky_solve(rhs[:, :, None], L)[:, :, 0]
+    x_new = L.solve(rhs)
     Ax = _mv(d.A, x_new)
     z_relaxed = alpha * Ax + (1 - alpha) * z
     z_try = z_relaxed + y / R
@@ -229,7 +274,8 @@ def _polish(d0: _Lanes, x, z, y):
 
 def solve_qp_batch(P, q, A, l, u, row_mask, *, max_iter=4000, eps=1e-9,
                    rho0=0.1, sigma=1e-6, alpha=1.6, check_every=25,
-                   x_init=None, y_init=None, polish=True) -> QPSolution:
+                   banded_k=0, x_init=None, y_init=None,
+                   polish=True) -> QPSolution:
     """Solve a batch of box-constrained QPs by ADMM, in f64 on the device of
     the inputs.
 
@@ -242,7 +288,10 @@ def solve_qp_batch(P, q, A, l, u, row_mask, *, max_iter=4000, eps=1e-9,
     either one also starts z at the projection of A·x onto the bounds, where
     a call without them starts z at 0.  ``polish=False`` skips the terminal
     active-set polish for callers that certify by their own means (the
-    shared-matrix route's ADMM rung).
+    shared-matrix route's ADMM rung).  ``banded_k`` (dividing n) factors
+    the x-update by cyclic reduction over n/banded_k blocks, for KKTs that
+    are block-tridiagonal in the given variable order
+    (``banded.detect_banded_k``); 0 takes the dense Cholesky.
 
     Counts ``admm_calls``, ``admm_lanes`` and ``admm_blocks`` (blocks of
     ``check_every`` iterations, each a host read of the masks) in
@@ -251,6 +300,8 @@ def solve_qp_batch(P, q, A, l, u, row_mask, *, max_iter=4000, eps=1e-9,
     P, q, A, l, u = (t.to(f64) for t in (P, q, A, l, u))
     rm = row_mask.to(torch.bool)
     B, m, n = A.shape
+    if banded_k and n % banded_k:
+        raise ValueError(f"banded_k={banded_k} does not divide n={n}")
     dev = q.device
     rmf = rm.to(f64)
 
@@ -295,7 +346,7 @@ def solve_qp_batch(P, q, A, l, u, row_mask, *, max_iter=4000, eps=1e-9,
     dy = torch.zeros(B, m, dtype=f64, device=dev)
     # the factor depends on ρ alone: it is recomputed only for lanes whose
     # ρ moved (the same factor the JAX package recomputes every epoch)
-    L = _cholesky(K0 + rho[:, None, None] * G)
+    L = _factor(K0 + rho[:, None, None] * G, banded_k)
     METRICS.bump("admm_calls")
     METRICS.bump("admm_lanes", B)
 
@@ -306,7 +357,7 @@ def solve_qp_batch(P, q, A, l, u, row_mask, *, max_iter=4000, eps=1e-9,
         # one block: check_every iterations and a status check
         METRICS.bump("admm_blocks")
         ds = d.take(lanes)
-        Ls = L[lanes]
+        Ls = L.take(lanes)
         R = rho[lanes][:, None] * ds.base_r
         xs, zs, ys, dxs, dys = x[lanes], z[lanes], y[lanes], dx[lanes], \
             dy[lanes]
@@ -333,7 +384,8 @@ def solve_qp_batch(P, q, A, l, u, row_mask, *, max_iter=4000, eps=1e-9,
         if bool(moved.any()):
             mv = lanes[moved]
             rho[mv] = rho_new[moved]
-            L[mv] = _cholesky(K0[mv] + rho[mv][:, None, None] * G[mv])
+            L.assign(mv, _factor(K0[mv] + rho[mv][:, None, None] * G[mv],
+                                 banded_k))
 
     # -------- unscale back to the original problem ------------------------
     x = Dsc * x
@@ -374,9 +426,14 @@ def _solve_on_device(P, q, A, l, u, row_mask, **kw) -> QPSolution:
 
 
 def solve_qp_batch_padded(P, q, A, l, u, row_mask, _no_lemke=False,
-                          _prefer_lemke=False, **kw) -> QPSolution:
+                          _no_broker=False, _prefer_lemke=False,
+                          **kw) -> QPSolution:
     """Host wrapper of :func:`solve_qp_batch`: numpy in, numpy out, the work
     on ``CONFIG.device``, at exact shapes.
+
+    Under a lockstep broker (``parallel/lockstep.py``) the call parks and
+    fuses with the other scenarios' requests; the broker's fused dispatch
+    passes ``_no_broker=True``.
 
     Pure LPs (P = 0) route to the exact Lemke pivot engine when
     ``CONFIG.lp_engine`` is "lemke" or when ``_prefer_lemke``; uncertified
@@ -386,7 +443,20 @@ def solve_qp_batch_padded(P, q, A, l, u, row_mask, _no_lemke=False,
     lane first runs ``CONFIG.admm_tier1_iters`` iterations; lanes that used
     them all (including those the post-loop ladder upgraded on 1e-4/1e-6
     residuals) re-solve from scratch with the full 4000-iteration budget, so
-    the outcome is that of one full-budget call."""
+    the outcome is that of one full-budget call.
+
+    Trajectory structure: with ``CONFIG.banded_auto``, a QP batch of at
+    least ``CONFIG.banded_auto_min_n`` variables whose P and A'A patterns
+    are block-tridiagonal with at least ``config.banded_min_blocks()``
+    blocks takes the cyclic-reduction x-update (counter ``banded_route``).
+    The port runs at exact n always, which is what that route needs."""
+    if not _no_broker:
+        from ..parallel.lockstep import active_broker
+        br = active_broker()
+        if br is not None:
+            return br.submit("qp", P, q, A, l, u, row_mask,
+                             _no_lemke=_no_lemke,
+                             _prefer_lemke=_prefer_lemke, **kw)
     P = np.asarray(P, dtype=np.float64)
     if (not _no_lemke and (CONFIG.lp_engine == "lemke" or _prefer_lemke)
             and not kw and P.size and not P.any()):
@@ -397,6 +467,14 @@ def solve_qp_batch_padded(P, q, A, l, u, row_mask, _no_lemke=False,
     l = np.asarray(l, dtype=np.float64)
     u = np.asarray(u, dtype=np.float64)
     row_mask = np.asarray(row_mask, dtype=bool)
+    B, m, n = A.shape
+    if (CONFIG.banded_auto and "banded_k" not in kw
+            and n >= CONFIG.banded_auto_min_n and P.any()):
+        min_blocks = banded_min_blocks()
+        bk = detect_banded_k(P, A, min_blocks=min_blocks) if min_blocks else 0
+        if bk:
+            kw["banded_k"] = bk
+            METRICS.bump("banded_route", B)
     tier1 = CONFIG.admm_tier1_iters
     if "max_iter" not in kw and tier1 > 0:
         # tier 1: short lockstep pass — most lanes converge well inside it
@@ -407,7 +485,7 @@ def solve_qp_batch_padded(P, q, A, l, u, row_mask, _no_lemke=False,
         # tier 2: full budget for the stragglers only
         sub = solve_qp_batch_padded(
             P[bad], q[bad], A[bad], l[bad], u[bad], row_mask[bad],
-            _no_lemke=_no_lemke, max_iter=4000, **kw)
+            _no_lemke=_no_lemke, _no_broker=True, max_iter=4000, **kw)
         out = {f: getattr(sol, f).copy() for f in sol._fields}
         for f in sol._fields:
             out[f][bad] = getattr(sub, f)

@@ -802,7 +802,8 @@ def _admm_fallback(sol_fields, bad, c, A, l, u, row_mask):
         sol_fields[f][idx] = getattr(sol, f)
 
 
-def solve_lp_host_batch(c, A, l, u, row_mask, *, tol=1e-7):
+def solve_lp_host_batch(c, A, l, u, row_mask, *, tol=1e-7,
+                        _no_broker=False):
     """Native exact-shape pivot solve for a batch of small dense LPs.
 
     Same KKT-AVI formulation and status discipline as
@@ -812,12 +813,21 @@ def solve_lp_host_batch(c, A, l, u, row_mask, *, tol=1e-7):
     emptiness queries each solve takes a fraction of a millisecond.  Lanes
     whose pivot run is uncertified fall back to the ADMM engine.  Returns a
     ``batch_qp.QPSolution`` of numpy arrays, or None when the native
-    library is unavailable."""
+    library is unavailable.
+
+    Under a lockstep broker the geometry LPs park and fuse with the other
+    scenarios' requests into one OpenMP batch (counters
+    ``broker_lp_host_waves`` and ``broker_lp_host_fused``)."""
     from . import batch_qp
     from ..utils import native
     from ..utils.metrics import METRICS
     if not native.native_available():
         return None
+    if not _no_broker:
+        from ..parallel.lockstep import active_broker
+        br = active_broker()
+        if br is not None:
+            return br.submit("lp_host", c, A, l, u, row_mask, tol=tol)
     c = np.asarray(c, dtype=np.float64)
     A = np.asarray(A, dtype=np.float64)
     l = np.asarray(l, dtype=np.float64)

@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from typing import Optional
 
@@ -205,36 +206,64 @@ def _prox_eg_rung(M32, M64, Q64, L64, U64, Z0, delta, tau, tol, inner_steps,
     return zref, rn, k
 
 
+_CPU_THREADS_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _one_cpu_thread(device: torch.device):
+    """One intra-op thread for the batched LU on the CPU, the caller's count
+    restored after it.  With an explicitly set count above one, PyTorch's
+    CPU build (MKL LAPACK) was seen not to return from a batched
+    ``lu_factor_ex`` of 32 matrices of 608 x 608 (or 4 of 256 x 256) in
+    minutes, printing "SLASWP parameter 6" errors; with one thread it takes
+    a fraction of a second (``tests/test_torch_shared.py``,
+    ``test_lu_returns_with_several_cpu_threads``)."""
+    if device.type != "cpu":
+        yield
+        return
+    # the count is process-wide: scenario threads (parallel/lockstep.py)
+    # take turns, so that none restores it under another's factorization
+    with _CPU_THREADS_LOCK:
+        prev = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            yield
+        finally:
+            torch.set_num_threads(prev)
+
+
 def _lu_refine(buf, rhs0, residual, refines):
     """Factor the batch of basis matrices held transposed in ``buf`` (S, n,
     n) in f32, in place, solve for ``rhs0`` and run ``refines`` passes of
     f64 iterative refinement: ``residual(z)`` is the f64 residual of the
     system at z, and a correction that is not finite is skipped lane by
     lane, so one singular basis cannot poison its batch.  A lane whose
-    factorization met an exactly zero pivot comes back non-finite."""
-    f32, f64 = torch.float32, torch.float64
-    A = buf.mT                              # column-major, as LAPACK wants
-    S, n = rhs0.shape
-    piv = torch.empty(S, n, dtype=torch.int32, device=buf.device)
-    info = torch.empty(S, dtype=torch.int32, device=buf.device)
-    lu, piv, info = torch.linalg.lu_factor_ex(A, out=(A, piv, info))
-    # after an exactly zero pivot the rest of a lane's factors and pivot
-    # indices may be anything: give the solves a valid permutation there and
-    # report the lane non-finite
-    sound = (info == 0)[:, None]
-    piv = torch.where(sound, piv, torch.arange(
-        1, n + 1, dtype=torch.int32, device=buf.device))
+    factorization met an exactly zero pivot comes back non-finite.  On the
+    CPU the LU work runs on one thread (:func:`_one_cpu_thread`)."""
+    with _one_cpu_thread(buf.device):
+        f32, f64 = torch.float32, torch.float64
+        A = buf.mT                          # column-major, as LAPACK wants
+        S, n = rhs0.shape
+        piv = torch.empty(S, n, dtype=torch.int32, device=buf.device)
+        info = torch.empty(S, dtype=torch.int32, device=buf.device)
+        lu, piv, info = torch.linalg.lu_factor_ex(A, out=(A, piv, info))
+        # after an exactly zero pivot the rest of a lane's factors and pivot
+        # indices may be anything: give the solves a valid permutation there
+        # and report the lane non-finite
+        sound = (info == 0)[:, None]
+        piv = torch.where(sound, piv, torch.arange(
+            1, n + 1, dtype=torch.int32, device=buf.device))
 
-    def solve(r):
-        return torch.linalg.lu_solve(lu, piv, r.to(f32)[:, :, None])[
-            :, :, 0].to(f64)
+        def solve(r):
+            return torch.linalg.lu_solve(lu, piv, r.to(f32)[:, :, None])[
+                :, :, 0].to(f64)
 
-    z = torch.where(sound, solve(rhs0), torch.nan)
-    for _ in range(refines):
-        dz = solve(residual(z))
-        good = torch.isfinite(dz).all(1)
-        z = torch.where(good[:, None], z + dz, z)
-    return z
+        z = torch.where(sound, solve(rhs0), torch.nan)
+        for _ in range(refines):
+            dz = solve(residual(z))
+            good = torch.isfinite(dz).all(1)
+            z = torch.where(good[:, None], z + dz, z)
+        return z
 
 
 def _round0_solve(M32, M64, at_l, at_u, Q64, L64, U64, refines):

@@ -1,3 +1,4 @@
-"""The port's parallel layer.  So far only the level-pipeline sweep of chain
-networks (``sharded.py``); the multi-device layer of ``qpn_tpu/parallel/`` is
-ROADMAP slice 4."""
+"""The port's parallel layer: the level-pipeline sweep of chain networks
+(``sharded.py``), the lockstep broker of scenario ensembles
+(``lockstep.py``) and the process pool of spawned workers (``procpool.py``).
+The ``torch.distributed`` half of ``qpn_tpu/parallel/`` is ROADMAP M5."""

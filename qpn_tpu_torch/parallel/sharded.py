@@ -1,7 +1,7 @@
 """Level-pipeline sweep of chain networks (PyTorch port of
 ``stack_chain_avis`` and ``level_sweep_scan`` from
 ``qpn_tpu/parallel/sharded.py``; the rest of that module is the multi-device
-layer, ROADMAP slice 4).
+layer, ROADMAP M5).
 
 ``algorithm._chain_sweep_warmstart`` stacks a chain network's per-level KKT
 AVIs and solves them bottom-up, each level's decision feeding the next

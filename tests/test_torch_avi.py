@@ -112,11 +112,11 @@ def test_admm_method_is_not_ported():
         _solve(b, tol=TOL, method="pivot")
 
 
-def test_shared_route_is_not_ported(monkeypatch):
-    """The shared-matrix route is ported now (the name is the test's
-    history): a shared_M ensemble at or above shared_kkt_min_n goes to it
-    (counted per lane) and certifies at the pivot route's z within 1e-8 (the
-    KKT solution is unique); below the gate it is pivoted."""
+def test_shared_ensembles_route_to_the_shared_route(monkeypatch):
+    """A shared_M ensemble at or above shared_kkt_min_n goes to the
+    shared-matrix route (counted per lane) and certifies at the pivot
+    route's z within 1e-8 (the KKT solution is unique); below the gate it is
+    pivoted."""
     b = _ensemble(8, 0)
     monkeypatch.setattr(CONFIG, "shared_kkt_min_n", 39)
     before = METRICS.counters.get("kkt_shared_route", 0.0)

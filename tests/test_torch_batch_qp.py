@@ -42,6 +42,18 @@ def _cpu_device(monkeypatch):
     monkeypatch.setattr(CONFIG, "device", "cpu")
 
 
+@pytest.fixture(autouse=True)
+def _reference_native_loaded(monkeypatch):
+    """Load the JAX package's native library again where this worker lost
+    the build race of its loader (``qpn_tpu/utils/native.py``: test workers
+    build through one shared temporary name, and a loser keeps the
+    pure-Python fallback for its life, whose ``quantize_hash`` is another
+    hash).  By test time the winner's library is on disk."""
+    if ref_native._LIB is None:
+        monkeypatch.setattr(ref_native, "_TRIED", False)
+        ref_native._load()
+
+
 def _problems(kind, B=8, m=10, n=5, seed=1):
     """Seeded QPs/LPs with one masked padding row; ``pinf`` adds two
     contradictory rows, ``dinf`` leaves an LP unbounded below."""
@@ -214,6 +226,8 @@ def test_lp_pivot_engines_match_reference(engine):
             np.concatenate([l, l2]), np.concatenate([u, u2]),
             np.concatenate([mask, mask2]))
     if engine == "host":
+        # the reference returns None without its native library
+        assert ref_native.native_available()
         got = lemke.solve_lp_host_batch(*args)
         want = ref_lemke.solve_lp_host_batch(*args)
     else:
@@ -242,6 +256,8 @@ def test_prefer_lemke_routes_pure_lps(monkeypatch, route):
 
 def test_native_helpers_match_reference():
     assert native.native_available()
+    # the reference's pure-Python fallback hashes with Python's hash
+    assert ref_native.native_available()
     sets = [[0, 2], [1], [3, 4, 5]]
     np.testing.assert_array_equal(native.recipe_product(sets, 4),
                                   ref_native.recipe_product(sets, 4))

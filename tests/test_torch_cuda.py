@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from qpn_tpu_torch.config import CONFIG
+from qpn_tpu_torch.config import CONFIG, banded_min_blocks
 from qpn_tpu_torch.models.robust_avoid import scenario_batch_gavis
 from qpn_tpu_torch.ops import eg, eg_cuda, lemke, screen, screen_cuda
 from qpn_tpu_torch.ops.avi import (batch_from_numpy, solve_avi_batch_adaptive,
@@ -400,3 +400,97 @@ def test_is_empty_batch_on_the_card_goes_through_the_screen(
     out = is_empty_batch(polys)
     assert METRICS.launches[screen_cuda.KERNEL] > before
     np.testing.assert_array_equal(out, truth)
+
+
+def _pieces(ret):
+    return {k: len(list(v)) for k, v in ret.Sol.items() if v is not None}
+
+
+@pytest.mark.gpu
+def test_lockstep_ensemble_on_the_card(cuda_device):
+    """chip_smoke.py phase 15 at 6 scenarios: each lockstep scenario on the
+    card ends at its serial solve's x_opt (1e-6) and pieces, in fused
+    waves with fewer ADMM calls than the serial runs together."""
+    import qpn_tpu_torch as qt
+    from qpn_tpu_torch.parallel.lockstep import solve_many_lockstep
+    assert CONFIG.device == "cuda"
+    x0s = [np.array([0.1 * i, 1.0, 0.0, 0.0]) for i in range(6)]
+    serial, calls = [], 0.0
+    for x0 in x0s:
+        serial.append(qt.solve(qt.setup("simple_bilevel"), x0))
+        calls += METRICS.counters["admm_calls"]
+    METRICS.reset()
+    outs, broker = solve_many_lockstep(
+        [qt.setup("simple_bilevel") for _ in x0s], x0s)
+    assert broker.waves >= 1
+    assert METRICS.counters["admm_calls"] < calls
+    for o, s in zip(outs, serial):
+        assert o.solved and s.solved
+        np.testing.assert_allclose(o.x_opt, s.x_opt, rtol=0, atol=1e-6)
+        assert _pieces(o) == _pieces(s)
+
+
+@pytest.mark.gpu
+def test_banded_x_update_on_the_card(cuda_device, monkeypatch):
+    """chip_smoke.py phase 16 at one size: the banded and the dense
+    x-update give one solution on the card, and the automatic route of
+    solve_qp_batch_padded takes the banded one when switched on."""
+    from qpn_tpu_torch.ops import batch_qp
+    from qpn_tpu_torch.ops.banded import dense_from_blocks, horizon_kkt_blocks
+    rng = np.random.default_rng(0)
+    B, T, k = 8, 16, 6
+    n = T * k
+    Ps, qs = [], []
+    for _ in range(B):
+        A_, B_, C_, g = horizon_kkt_blocks(T, k, rng)
+        Q = dense_from_blocks(A_, B_, C_)
+        Ps.append(0.5 * (Q + Q.T) + 0.5 * np.eye(n))
+        qs.append(g.flatten())
+    host = (np.stack(Ps), np.stack(qs), np.repeat(np.eye(n)[None], B, 0),
+            np.full((B, n), -2.0), np.full((B, n), 2.0),
+            np.ones((B, n), bool))
+    t = [torch.as_tensor(a, device=cuda_device) for a in host]
+    dense = batch_qp.solve_qp_batch(*t)
+    band = batch_qp.solve_qp_batch(*t, banded_k=k)
+    assert bool((band.status == batch_qp.SOLVED).all())
+    assert float((dense.x - band.x).abs().max()) <= 1e-6
+    assert banded_min_blocks() == 0     # the automatic route: off on the card
+    monkeypatch.setattr(batch_qp, "banded_min_blocks", lambda: 8)
+    before = METRICS.counters.get("banded_route", 0.0)
+    sol = batch_qp.solve_qp_batch_padded(*host)
+    assert METRICS.counters["banded_route"] == before + B
+    np.testing.assert_allclose(sol.x, dense.x.cpu().numpy(), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_checkpoint_and_resume_on_the_card(cuda_device, tmp_path):
+    import qpn_tpu_torch as qt
+    from qpn_tpu_torch.utils.checkpoint import load_state, resume
+    x0 = np.array([1.0, 0.0, 0.0, 0.0])
+    plain = qt.solve(qt.setup("simple_bilevel", gen_solution_map=True), x0)
+    path = str(tmp_path / "run")
+    qpn = qt.setup("simple_bilevel", gen_solution_map=True)
+    ret = qt.solve(qpn, x0, checkpoint_path=path)
+    assert ret.solved and load_state(path)["meta"] == {"solved": True}
+    np.testing.assert_allclose(ret.x_opt, plain.x_opt, rtol=0, atol=1e-6)
+    res = resume(qpn, path)
+    assert res.solved and _pieces(res) == _pieces(plain)
+    np.testing.assert_allclose(res.x_opt, plain.x_opt, rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_map_processes_from_a_cuda_parent(cuda_device):
+    """Workers spawned from a parent that holds a CUDA context run on the
+    card (the parent's CONFIG.device) and give the parent's own result."""
+    from qpn_tpu_torch.config import numeric_device
+    from qpn_tpu_torch.models.robust_avoid import hard_chunk_job
+    from qpn_tpu_torch.parallel.procpool import map_processes
+    torch.zeros(1, device=cuda_device)
+    assert map_processes(numeric_device, [()] * 2, n_workers=2) == \
+        [torch.device("cuda")] * 2
+    job = (2, 2, 1, 3, 0, 1e-8)
+    out = map_processes(hard_chunk_job, [job] * 2, n_workers=2)
+    want = hard_chunk_job(*job)
+    assert out[0] == out[1] and out[0][0] == 1.0 == want[0]
+    np.testing.assert_allclose(out[0][2], want[2], rtol=1e-9)

@@ -164,7 +164,7 @@ def test_solve_avi_batch_padded_at_a_bucket_size():
 
 
 def test_solve_avi_batch_padded_rejects_sharding():
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="M5"):
         avi.solve_avi_batch_padded(*_t(_flagship(S=1)), _sharding=object())
 
 

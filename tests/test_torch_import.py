@@ -20,6 +20,10 @@ import qpn_tpu_torch.geometry.project, qpn_tpu_torch.geometry.vertices
 import qpn_tpu_torch.geometry.rays, qpn_tpu_torch.geometry.query_cache
 import qpn_tpu_torch.enumeration, qpn_tpu_torch.requests
 import qpn_tpu_torch.parallel.sharded, qpn_tpu_torch.ops.shared_kkt
+import qpn_tpu_torch.ops.banded, qpn_tpu_torch.printing
+import qpn_tpu_torch.utils.checkpoint, qpn_tpu_torch.utils.flops
+import qpn_tpu_torch.utils.profiling, qpn_tpu_torch.parallel.lockstep
+import qpn_tpu_torch.parallel.procpool
 for name in ("simple_bilevel", "four_player_matrix_game", "robust_avoid",
              "deep_synthetic", "rock_paper_scissors", "toll_setting",
              "chainstore", "trilevel_escape", "shepherd_sheep",
@@ -27,6 +31,8 @@ for name in ("simple_bilevel", "four_player_matrix_game", "robust_avoid",
     qpn_tpu_torch.setup(name)
 qpn_tpu_torch.CONFIG.device = "cpu"     # the default is the card
 qpn_tpu_torch.solve(qpn_tpu_torch.setup("shepherd_sheep"))
+qpn_tpu_torch.parallel.lockstep.solve_many_lockstep(
+    [qpn_tpu_torch.setup("shepherd_sheep")])
 b = qpn_tpu_torch.models.robust_avoid.scenario_batch_gavis(num_scenarios=2,
                                                            T=2)
 qpn_tpu_torch.ops.shared_kkt.solve_kkt_avi_shared(

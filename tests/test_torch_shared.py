@@ -615,3 +615,62 @@ def test_admm_rung_in_one_call_moves_no_lane():
     # the JAX rung runs its mixed-precision ADMM: the same lanes within one
     # 25-iteration block
     assert (np.abs(its - ref_its) <= 25).all()
+
+
+def test_admm_rung_on_the_hard_seeds_escalated_lanes():
+    """At S=512 of the hard seed both packages on the CPU send the same 509
+    lanes to the ADMM rung; the JAX package's rung fails lanes 62 and 181
+    (both go on to shared_kkt_admm_escalation), the port's fails lane 62
+    only.  The rung alone on those two lanes, at the whole batch's scale,
+    shows it: the port's rung iterates in f64, the JAX package's in
+    split-f32 products (its ``mixed`` mode, a TPU workaround the port
+    drops), which leaves lane 181 above the tolerance."""
+    b = scenario_batch_gavis(num_scenarios=512, T=8, num_obj=4,
+                             num_poly_faces=4, seed=2)
+    M0, q, l, u = b["M"][0], b["q"], b["l"], b["u"]
+    scale = 1.0 + float(np.abs(q).max())
+    todo = np.array([62, 181])
+    its, ref_its = np.zeros(512, dtype=np.int64), np.zeros(512, np.int64)
+    z, ok, _ = sk._chip_admm_rung(M0, q, l, u, todo, b["structure"], TOL,
+                                  scale, its, torch.device("cpu"), {})
+    _, okr, _ = ref_sk._chip_admm_rung(M0, q, l, u, todo, b["structure"],
+                                       TOL, scale, ref_its)
+    assert ok.tolist() == [False, True]
+    assert okr.tolist() == [False, False]
+    # lane 181, certified in f64: its natural residual re-audited in numpy
+    F = M0 @ z[1] + q[181]
+    assert np.abs(z[1] - np.clip(z[1] - F, l[181], u[181])).max() <= TOL
+
+
+LU_PROBE = """
+import torch
+torch.set_num_threads(4)
+from qpn_tpu_torch.config import CONFIG
+from qpn_tpu_torch.models.robust_avoid import scenario_batch_gavis
+from qpn_tpu_torch.ops import shared_kkt
+CONFIG.device = "cpu"
+b = scenario_batch_gavis(num_scenarios=4, T=8, num_obj=4, num_poly_faces=4,
+                         seed=0)
+r = shared_kkt.solve_kkt_avi_shared(b["M"][0], b["q"], b["l"], b["u"], None,
+                                    tol=1e-8, structure=b["structure"])
+print(float(r.converged.double().mean()), torch.get_num_threads())
+"""
+
+
+def test_lu_returns_with_several_cpu_threads():
+    """The shared route's batched LU at n=608 on the CPU returns when the
+    caller has set several intra-op threads (4 here; with an explicitly set
+    count above one, PyTorch's CPU LAPACK did not return from this
+    factorization in minutes), and the caller's count is restored.  Run in
+    a fresh interpreter under a time limit: an alarm signal cannot
+    interrupt a call stuck inside LAPACK."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", LU_PROBE], cwd=repo, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split() == ["1.0", "4"]

@@ -142,6 +142,13 @@ def test_solve_many_and_flat_initialization():
 
 
 def test_checkpointing_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        qt.solve(qt.setup("shepherd_sheep"),
-                 checkpoint_path=str(tmp_path / "ck"))
+    """Checkpointing is ported now (the name is the test's history):
+    solve(checkpoint_path=...) solves as without it and leaves the solved
+    state in the file (tests/test_torch_checkpoint.py has the rest)."""
+    from qpn_tpu_torch.utils.checkpoint import load_state
+    ret = qt.solve(qt.setup("shepherd_sheep"),
+                   checkpoint_path=str(tmp_path / "ck"))
+    assert ret.solved
+    state = load_state(str(tmp_path / "ck"))
+    assert state["meta"] == {"solved": True}
+    np.testing.assert_array_equal(state["x"], ret.x_opt)

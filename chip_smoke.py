@@ -91,6 +91,18 @@ Phases, one line each, with their seconds; any failure exits non-zero:
    workers, which take the card from the parent's CONFIG): identical
    results, conv 1.0, the checksum within 1e-9 of the same job in this
    process.
+18. the multi-device layer (``parallel/``, ``entry.py``): (a) one rank of
+   a ``torch.distributed`` group over NCCL on the card runs
+   ``equilibrium_superstep`` on the flagship ensemble (tol 1e-8): z and the
+   residuals identical bit for bit to ``solve_avi_batch``'s, the keep mask
+   to a numpy prune's; and ``solve_kkt_avi_shared(mesh=)`` on phase 13's
+   ensemble, identical to phase 13's result; (b)
+   ``entry.dryrun_multichip(2)``, two spawned gloo ranks on the one card,
+   with the flagship superstep: z within 1e-10 of (a), convergence and keep
+   equal; the 8192+64-piece dedup at n − n//4 pieces with at least one ring
+   wave; the three lockstep scenarios within 1e-6 of their serial solves on
+   the card with equal pieces.  Each stage's seconds and the bytes its
+   collectives sent are printed.
 
 Then one JSON line for the kernels (launches on the main paths, error
 against the plain version, the kernel's, the plain version's and the bound's
@@ -774,6 +786,7 @@ def shared_large(data, z_kkt, device, say, card):
         f"lanes of the large ensemble certified, max resid "
         f"{float(cpu.resid.max()):.3g}, z within {dc:.3g} of the card's (M "
         f"is rank-deficient at T=8: not a gate) [{card}]")
+    return big, res
 
 
 def shared_hard(device, say, card):
@@ -1059,6 +1072,135 @@ def checkpoint_phase(ra_card, device, say, card):
         f"{t_pool:.1f} s) [{card}]")
 
 
+def _host_prune(act, resid):
+    """The keep mask of the strict (round(resid·1e12), index) prune as a
+    plain numpy loop: piece i goes iff a piece with its signature is
+    smaller in that order."""
+    import numpy as np
+    rq = np.round(resid * 1e12)
+    keep = np.ones(len(act), dtype=bool)
+    for i in range(len(act)):
+        same = (act == act[i]).all(axis=1)
+        better = (rq < rq[i]) | ((rq == rq[i]) & (np.arange(len(act)) < i))
+        keep[i] = not (same & better).any()
+    return keep
+
+
+def multi_device_phase(batch, data, big, res_large, device, say, card):
+    """Phase 18: (a) one rank over NCCL on the card: the sharded superstep
+    on the flagship ensemble bit-identical to the single-process
+    solve_avi_batch and the host prune, and the shared route with the mesh
+    on the large row identical to phase 13's result; (b)
+    ``entry.dryrun_multichip(2)``, two gloo ranks on the card, with the
+    flagship superstep: its z within 1e-10 of (a), convergence and keep
+    equal, the 8256-piece ring dedup at its set, the lockstep scenarios at
+    their serial solves."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import qpn_tpu_torch as qt
+    from qpn_tpu_torch.entry import LOCKSTEP_WS, RING_PIECES, dryrun_multichip
+    from qpn_tpu_torch.ops.avi import solve_avi_batch
+    from qpn_tpu_torch.ops.shared_kkt import solve_kkt_avi_shared
+    from qpn_tpu_torch.parallel import multihost
+    from qpn_tpu_torch.parallel.sharded import equilibrium_superstep
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rdv_",
+                           dir=os.path.join(HERE, "build"))
+    launches0 = _kernel_launches()
+    backend = multihost.init("file://" + os.path.join(tmp, "rdv"), 1, 0)
+    try:
+        if backend != "nccl":
+            fail(f"one rank on the card took {backend}, not nccl")
+        mesh = multihost.global_mesh()
+        t0 = time.perf_counter()
+        out = equilibrium_superstep(mesh, batch, tol=SOLVE_TOL)
+        torch.cuda.synchronize(device)
+        t_step = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        shr = solve_kkt_avi_shared(big["M"], big["q"], big["l"], big["u"],
+                                   None, tol=SOLVE_TOL,
+                                   structure=big["structure"], mesh=mesh)
+        torch.cuda.synchronize(device)
+        t_shared = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    launches_a = {k: v - launches0[k]
+                  for k, v in _kernel_launches().items()}
+    one = solve_avi_batch(data["M"], data["q"], data["l"], data["u"],
+                          data["z0"], data["mask"], tol=SOLVE_TOL,
+                          max_iter=840)
+    z = one.z.cpu().numpy()
+    lq = np.where(np.isfinite(batch["l"]), batch["l"], -1e20)
+    uq = np.where(np.isfinite(batch["u"]), batch["u"], 1e20)
+    act = ((np.abs(z - lq) < 1e-6).astype(np.int32)
+           + 2 * (np.abs(z - uq) < 1e-6).astype(np.int32))
+    keep_host = _host_prune(act, one.resid.cpu().numpy())
+    keep_a = out["keep"].cpu().numpy()
+    if not (torch.equal(out["z"], one.z)
+            and torch.equal(out["resid"], one.resid)
+            and np.array_equal(keep_a, keep_host)):
+        fail("phase 18(a): the one-rank NCCL superstep differs from the "
+             "single-process solve or the host prune")
+    if not all(torch.equal(a, b) for a, b in zip(shr, res_large)):
+        fail("phase 18(a): the shared route with the mesh differs from "
+             "phase 13's result")
+    conv_a = float(out["converged_frac"])
+    say(f"multi-device (a) one rank over nccl on {mesh.device}: superstep "
+        f"S={S} T={T_STEPS} tol={SOLVE_TOL} ({t_step:.3f} s): z, resid "
+        f"identical to solve_avi_batch, keep identical to the host prune "
+        f"({int(keep_a.sum())} kept), conv {conv_a}; shared route "
+        f"S={LARGE['num_scenarios']} n={big['q'].shape[1]} with the mesh "
+        f"({t_shared:.3f} s): z, resid, iters, converged identical to phase "
+        f"13's; no collective at one rank (0 bytes); kernel launches "
+        f"{launches_a} [{card}]")
+
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(2, superstep=dict(
+        num_scenarios=S, T=T_STEPS, num_obj=NUM_OBJ, num_poly_faces=FACES,
+        seed=SEED, tol=SOLVE_TOL, max_iter=840), timeout_s=600)
+    t_dry = time.perf_counter() - t0
+    conv_one = (one.resid <= SOLVE_TOL).cpu().numpy()
+    serial = [qt.solve(qt.setup("simple_bilevel"),
+                       np.concatenate([w, [0.0, 0.0]])) for w in LOCKSTEP_WS]
+    dz_max = 0.0
+    for r in ranks:
+        dz = float(np.abs(r["z"] - z).max())
+        dz_max = max(dz_max, dz)
+        if not (r["backend"] == "gloo" and r["device"].startswith("cuda")):
+            fail(f"phase 18(b): rank {r['rank']} on {r['backend']}, "
+                 f"{r['device']}")
+        if not (dz <= 1e-10 and np.array_equal(r["converged"], conv_one)
+                and np.array_equal(r["keep"], keep_a)):
+            fail(f"phase 18(b): rank {r['rank']}'s superstep: z {dz!r} from "
+                 f"(a), converged or keep differ")
+        if not (r["ring_kept"] == RING_PIECES - RING_PIECES // 4
+                and r["ring_waves"] >= 1):
+            fail(f"phase 18(b): ring dedup kept {r['ring_kept']} with "
+                 f"{r['ring_waves']} ring waves")
+        for k, s in enumerate(serial):
+            dx = float(np.abs(r["x_opts"][k] - s.x_opt).max())
+            pieces = {j: len(v) for j, v in s.Sol.items() if v is not None}
+            if not (s.solved and dx <= X_OPT_TOL
+                    and r["pieces"][k] == pieces):
+                fail(f"phase 18(b): lockstep scenario {k}: x_opt {dx!r} "
+                     f"from its serial solve, pieces {r['pieces'][k]} "
+                     f"against {pieces}")
+    r0 = ranks[0]
+    stages = ", ".join(f"{k} {r0['secs'][k]:.3f} s / {r0['bytes'][k]} B"
+                       for k in r0["secs"])
+    say(f"multi-device (b) dryrun_multichip(2): two gloo ranks on "
+        f"{r0['device']} ({t_dry:.1f} s with the spawn); rank 0's stages "
+        f"(seconds / bytes its collectives sent): {stages}; superstep "
+        f"S={S} z within {dz_max:.3g} of (a) (<= 1e-10), converged and "
+        f"keep equal; ring dedup {RING_PIECES}->{r0['ring_kept']} in "
+        f"{r0['ring_waves']} ring wave(s); lockstep x_opt within "
+        f"{X_OPT_TOL} of the serial solves on the card, equal pieces; "
+        f"kernel launches in the ranks {[r['launches'] for r in ranks]} "
+        f"[{card}]")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "qpn_tpu_torch")):
         fail("the qpn_tpu_torch package is not next to chip_smoke.py")
@@ -1202,7 +1344,7 @@ def main() -> None:
                    "robust_avoid solution-graph closures")
 
     # 13. the shared-matrix route at its design scale
-    shared_large(data, z_kkt, device, say, card)
+    big, res_large = shared_large(data, z_kkt, device, say, card)
 
     # 14. the hard seed: the ADMM rung on the card, three repeats
     shared_hard(device, say, card)
@@ -1215,6 +1357,9 @@ def main() -> None:
 
     # 17. checkpoint and resume; the process pool from this parent
     checkpoint_phase(ra_card, device, say, card)
+
+    # 18. the multi-device layer: one rank over NCCL, two gloo ranks
+    multi_device_phase(batch, data, big, res_large, device, say, card)
 
     if CONFIG.device != "cuda":
         fail(f"CONFIG.device was left at {CONFIG.device!r}")

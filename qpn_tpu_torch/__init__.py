@@ -12,7 +12,9 @@ pivot loop (``csrc/lemke_pivot.cu``), the extragradient warm start
 The host algorithm puts its batched work on ``CONFIG.device``; scenario
 ensembles run serially (``solve_many``), with their batched calls fused
 (``parallel.lockstep.solve_many_lockstep``) or in spawned processes
-(``parallel.procpool.solve_many_processes``).  The package
+(``parallel.procpool.solve_many_processes``), and over the ranks of a
+``torch.distributed`` process group (``parallel.mesh``, ``parallel.sharded``;
+``entry.dryrun_multichip``).  The package
 imports neither ``jax`` nor ``qpn_tpu``; ``qpn_tpu`` stays the reference that
 the tests hold this package against.
 """

@@ -21,9 +21,11 @@ primitives:
   tie-break must stay deterministic).
 
 Ragged batches are grouped by (dim, row-bucket), as in the JAX package (the
-masked padding rows change no lane's result).  Not ported yet: the mesh/ring
-duplicate prune above ``prune_dedup_threshold`` (ROADMAP M5); the port
-runs its single-device path.
+masked padding rows change no lane's result).  Above
+``prune_dedup_threshold`` pieces the duplicate prune runs over the ranks of
+a ``torch.distributed`` process group when a group of more than one rank
+is up (``parallel/sharded.py``, ring-rotated above its threshold), on the
+host otherwise.
 """
 
 from __future__ import annotations
@@ -702,10 +704,11 @@ def remove_subsets(pu: Optional[PolyUnion], tol: float = 1e-6):
 
     Above ``CONFIG.prune_dedup_threshold`` pieces the O(N²) Python pair
     materialization would dominate (the regime the ring prune exists for,
-    sets.jl:889-905 hazard): a signature-duplicate prune runs FIRST (the
-    single-device path; the JAX package's mesh/ring path waits for ROADMAP
-    M5), and the geometric stage then uses a vectorized exemplar
-    screen so only certificate-ambiguous pairs materialize as LPs."""
+    sets.jl:889-905 hazard): a signature-duplicate prune runs FIRST (over
+    the ranks of a process group of more than one rank, see
+    :func:`_dedup_signatures`), and the geometric stage then uses a
+    vectorized exemplar screen so only certificate-ambiguous pairs
+    materialize as LPs."""
     if pu is None:
         return None
     N = len(pu)
@@ -759,20 +762,52 @@ def piece_signature(p: Poly) -> np.ndarray:
 
 def _dedup_signatures(pu: PolyUnion) -> PolyUnion:
     """Drop exact (5-digit) duplicate pieces, keeping the LAST of each group
-    — the member the serial containment loop would keep (the JAX package's
-    single-device path; its mesh/ring path waits for ROADMAP M5)."""
+    — the member the serial containment loop would keep.
+
+    Where the JAX package tests for more than one device, the port tests
+    for a ``torch.distributed`` process group of more than one rank: then
+    the prune is collective (``parallel.sharded.sharded_containment_prune``
+    over ``multihost.global_mesh()``, ring-rotated above its threshold) and
+    every rank must call this with the same pieces, as SPMD code does.
+    Otherwise, and in a scenario thread of a lockstep broker (whose threads
+    would meet the other ranks' collectives in thread order), the host loop
+    runs.  The mask is the same either way."""
+    import torch.distributed as dist
+    from ..parallel.lockstep import active_broker
     from ..utils.metrics import METRICS
     N = len(pu)
     sig = np.stack([piece_signature(p) for p in pu.polys])
-    keep = np.ones(N, dtype=bool)
-    seen = {}
-    for i in range(N - 1, -1, -1):               # last wins
-        key = sig[i].tobytes()
-        if key in seen:
-            keep[i] = False
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1 and active_broker() is None:
+        from ..parallel.multihost import global_mesh
+        from ..parallel.sharded import sharded_containment_prune
+        mesh = global_mesh()
+        # reversed index ⇒ lowest-wins dominance keeps the LAST duplicate,
+        # the serial loop's tie-break for identical pieces
+        order = np.arange(N - 1, -1, -1)
+        pad = -(-N // mesh.size) * mesh.size - N
+        if pad:
+            # padded lanes: unique signatures (the row index baked in) that
+            # never dominate a real lane
+            filler = np.full((pad, sig.shape[1]), -(2 ** 31 - 1), np.int32)
+            filler[:, 0] = np.arange(pad)
+            sig_p = np.concatenate([sig, filler])
+            order_p = np.concatenate([order, N + np.arange(pad)])
         else:
-            seen[key] = i
-    METRICS.bump("prune_dedup_host", N)
+            sig_p, order_p = sig, order
+        keep = sharded_containment_prune(
+            mesh, sig_p, order_p.astype(np.float64)).cpu().numpy()[:N]
+        METRICS.bump("prune_dedup_sharded", N)
+    else:
+        keep = np.ones(N, dtype=bool)
+        seen = {}
+        for i in range(N - 1, -1, -1):               # last wins
+            key = sig[i].tobytes()
+            if key in seen:
+                keep[i] = False
+            else:
+                seen[key] = i
+        METRICS.bump("prune_dedup_host", N)
     dropped = int(N - keep.sum())
     if dropped:
         METRICS.bump("prune_dedup_dropped", dropped)

@@ -510,29 +510,48 @@ def solve_avi_batch_mixed(M, q, l, u, z0, var_mask, tol=1e-10,
                            max_iter=max(520, max_iter // 8))
 
 
+def inert_avi_lanes(k: int, n: int, dtype, device):
+    """``k`` padding lanes of an (M, q, l, u, z0, var_mask) batch: identity
+    M, zero data, every variable masked off, so that each lane is solved at
+    z = 0 before the first iteration and moves no batchmate's result."""
+    zeros = torch.zeros(k, n, dtype=dtype, device=device)
+    return (torch.eye(n, dtype=dtype, device=device).repeat(k, 1, 1), zeros,
+            zeros, zeros, zeros,
+            torch.zeros(k, n, dtype=torch.bool, device=device))
+
+
 def solve_avi_batch_padded(M, q, l, u, z0, var_mask, _no_broker=False,
-                           _sharding=None, **kw) -> AVIResult:
+                           _sharding=None, _min_batch=1, **kw) -> AVIResult:
     """:func:`solve_avi_batch` with the variable dimension padded to its
     ``CONFIG.row_buckets`` bucket (identity rows pinned at 0), as
     ``qpn_tpu/ops/avi.py::solve_avi_batch_padded`` pads it.
 
     The padding changes the numbers and is kept: the padding rows enter the
-    extragradient step's ‖M‖∞.  The batch is not padded, since each lane's
-    result is independent of the others.  Under a lockstep broker
-    (``parallel/lockstep.py``) the call parks and fuses with the other
-    scenarios' requests; the broker's fused dispatch passes
-    ``_no_broker=True``.  ``_sharding`` (a mesh-sharded dispatch) belongs to
-    the ``torch.distributed`` slice of the port (ROADMAP M5) and raises."""
-    if _sharding is not None:
-        raise NotImplementedError(
-            "_sharding: the mesh-sharded dispatch belongs to the "
-            "torch.distributed slice of the port (ROADMAP M5) and is not "
-            "ported yet")
+    extragradient step's ‖M‖∞.  Without ``_sharding`` the batch is not
+    padded, since each lane's result is independent of the others.  Under a
+    lockstep broker (``parallel/lockstep.py``) the call parks and fuses with
+    the other scenarios' requests; the broker's fused dispatch passes
+    ``_no_broker=True``.
+
+    ``_sharding`` (``parallel.mesh.scenario_sharding``; every rank makes the
+    same call) splits the batch over the mesh's ranks: padded with inert
+    lanes (:func:`inert_avi_lanes`) to a multiple of the rank count and at
+    least ``_min_batch`` lanes, this rank's block solved, the results
+    gathered and the padding sliced off, tensors on the inputs' device,
+    full on every rank."""
     if not _no_broker:
         from ..parallel.lockstep import active_broker
         br = active_broker()
         if br is not None:
             return br.submit("avi", M, q, l, u, z0, var_mask, **kw)
+    if _sharding is not None:
+        from ..parallel.mesh import call_sharded
+        return call_sharded(
+            _sharding,
+            lambda *a: solve_avi_batch_padded(*a, _no_broker=True, **kw),
+            (M, q, l, u, z0, var_mask),
+            lambda k: inert_avi_lanes(k, q.shape[1], q.dtype, q.device),
+            _min_batch)
     B, n = q.shape
     pad = bucket(n, CONFIG.row_buckets) - n
     if pad == 0:

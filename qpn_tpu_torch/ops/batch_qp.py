@@ -426,8 +426,8 @@ def _solve_on_device(P, q, A, l, u, row_mask, **kw) -> QPSolution:
 
 
 def solve_qp_batch_padded(P, q, A, l, u, row_mask, _no_lemke=False,
-                          _no_broker=False, _prefer_lemke=False,
-                          **kw) -> QPSolution:
+                          _no_broker=False, _sharding=None, _min_batch=1,
+                          _prefer_lemke=False, **kw) -> QPSolution:
     """Host wrapper of :func:`solve_qp_batch`: numpy in, numpy out, the work
     on ``CONFIG.device``, at exact shapes.
 
@@ -449,7 +449,15 @@ def solve_qp_batch_padded(P, q, A, l, u, row_mask, _no_lemke=False,
     least ``CONFIG.banded_auto_min_n`` variables whose P and A'A patterns
     are block-tridiagonal with at least ``config.banded_min_blocks()``
     blocks takes the cyclic-reduction x-update (counter ``banded_route``).
-    The port runs at exact n always, which is what that route needs."""
+    The port runs at exact n always, which is what that route needs.
+
+    ``_sharding`` (``parallel.mesh.scenario_sharding``; every rank makes the
+    same call) splits the batch over the mesh's ranks after the whole
+    batch's routing is decided (Lemke LP route, banded route): padded to a
+    multiple of the rank count and at least ``_min_batch`` lanes with inert
+    lanes (P = I, or 0 on the LP route; q = 0, A = 0, l = −∞, u = +∞, rows
+    masked off), this rank's block solved (both tiers), the results
+    gathered and the padding sliced off; numpy, full on every rank."""
     if not _no_broker:
         from ..parallel.lockstep import active_broker
         br = active_broker()
@@ -458,8 +466,9 @@ def solve_qp_batch_padded(P, q, A, l, u, row_mask, _no_lemke=False,
                              _no_lemke=_no_lemke,
                              _prefer_lemke=_prefer_lemke, **kw)
     P = np.asarray(P, dtype=np.float64)
-    if (not _no_lemke and (CONFIG.lp_engine == "lemke" or _prefer_lemke)
-            and not kw and P.size and not P.any()):
+    lemke = (not _no_lemke and (CONFIG.lp_engine == "lemke" or _prefer_lemke)
+             and not kw and P.size and not P.any())
+    if lemke and _sharding is None:
         from .lemke import solve_lp_lemke_batch
         return solve_lp_lemke_batch(q, A, l, u, row_mask)
     q = np.asarray(q, dtype=np.float64)
@@ -468,13 +477,28 @@ def solve_qp_batch_padded(P, q, A, l, u, row_mask, _no_lemke=False,
     u = np.asarray(u, dtype=np.float64)
     row_mask = np.asarray(row_mask, dtype=bool)
     B, m, n = A.shape
-    if (CONFIG.banded_auto and "banded_k" not in kw
+    if (not lemke and CONFIG.banded_auto and "banded_k" not in kw
             and n >= CONFIG.banded_auto_min_n and P.any()):
         min_blocks = banded_min_blocks()
         bk = detect_banded_k(P, A, min_blocks=min_blocks) if min_blocks else 0
         if bk:
             kw["banded_k"] = bk
             METRICS.bump("banded_route", B)
+    if _sharding is not None:
+        from ..parallel.mesh import call_sharded
+
+        def inert(k):
+            eye = np.zeros((n, n)) if lemke else np.eye(n)
+            return (np.repeat(eye[None], k, 0), np.zeros((k, n)),
+                    np.zeros((k, m, n)), np.full((k, m), -np.inf),
+                    np.full((k, m), np.inf), np.zeros((k, m), dtype=bool))
+
+        return call_sharded(
+            _sharding,
+            lambda *a: solve_qp_batch_padded(
+                *a, _no_lemke=not lemke, _no_broker=True,
+                _prefer_lemke=_prefer_lemke, **kw),
+            (P, q, A, l, u, row_mask), inert, _min_batch)
     tier1 = CONFIG.admm_tier1_iters
     if "max_iter" not in kw and tier1 > 0:
         # tier 1: short lockstep pass — most lanes converge well inside it

@@ -49,9 +49,16 @@ pinning of the escalation rungs and the deferred host copies of round 0 are
 not carried over (padding with copies of lane 0 changes no lane's numbers;
 the ADMM is f64, ``ops/batch_qp``).  The extragradient GEMMs are plain f32
 (``eg_prec="highest"``); ``"tf32"`` allows TF32 for the pre-pass alone, in a
-scope that is restored.  Not ported yet: the ``mesh`` argument (the scenario
-axis sharded over devices) and the process-spanning fetch, which belong to
-the parallel layer.
+scope that is restored.
+
+With a ``mesh`` (``parallel/mesh.py``; every rank makes the same call) the
+scenario axis is split over the ranks for the pre-pass and round 0, the
+JAX package's rules: each rank runs the pre-pass on its S/size lanes (the
+stopping rule reads the ensemble-wide residual and label count, reduced over
+the ranks) and round 0 in one call over them, and the results are gathered;
+the δ-ladder rounds and the escalation rungs then run replicated on every
+rank, on its own copy of M, so that every rank takes the same host
+decisions.  The mesh is ignored when S is not a multiple of its size.
 """
 
 from __future__ import annotations
@@ -128,7 +135,7 @@ def _eg_chunk(Mt, Q, L, U, Z, tau, steps, band, prev_l, prev_u, method="eg"):
 
 
 def _eg_run(Mt, Q, L, U, Z0, tau, steps, max_chunks, band, switch,
-            stable_tol, method="eg"):
+            stable_tol, method="eg", mesh=None):
     """The whole extragradient pre-pass: chunks of ``steps`` iterations
     until a stopping rule holds or ``max_chunks`` are done.  The rules, read
     on the host once per chunk: the largest residual below ``switch``; from
@@ -137,7 +144,10 @@ def _eg_run(Mt, Q, L, U, Z0, tau, steps, max_chunks, band, switch,
     solutions); from the fourth, a residual plateau (less than 10 %
     improvement over three chunks: degenerate-heavy ensembles never
     stabilise their labels, and more steps buy the terminal solve nothing).
-    Returns (Z, r, at_l, at_u, chunks done)."""
+    With a ``mesh`` the lanes are this rank's block and the residual and the
+    label count are reduced over the ranks (max and sum: exact), so every
+    rank stops at the same chunk.  Returns (Z, r, at_l, at_u, chunks
+    done)."""
     f32 = np.float32
     Z = Z0
     r = torch.full((Q.shape[0],), torch.inf, dtype=Z0.dtype, device=Q.device)
@@ -150,6 +160,10 @@ def _eg_run(Mt, Q, L, U, Z0, tau, steps, max_chunks, band, switch,
                                               band, at_l, at_u, method)
         rmax, changed = torch.stack([r.max().double(),
                                      changed.double()]).tolist()
+        if mesh is not None:
+            from ..parallel.mesh import all_reduce
+            rmax = all_reduce(mesh, [rmax], "max")[0]
+            changed = all_reduce(mesh, [changed], "sum")[0]
         rmax = f32(rmax)
         plateau = k >= 3 and rmax > f32(0.9) * rh[0]
         stop = (rmax < f32(switch) or (k >= 1 and changed <= stable_tol)
@@ -609,6 +623,7 @@ def solve_kkt_avi_shared(M, q, l, u, var_mask, tol: float = 1e-8, *,
                          lane_chunk: int = 1024, newton_rounds: int = 12,
                          refine_passes: int = 1,
                          structure: Optional[dict] = None,
+                         mesh=None,
                          stats: Optional[dict] = None) -> AVIResult:
     """Solve a shared-matrix AVI ensemble ``M z + q ⟂ l ≤ z ≤ u``.
 
@@ -624,7 +639,12 @@ def solve_kkt_avi_shared(M, q, l, u, var_mask, tol: float = 1e-8, *,
 
     ``eg_prec``: "highest" runs the pre-pass GEMMs in plain f32; "tf32"
     allows TF32 for them (the pre-pass only needs a stable active set, and
-    every acceptance is gated by the f64 audit)."""
+    every acceptance is gated by the f64 audit).
+
+    ``mesh``: the scenario axis split over the ranks of a
+    ``parallel.mesh.Mesh`` for the pre-pass and round 0 (module docstring);
+    ignored when S is not a multiple of ``mesh.size``.  Every rank gets the
+    full result."""
     device = q.device if isinstance(q, torch.Tensor) else numeric_device()
     if not isinstance(M, torch.Tensor):
         M = np.asarray(M, dtype=np.float64)
@@ -659,12 +679,23 @@ def solve_kkt_avi_shared(M, q, l, u, var_mask, tol: float = 1e-8, *,
     def dev(a, dtype=f64):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
+    if mesh is not None and S % mesh.size != 0:
+        _dbg(f"mesh ignored: S={S} not divisible by {mesh.size}")
+        mesh = None
+    # the lanes of this rank's pre-pass and round 0: all of them, or its
+    # block of the scenario axis
+    if mesh is None:
+        mine = slice(0, S)
+    else:
+        from ..parallel.mesh import block_rows, gather
+        mine = block_rows(mesh, S)
+
     M64_d = dev(M0)
     M32_d = M64_d.to(f32)
     Mt32 = M32_d.T.contiguous()
-    Q64_d, L64_d, U64_d = dev(q), dev(l64), dev(u64)
+    Q64_d, L64_d, U64_d = dev(q[mine]), dev(l64[mine]), dev(u64[mine])
     Q32, L32, U32 = Q64_d.to(f32), L64_d.to(f32), U64_d.to(f32)
-    Z = torch.clamp(torch.zeros(S, n, dtype=f32, device=device), L32, U32)
+    Z = torch.clamp(torch.zeros_like(Q32), L32, U32)
 
     scale = 1.0 + float(np.abs(q).max())
     switch = max(tol, 1e-5 * scale)
@@ -682,11 +713,13 @@ def solve_kkt_avi_shared(M, q, l, u, var_mask, tol: float = 1e-8, *,
     with _matmul_precision(eg_prec):
         Z, _, at_l_d, at_u_d, k = _eg_run(
             Mt32, Q32, L32, U32, Z, tau, eg_chunk, max_chunks, band32,
-            switch, eg_stable_tol, method=eg_method)
+            switch, eg_stable_tol, method=eg_method, mesh=mesh)
     eg_iters = int(k) * eg_chunk
 
     phase_t["eg"] = time.perf_counter() - _t
     _t = time.perf_counter()
+    if mesh is not None:
+        Z = gather(mesh, Z)
     Z64 = Z.cpu().numpy().astype(np.float64)
     phase_t["eg_fetch"] = time.perf_counter() - _t
     _t = time.perf_counter()
@@ -795,15 +828,22 @@ def solve_kkt_avi_shared(M, q, l, u, var_mask, tol: float = 1e-8, *,
     # --- fused first policy round (δ = 0, all lanes) -------------------
     # Labels, masks and bound values stay on the device: the EG
     # classification feeds the basis solve directly, the host fetches the
-    # audited f64 results.  This is the round that solves ~all lanes.
+    # audited f64 results.  This is the round that solves ~all lanes.  Under
+    # a mesh it runs as one call: each rank factorizes its own S/size lanes
+    # and every rank gets all of them back.
     sing0: list = []
-    for ofs in range(0, S, lane_chunk):
-        sel = np.arange(ofs, min(ofs + lane_chunk, S))
+    r0_chunk = S if mesh is not None else lane_chunk
+    for ofs in range(0, S, r0_chunk):
+        sel = np.arange(ofs, min(ofs + r0_chunk, S))
         sl = slice(ofs, ofs + sel.size)
         _t0 = time.perf_counter()
-        zc_d, rn_d, h_d = _round0_solve(
-            M32_d, M64_d, at_l_d[sl], at_u_d[sl], Q64_d[sl], L64_d[sl],
-            U64_d[sl], REFINES)
+        if mesh is None:
+            zc_d, rn_d, h_d = _round0_solve(
+                M32_d, M64_d, at_l_d[sl], at_u_d[sl], Q64_d[sl], L64_d[sl],
+                U64_d[sl], REFINES)
+        else:
+            zc_d, rn_d, h_d = (gather(mesh, a) for a in _round0_solve(
+                M32_d, M64_d, at_l_d, at_u_d, Q64_d, L64_d, U64_d, REFINES))
         lu_factored += sel.size
         refine_gemms += (REFINES + 1) * sel.size
         iters_out[sel] += 1

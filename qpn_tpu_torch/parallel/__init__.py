@@ -1,4 +1,6 @@
-"""The port's parallel layer: the level-pipeline sweep of chain networks
-(``sharded.py``), the lockstep broker of scenario ensembles
-(``lockstep.py``) and the process pool of spawned workers (``procpool.py``).
-The ``torch.distributed`` half of ``qpn_tpu/parallel/`` is ROADMAP M5."""
+"""The port's parallel layer: the lockstep broker of scenario ensembles
+(``lockstep.py``), the process pool of spawned workers (``procpool.py``),
+and the multi-device layer on ``torch.distributed``: the ranks as a mesh
+(``mesh.py``), process-group start-up (``multihost.py``), spawned ranks on
+one machine (``launch.py``), the sharded superstep, prunes and level sweep
+(``sharded.py``) and the ring-rotated prunes (``ring.py``)."""

@@ -21,9 +21,15 @@ batched kernels sum in the same order whatever the batch size (the CPU
 tests hold it to 1e-9; ``PERF.md`` records what the card shows).
 
 The broker's wave barrier is the superstep boundary; scenarios that finish
-early stop submitting and the waves shrink.  The mesh-sharded dispatch of the
-JAX package (``mesh=``) belongs to the ``torch.distributed`` slice of the
-port (ROADMAP M5) and raises here.
+early stop submitting and the waves shrink.
+
+With a ``mesh`` (``parallel/mesh.py``) every rank runs the same ensemble
+(SPMD): each fused AVI and QP dispatch is split over the ranks
+(``_sharding``, padded to at least the rank count) and every rank gets the
+full result back.  The waves are dispatched in the canonical order of
+:class:`_Request` (worker index, sequence number), so every rank issues the
+same collectives in the same order.  The host-LP waves run on the host and
+are never split.
 """
 
 from __future__ import annotations
@@ -34,11 +40,6 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
-
-_MESH_TODO = ("mesh: the mesh-sharded lockstep dispatch belongs to the "
-              "torch.distributed slice of the port (ROADMAP M5) and is not "
-              "ported yet")
-
 
 class _Request:
     __slots__ = ("kind", "args", "kw", "result", "error", "event", "order")
@@ -51,7 +52,9 @@ class _Request:
         self.error = None
         self.event = threading.Event()
         # (worker index, per-worker sequence number): canonical ordering so
-        # wave composition is independent of thread scheduling
+        # wave composition is independent of thread scheduling, which SPMD
+        # ranks need: each must issue the same fused dispatches in the same
+        # order, or the collectives deadlock
         self.order = order
 
 
@@ -74,14 +77,12 @@ def _batch_size(a) -> int:
 
 
 class LockstepBroker:
-    """Wave-synchronous batching of solver requests from scenario threads.
-
-    ``mesh`` is the JAX package's device mesh of a sharded dispatch; only
-    ``None`` is supported until the ``torch.distributed`` slice (M5)."""
+    """Wave-synchronous batching of solver requests from scenario threads;
+    with a ``mesh``, each fused AVI and QP dispatch is split over its ranks
+    (module docstring)."""
 
     def __init__(self, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(_MESH_TODO)
+        self.mesh = mesh
         self._lock = threading.Lock()
         self._wave = threading.Condition(self._lock)
         self._pending: List[_Request] = []
@@ -127,6 +128,11 @@ class LockstepBroker:
         # the lane order inside each fused batch deterministic
         requests = sorted(requests, key=lambda r: r.order)
         self.waves += 1
+        split = {}
+        if self.mesh is not None:
+            from .mesh import scenario_sharding
+            split = dict(_sharding=scenario_sharding(self.mesh),
+                         _min_batch=self.mesh.size)
         by_shape = {}
         for r in requests:
             # pure LPs (P == 0) must not fuse with QPs of identical shapes:
@@ -149,14 +155,14 @@ class LockstepBroker:
                 kw = group[0].kw
                 if kind == "avi":
                     out = avi.solve_avi_batch_padded(*cat, _no_broker=True,
-                                                     **kw)
+                                                     **split, **kw)
                 elif kind == "qp":
                     out = batch_qp.solve_qp_batch_padded(
-                        *cat, _no_broker=True, **kw)
+                        *cat, _no_broker=True, **split, **kw)
                 elif kind == "lp_host":
                     # host-engine geometry LPs: one fused exact-shape OpenMP
                     # batch instead of per-scenario native calls contending
-                    # for the same cores
+                    # for the same cores; never split (host execution)
                     out = solve_lp_host_batch(*cat, _no_broker=True, **kw)
                     METRICS.bump("broker_lp_host_waves")
                     METRICS.bump("broker_lp_host_fused", len(group))
@@ -236,15 +242,16 @@ def solve_many_lockstep(qpns, x_inits=None, seed: int = 1, mesh=None):
 
     All scenarios advance together; their batched calls fuse into shared
     dispatches on ``CONFIG.device``.  Returns ``(results, broker)``;
-    ``broker.waves`` counts the fused waves.  ``mesh`` (the JAX package's
-    sharded dispatch) raises until the ``torch.distributed`` slice (M5)."""
+    ``broker.waves`` counts the fused waves.  With ``mesh`` every rank runs
+    the same ensemble and each fused dispatch is split over the ranks
+    (module docstring); each scenario's result comes back where its serial
+    call returns it (numpy from the QP and LP wrappers, device tensors from
+    the AVI solve)."""
     from ..algorithm import solve
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
     qpns = list(qpns)
     if x_inits is None:
         x_inits = [None] * len(qpns)
-    broker = LockstepBroker()
+    broker = LockstepBroker(mesh=mesh)
     jobs = [
         (lambda qpn=qpn, x0=x0: solve(qpn, x0, seed=seed))
         for qpn, x0 in zip(qpns, x_inits)

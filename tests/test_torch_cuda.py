@@ -494,3 +494,75 @@ def test_map_processes_from_a_cuda_parent(cuda_device):
     want = hard_chunk_job(*job)
     assert out[0] == out[1] and out[0][0] == 1.0 == want[0]
     np.testing.assert_allclose(out[0][2], want[2], rtol=1e-9)
+
+
+def _host_prune(act, resid):
+    """The keep mask of the strict (round(resid·1e12), index) prune, as a
+    plain numpy loop."""
+    rq = np.round(resid * 1e12)
+    keep = np.ones(len(act), dtype=bool)
+    for i in range(len(act)):
+        for j in range(len(act)):
+            if (act[j] == act[i]).all() and (
+                    rq[j] < rq[i] or (rq[j] == rq[i] and j < i)):
+                keep[i] = False
+                break
+    return keep
+
+
+@pytest.mark.gpu
+def test_world_size_one_nccl_superstep_is_the_single_process_solve(
+        cuda_device, tmp_path):
+    """One rank over NCCL on the card: the sharded superstep's z and
+    convergence are the single-process solve_avi_batch's bit for bit, its
+    keep mask the host prune's."""
+    import torch.distributed as dist
+    from qpn_tpu_torch.ops.avi import solve_avi_batch
+    from qpn_tpu_torch.parallel import multihost
+    from qpn_tpu_torch.parallel.sharded import equilibrium_superstep
+    batch = scenario_batch_gavis(num_scenarios=64, T=2, num_obj=1,
+                                 num_poly_faces=4, seed=0)
+    assert multihost.init("file://" + str(tmp_path / "rdv"), 1, 0) == "nccl"
+    try:
+        mesh = multihost.global_mesh()
+        assert mesh.device.type == "cuda" and mesh.backend == "nccl"
+        out = equilibrium_superstep(mesh, batch, tol=1e-8)
+    finally:
+        dist.destroy_process_group()
+    d = batch_from_numpy(batch, cuda_device)
+    one = solve_avi_batch(d["M"], d["q"], d["l"], d["u"], d["z0"],
+                          d["mask"], tol=1e-8, max_iter=840)
+    assert torch.equal(out["z"], one.z)
+    assert torch.equal(out["resid"], one.resid)
+    z = one.z.cpu().numpy()
+    lq = np.where(np.isfinite(batch["l"]), batch["l"], -1e20)
+    uq = np.where(np.isfinite(batch["u"]), batch["u"], 1e20)
+    act = ((np.abs(z - lq) < 1e-6).astype(np.int32)
+           + 2 * (np.abs(z - uq) < 1e-6).astype(np.int32))
+    np.testing.assert_array_equal(out["keep"].cpu().numpy(),
+                                  _host_prune(act, one.resid.cpu().numpy()))
+
+
+@pytest.mark.gpu
+def test_dryrun_multichip_two_gloo_ranks_on_one_card(cuda_device):
+    """Two ranks and one card: gloo, both ranks on cuda:0; the four stages
+    pass and the lockstep scenarios end at their serial solves on the card
+    (x_opt to 1e-6, equal pieces)."""
+    import qpn_tpu_torch as qt
+    from qpn_tpu_torch.entry import LOCKSTEP_WS, RING_PIECES
+    from qpn_tpu_torch.entry import dryrun_multichip
+    if torch.cuda.device_count() > 1:
+        pytest.skip("two ranks take NCCL on a machine with two cards")
+    outs = dryrun_multichip(2, timeout_s=600)
+    for r in outs:
+        assert r["backend"] == "gloo" and r["device"].startswith("cuda")
+        assert r["ring_kept"] == RING_PIECES - RING_PIECES // 4
+        assert r["ring_waves"] >= 1 and r["shared_conv"].all()
+    np.testing.assert_array_equal(outs[0]["z"], outs[1]["z"])
+    for k, w in enumerate(LOCKSTEP_WS):
+        s = qt.solve(qt.setup("simple_bilevel"),
+                     np.concatenate([w, [0.0, 0.0]]))
+        for r in outs:
+            np.testing.assert_allclose(r["x_opts"][k], s.x_opt, rtol=0,
+                                       atol=1e-6)
+            assert r["pieces"][k] == _pieces(s)

@@ -164,8 +164,19 @@ def test_solve_avi_batch_padded_at_a_bucket_size():
 
 
 def test_solve_avi_batch_padded_rejects_sharding():
-    with pytest.raises(NotImplementedError, match="M5"):
+    """``_sharding`` takes a ``parallel.mesh`` Sharding (or Mesh) and
+    rejects anything else; over a one-rank mesh it is the plain padded
+    solve (the multi-rank cases are in ``test_torch_parallel.py``)."""
+    from qpn_tpu_torch.parallel import mesh
+    with pytest.raises(TypeError, match="Sharding"):
         avi.solve_avi_batch_padded(*_t(_flagship(S=1)), _sharding=object())
+    one = mesh.Mesh(shape={"scenario": 1, "branch": 1}, rank=0,
+                    device=torch.device("cpu"), backend="gloo")
+    args = _t(_flagship(S=3))
+    res = avi.solve_avi_batch_padded(*args, tol=TOL, max_iter=390,
+                                     _sharding=mesh.scenario_sharding(one))
+    plain = avi.solve_avi_batch_padded(*args, tol=TOL, max_iter=390)
+    assert all(torch.equal(a, b) for a, b in zip(res, plain))
 
 
 def _accepted(problem, z_eg):

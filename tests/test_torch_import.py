@@ -23,13 +23,16 @@ import qpn_tpu_torch.parallel.sharded, qpn_tpu_torch.ops.shared_kkt
 import qpn_tpu_torch.ops.banded, qpn_tpu_torch.printing
 import qpn_tpu_torch.utils.checkpoint, qpn_tpu_torch.utils.flops
 import qpn_tpu_torch.utils.profiling, qpn_tpu_torch.parallel.lockstep
-import qpn_tpu_torch.parallel.procpool
+import qpn_tpu_torch.parallel.procpool, qpn_tpu_torch.parallel.mesh
+import qpn_tpu_torch.parallel.multihost, qpn_tpu_torch.parallel.ring
+import qpn_tpu_torch.parallel.launch, qpn_tpu_torch.entry
 for name in ("simple_bilevel", "four_player_matrix_game", "robust_avoid",
              "deep_synthetic", "rock_paper_scissors", "toll_setting",
              "chainstore", "trilevel_escape", "shepherd_sheep",
              "robust_constrained", "control_avoid", "interpolation_avoid"):
     qpn_tpu_torch.setup(name)
 qpn_tpu_torch.CONFIG.device = "cpu"     # the default is the card
+qpn_tpu_torch.entry.entry()
 qpn_tpu_torch.solve(qpn_tpu_torch.setup("shepherd_sheep"))
 qpn_tpu_torch.parallel.lockstep.solve_many_lockstep(
     [qpn_tpu_torch.setup("shepherd_sheep")])

@@ -319,11 +319,22 @@ def test_active_broker_is_per_thread():
 
 @pytest.mark.parametrize("call", ["broker", "solve"])
 def test_mesh_names_the_distributed_slice(call):
-    with pytest.raises(NotImplementedError, match="M5"):
-        if call == "broker":
-            LockstepBroker(mesh=object())
-        else:
-            solve_many_lockstep([], mesh=object())
+    """``mesh`` is a mesh of the ``torch.distributed`` layer
+    (``parallel/mesh.py``): the broker keeps it, and over a one-rank mesh
+    the split dispatch gives the serial result (the multi-rank cases are in
+    ``test_torch_multihost.py``)."""
+    from qpn_tpu_torch.parallel import mesh
+    one = mesh.Mesh(shape={"scenario": 1, "branch": 1}, rank=0,
+                    device=torch.device("cpu"), backend="gloo")
+    if call == "broker":
+        assert LockstepBroker(mesh=one).mesh is one
+        return
+    x0 = np.array([0.3, 1.0, 0.0, 0.0])
+    (got,), broker = solve_many_lockstep([qt.setup("simple_bilevel")], [x0],
+                                         mesh=one)
+    want = qt.solve(qt.setup("simple_bilevel"), x0)
+    assert got.solved and broker.mesh is one and broker.waves >= 1
+    np.testing.assert_allclose(got.x_opt, want.x_opt, rtol=0, atol=X_TOL)
 
 
 def test_many_workers_under_a_short_switch_interval():

@@ -10,7 +10,8 @@ Phases, one line each, with their seconds; any failure exits non-zero:
 
 1. device: the card, and ``nvidia-smi``'s name and power limit;
 2. build: the three CUDA kernels from the sources in this checkout, one
-   nvcc for each source, started together;
+   nvcc for each source, and the native host library
+   (``csrc/qpn_host.cpp``, g++), all started together;
 3. ensemble: the flagship scenario ensemble (robust_avoid, S=256, T=2,
    num_obj=1, num_poly_faces=4, seed 0; n=38 per lane), moved to the card;
 4. the Lemke pivot kernel against its plain PyTorch version in f32 on all
@@ -103,6 +104,17 @@ Phases, one line each, with their seconds; any failure exits non-zero:
    wave; the three lockstep scenarios within 1e-6 of their serial solves on
    the card with equal pieces.  Each stage's seconds and the bytes its
    collectives sent are printed.
+19. ``solve()`` on the six registered models outside the zoo
+   (robust_constrained, bilevel_escape from two starts, simple_network in
+   its three versions, repeated_variable_control, control_avoid,
+   interpolation_avoid; ``tests/test_models.py``'s kwargs) on the card and
+   with ``device="cpu"``: the QEP and piece counts and ``solved`` of
+   ``REST`` on both devices (simple_network v2 ends in a reported failure
+   on both), x_opt within 1e-6 between the devices, each model's analytic
+   check from ``tests/test_models.py``, host LPs counted on the card
+   wherever the CPU solve runs them (the native library answered them);
+   the native library's path, which must lie under ``build/qpn_tpu_torch/``,
+   each model's wall on both devices and the kernels' launches.
 
 Then one JSON line for the kernels (launches on the main paths, error
 against the plain version, the kernel's, the plain version's and the bound's
@@ -180,6 +192,38 @@ GOLDEN = [
     ([0.0, 0.0], [[0.0, 0.0]], 3),
 ]
 X_OPT_TOL = 1e-6      # solve() on the card vs on the CPU, same machine
+# The six registered models outside the zoo at tests/test_models.py's kwargs
+# and starts, with the counts both packages give on the CPU
+# (tests/test_torch_models_rest.py): (row, model, setup kwargs, x_init,
+# QEP solves, pieces projected, solved).
+REST = [
+    ("robust_constrained", "robust_constrained", dict(T=2, num_obj=1), None,
+     1, 0, True),
+    ("bilevel_escape_far", "bilevel_escape", dict(), [2.0, 0.0, 1.0, 0.0],
+     0, 1, True),
+    ("bilevel_escape_origin", "bilevel_escape", dict(), [0.0] * 4, 0, 1,
+     True),
+    ("simple_network_v1", "simple_network", dict(edge_version=1), None,
+     0, 2, True),
+    ("simple_network_v2", "simple_network", dict(edge_version=2), None,
+     11, 7, False),
+    ("simple_network_v3", "simple_network", dict(edge_version=3), None,
+     1, 6, True),
+    ("repeated_variable_control", "repeated_variable_control", dict(), None,
+     1, 3, True),
+    ("control_avoid", "control_avoid", dict(T=2, num_obj=1), None, 2, 4,
+     True),
+    ("interpolation_avoid", "interpolation_avoid", dict(T=1, num_samples=3),
+     None, 3, 11, True),
+]
+# K1 launches of each REST row's solve on the card; K2 and K3 launch in none.
+# simple_network v2's failing QEP solves escalate through lemke_escalate:
+# 36 calls of lemke.solve_lemke_batch_padded, one f64 launch each (the same
+# 36 calls on the CPU run the plain loop).
+REST_K1_LAUNCHES = {"simple_network_v2": 36}
+# K1 against the plain loop on phase 19's escalation calls (f64, refactorized
+# z), relative to max(1, max |z|): these rays reach |z| ~ 2e10.
+ESCALATION_Z_RTOL = 1e-10
 # The shared-matrix route's design scale (the JAX package's bench row) and
 # its hard seed.
 LARGE = dict(num_scenarios=1024, T=8, num_obj=4, num_poly_faces=4, seed=0)
@@ -695,6 +739,186 @@ def solve_zoo(device, say, card):
         f"card ({golden_wall:.3f} s); kernel launches on the card (zoo and "
         f"golden points): {launches} [{card}]")
     return pieces, ra_card
+
+
+def rest_analytic(row, ret, qpn):
+    """tests/test_models.py's analytic check of a REST row on ``ret``; the
+    reason it fails, or None."""
+    import numpy as np
+    x = np.asarray(ret.x_opt) if ret.solved else None
+    if row == "robust_constrained":
+        T, F = 2, 4
+        i = 4 + 4 * T
+        U, S = x[i:i + 2 * T], x[i + 2 * T + F * T:i + 2 * T + F * T + T]
+        c, v = x[i + 2 * T + F * T + T + 2], x[i + 2 * T + F * T + T + 3]
+        ok = (np.allclose(U[0::2], 10.0, atol=1e-6)
+              and np.allclose(U[1::2], 0.0, atol=1e-6)
+              and abs(c - S.min()) <= 1e-6 and abs(v - max(0.0, c)) <= 1e-6)
+    elif row.startswith("bilevel_escape"):
+        want = [2.0, 0.0, 1.0, 0.0] if row.endswith("far") else [0.0] * 4
+        ok = np.allclose(x, want, atol=1e-4)
+    elif row == "simple_network_v2":
+        ok = ret.solved is False          # a clean, reported failure
+    elif row.startswith("simple_network"):
+        want = [0.0] * 3 if row.endswith("v1") else [0.5, 0.5, 0.0]
+        ok = np.allclose(x, want, atol=1e-4)
+    elif row == "repeated_variable_control":
+        from qpn_tpu_torch.ops import batch_qp
+        d = qpn.problem_data
+        sol = batch_qp.solve_qp_np(d["Q"], d["q"], d["A"], d["l"], d["u"])
+        ok = (np.allclose(x[:3], np.asarray(sol.x), atol=1e-5)
+              and abs(x[3]) <= 1e-6)
+    elif row == "control_avoid":
+        from qpn_tpu_torch.models.robust_constrained import dyn
+        T, F = 2, 4
+        i = 2 + 4 + 4 * T + 2 * T + F * T
+        u1 = x[6 + 4 * T:6 + 4 * T + 2]
+        ok = (bool(np.all(x[i:i + T] >= -1e-6))
+              and np.allclose(x[6:10], dyn(list(x[2:6]), list(u1)),
+                              atol=1e-6))
+    else:                                 # interpolation_avoid
+        K = 3
+        i = 4 + 4 + 2 + 2 * K
+        ok = abs(x[i + K] - x[i:i + K].min()) <= 1e-5 and x[i + K] >= -1e-6
+    return None if ok else f"analytic check failed, x_opt {x}"
+
+
+class _Capture:
+    """Wraps ``lemke.solve_lemke_batch_padded`` (lemke_escalate's pivot
+    call) while it is installed, keeping each call's inputs and outputs."""
+
+    def __init__(self):
+        from qpn_tpu_torch.ops import lemke
+        self.lemke, self.orig, self.calls = lemke, \
+            lemke.solve_lemke_batch_padded, []
+
+    def __enter__(self):
+        def wrapped(*args, **kw):
+            out = self.orig(*args, **kw)
+            self.calls.append(([a.clone() for a in args], kw,
+                               [o.clone() for o in out]))
+            return out
+        self.lemke.solve_lemke_batch_padded = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.lemke.solve_lemke_batch_padded = self.orig
+
+
+def check_escalations(row, calls):
+    """Reruns each captured card call of solve_lemke_batch_padded with the
+    plain pivot loop on the same tensors: equal status and pivots, z within
+    ESCALATION_Z_RTOL.  Returns the largest relative |dz|."""
+    import torch
+    from qpn_tpu_torch.config import CONFIG
+    from qpn_tpu_torch.ops import lemke
+    worst = 0.0
+    mode = CONFIG.lemke_kernel
+    CONFIG.lemke_kernel = "torch"
+    try:
+        for k, (args, kw, (z, status, piv)) in enumerate(calls):
+            zp, sp, pp = lemke.solve_lemke_batch_padded(*args, **kw)
+            if not (torch.equal(status, sp) and torch.equal(piv, pp)):
+                fail(f"{row} escalation call {k}: K1 status {status.tolist()}"
+                     f" pivots {piv.tolist()}, plain loop {sp.tolist()} "
+                     f"{pp.tolist()}")
+            scale = max(1.0, float(zp.abs().max()))
+            err = float((z - zp).abs().max()) / scale
+            if not err <= ESCALATION_Z_RTOL:
+                fail(f"{row} escalation call {k}: K1's z differs from the "
+                     f"plain loop's by {err!r} of max(1, |z|) = {scale!r}")
+            worst = max(worst, err)
+    finally:
+        CONFIG.lemke_kernel = mode
+    return worst
+
+
+def solve_rest(device, say, card):
+    """The six models outside the zoo (REST) through solve() on the card and
+    on the CPU: the counts of REST on both devices, x_opt within X_OPT_TOL
+    between them, each model's analytic check, host LPs answered by the
+    native library on the card wherever the CPU solve runs them, the kernel
+    launches of REST_K1_LAUNCHES on the card, and K1 held against the plain
+    loop on every escalation call it answered."""
+    import numpy as np
+    import qpn_tpu_torch as qt
+    from qpn_tpu_torch.config import CONFIG
+    from qpn_tpu_torch.geometry.query_cache import CACHE
+    from qpn_tpu_torch.ops import eg_cuda, lemke_cuda, screen_cuda
+    from qpn_tpu_torch.utils import native
+    lib = native.library_path()
+    if os.path.realpath(lib.parent) != os.path.realpath(
+            os.path.join(HERE, "build", "qpn_tpu_torch")):
+        fail(f"the native library was loaded from {lib}, not from "
+             f"build/qpn_tpu_torch/")
+    say(f"native host library: {lib} (from {native._SOURCE})")
+    default_device = CONFIG.device
+    walls = {"cuda": 0.0, "cpu": 0.0}
+    before = _kernel_launches()
+    for row, name, kw, x0, want_qep, want_pieces, want_solved in REST:
+        got = {}
+        for dev in ("cuda", "cpu"):
+            CONFIG.device = dev
+            CACHE.clear()
+            qpn = qt.setup(name, **kw)
+            k0 = _kernel_launches()
+            with _Capture() as cap:
+                t0 = time.perf_counter()
+                ret = qt.solve(qpn, None if x0 is None else np.asarray(x0))
+                wall = time.perf_counter() - t0
+            walls[dev] += wall
+            c = dict(qpn.metrics.counters)
+            counts = (int(c.get("qep_solves", 0)),
+                      int(c.get("pieces_projected", 0)), bool(ret.solved))
+            if counts != (want_qep, want_pieces, want_solved):
+                fail(f"solve {row} device={dev}: (QEP, pieces, solved) "
+                     f"{counts}, expected {(want_qep, want_pieces, want_solved)}")
+            if ret.solved and not np.isfinite(ret.x_opt).all():
+                fail(f"solve {row} device={dev}: non-finite x_opt")
+            why = rest_analytic(row, ret, qpn)
+            if why:
+                fail(f"solve {row} device={dev}: {why}")
+            launched = {k: v - k0[k] for k, v in _kernel_launches().items()}
+            got[dev] = (wall, ret, int(c.get("lp_host", 0)), launched,
+                        cap.calls)
+        (w_card, r_card, lp_card, k_card, esc_card), \
+            (w_cpu, r_cpu, lp_cpu, _, esc_cpu) = got["cuda"], got["cpu"]
+        want_k = {lemke_cuda.KERNEL: REST_K1_LAUNCHES.get(row, 0),
+                  eg_cuda.KERNEL: 0, screen_cuda.KERNEL: 0}
+        if k_card != want_k:
+            fail(f"solve {row}: kernel launches on the card {k_card}, "
+                 f"expected {want_k}")
+        if len(esc_card) != want_k[lemke_cuda.KERNEL] or \
+                len(esc_cpu) != len(esc_card):
+            fail(f"solve {row}: {len(esc_card)} escalation pivot calls on "
+                 f"the card, {len(esc_cpu)} on the CPU, expected one a K1 "
+                 f"launch ({want_k[lemke_cuda.KERNEL]})")
+        esc_err = check_escalations(row, esc_card)
+        dx = 0.0
+        if want_solved:
+            dx = float(np.abs(np.asarray(r_card.x_opt)
+                              - np.asarray(r_cpu.x_opt)).max())
+            if not dx <= X_OPT_TOL:
+                fail(f"solve {row}: x_opt on the card differs from the "
+                     f"CPU's by {dx!r}")
+        if lp_cpu > 0 and lp_card == 0:
+            fail(f"solve {row}: the CPU solve ran {lp_cpu} host LPs, the "
+                 f"card's none: the native engine did not answer them")
+        say(f"solve {row}: solved={want_solved}, {want_qep} QEP, "
+            f"{want_pieces} pieces on both devices, x_opt within {dx:.3g}, "
+            f"analytic check met; wall {w_card:.3f} s device=cuda, "
+            f"{w_cpu:.3f} s device=cpu; host LPs {lp_card} on the card, "
+            f"{lp_cpu} on the CPU; kernel launches on the card {k_card}, "
+            f"K1 against the plain loop on its {len(esc_card)} escalation "
+            f"calls: equal status and pivots, z within {esc_err:.3g} of "
+            f"max(1, |z|) [{card}]")
+    CONFIG.device = default_device
+    CACHE.clear()
+    launched = {k: v - before[k] for k, v in _kernel_launches().items()}
+    say(f"solve() rest: {len(REST)}/{len(REST)} rows at their counts on "
+        f"both devices, wall {walls['cuda']:.3f} s device=cuda, "
+        f"{walls['cpu']:.3f} s device=cpu; kernel launches on the card "
+        f"{launched} [{card}]")
 
 
 def shared_large(data, z_kkt, device, say, card):
@@ -1218,6 +1442,7 @@ def main() -> None:
     from qpn_tpu_torch.ops.avi import (batch_from_numpy,
                                        solve_avi_batch_adaptive,
                                        solve_kkt_avi_batch)
+    from qpn_tpu_torch.utils import native
     from qpn_tpu_torch.utils.metrics import METRICS
 
     say = Clock()
@@ -1235,12 +1460,14 @@ def main() -> None:
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible")
     print(card)
 
-    # 2. build: one nvcc for each source, started together
-    with ThreadPoolExecutor(3) as pool:
-        builds = {name: pool.submit(timed_build, mod.build)
-                  for name, mod in (("csrc/lemke_pivot.cu", lemke_cuda),
-                                    ("csrc/eg_warmstart.cu", eg_cuda),
-                                    ("csrc/screen.cu", screen_cuda))}
+    # 2. build: one nvcc for each source and g++ for the native host
+    # library, started together
+    with ThreadPoolExecutor(4) as pool:
+        builds = {name: pool.submit(timed_build, build) for name, build in (
+            ("csrc/lemke_pivot.cu", lemke_cuda.build),
+            ("csrc/eg_warmstart.cu", eg_cuda.build),
+            ("csrc/screen.cu", screen_cuda.build),
+            ("csrc/qpn_host.cpp", native.library_path))}
         secs = {name: f.result() for name, f in builds.items()}
     say("build: " + ", ".join(f"{name} in {t:.1f} s"
                               for name, t in secs.items()))
@@ -1360,6 +1587,9 @@ def main() -> None:
 
     # 18. the multi-device layer: one rank over NCCL, two gloo ranks
     multi_device_phase(batch, data, big, res_large, device, say, card)
+
+    # 19. the six models outside the zoo, on the card and on the CPU
+    solve_rest(device, say, card)
 
     if CONFIG.device != "cuda":
         fail(f"CONFIG.device was left at {CONFIG.device!r}")

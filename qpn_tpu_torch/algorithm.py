@@ -40,6 +40,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from .config import numeric_device
+from .utils import native
 from .enumeration import process_solution_graph
 from .geometry import setops
 from .geometry.project import project as project_poly
@@ -1322,10 +1323,13 @@ def solve(qpn: QPNet, x_init=None, parent_level_request=frozenset(),
     kernel launch counts never do (a caller reads them across calls).
 
     The batched work runs on ``CONFIG.device``, the card by default; without
-    a CUDA device the call raises (set ``CONFIG.device = "cpu"``)."""
-    # A missing device is the caller's to settle, not a failed solve:
-    # solve_base would catch the error and report solved=False.
+    a CUDA device the call raises (set ``CONFIG.device = "cpu"``), and so it
+    does when the native host library cannot be built or loaded."""
+    # A missing device or native library is the caller's to settle, not a
+    # failed solve: solve_base would catch the error and report
+    # solved=False.
     numeric_device()
+    native._load()
     if x_init is None:
         x_init = qpn.default_initialization
     if rng is None:

@@ -57,7 +57,8 @@ class NumericConfig:
     screen_kernel: str = "auto"
     # Run the f32 feasibility screen before the exact emptiness LPs of
     # is_empty_batch.  None = auto (see screen_enabled): off when the native
-    # exact pivot engine answers those LPs, otherwise on for a CUDA device.
+    # exact pivot engine answers those LPs (empty_engine "host"), otherwise
+    # on for a CUDA device.
     use_screen: bool | None = None
     # Engine for pure LPs routed through solve_qp_batch_padded: "admm" (the
     # batched first-order engine; its interior-ish choice among optimal
@@ -121,9 +122,7 @@ def screen_enabled() -> bool:
         return CONFIG.use_screen
     if CONFIG.empty_engine == "host":
         # the native exact pivot engine answers the same query on the host
-        from .utils.native import native_available
-        if native_available():
-            return False
+        return False
     return CONFIG.device.startswith("cuda")
 
 

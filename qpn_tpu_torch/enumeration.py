@@ -142,8 +142,8 @@ def comp_indices(gavi: GAVI, z, w, permuted_request=(), tol: float = 1e-2):
 def all_Ks(J) -> Set[Recipe]:
     """Cartesian product of label choices (avi_solutions.jl:200-215).
 
-    The expansion runs in the native C++ host kernel when available
-    (utils/native.recipe_product) — the Python product loop is the fallback."""
+    The expansion runs in the native C++ host kernel
+    (utils/native.recipe_product)."""
     count = 1
     for Ji in J:
         count *= len(Ji)

@@ -153,7 +153,7 @@ class Poly:
 
         if dedupe and m > 0:
             # Set-of-Slice semantics: rows equal under 5-digit rounding collapse
-            # (sets.jl:104-112); native C++ kernel when available.
+            # (sets.jl:104-112); native C++ kernel (utils/native).
             from ..utils.native import dedupe_rows_mask
             stacked = np.column_stack([
                 A, np.nan_to_num(l, posinf=1e200, neginf=-1e200),

@@ -107,9 +107,6 @@ def exemplar_batch(polys: Sequence[Poly], tol: float = 1e-2,
     from ..config import CONFIG as _CFG
     use_host = (_CFG.exemplar_engine == "host"
                 or (_verdict_only and _CFG.empty_engine == "host"))
-    if use_host:
-        from ..utils.native import native_available
-        use_host = native_available()
     # content-addressed memo: emptiness/exemplar are pure in the poly.
     # Witness-grade entries live under b"exemplar"; host verdict-only
     # entries under b"empty" (verdict consumers accept either).
@@ -184,50 +181,49 @@ def exemplar_batch(polys: Sequence[Poly], tol: float = 1e-2,
             hs = solve_lp_host_batch(
                 np.array(qs), np.array(As), np.array(ls), np.array(us),
                 np.array(masks))
-            if hs is not None:
-                for k, i in enumerate(idxs):
-                    p = polys[i]
-                    if p.m == 0:
-                        host_lane[k] = True
-                        continue
-                    stk = int(np.asarray(hs.status)[k])
-                    epsk = float(np.asarray(hs.x)[k, p.dim])
-                    has_strict = bool(np.any(
-                        (p.strict_l & np.isfinite(p.l))
-                        | (p.strict_u & np.isfinite(p.u))))
-                    if stk == batch_qp.DUAL_INFEASIBLE:
-                        host_lane[k] = True          # strictly feasible
-                    elif stk == batch_qp.SOLVED and (
-                            not has_strict or epsk > tol or epsk <= -tol):
-                        host_lane[k] = True
-                if host_lane.all():
-                    sol = hs
-                elif host_lane.any():
-                    sub = [j for j, h in enumerate(host_lane) if not h]
-                    ss = batch_qp.solve_qp_batch_padded(
-                        np.array([Ps[j] for j in sub]),
-                        np.array([qs[j] for j in sub]),
-                        np.array([As[j] for j in sub]),
-                        np.array([ls[j] for j in sub]),
-                        np.array([us[j] for j in sub]),
-                        np.array([masks[j] for j in sub]), eps=1e-6)
-                    X = np.array(hs.x)
-                    Y = np.array(hs.y)
-                    St = np.array(hs.status)
-                    X[sub] = np.asarray(ss.x)
-                    Y[sub] = np.asarray(ss.y)
-                    St[sub] = np.asarray(ss.status)
-                    sol = batch_qp.QPSolution(
-                        x=X, y=Y, z=hs.z, obj=hs.obj, status=St,
-                        prim_res=hs.prim_res, dual_res=hs.dual_res,
-                        iters=hs.iters)
+            for k, i in enumerate(idxs):
+                p = polys[i]
+                if p.m == 0:
+                    host_lane[k] = True
+                    continue
+                stk = int(np.asarray(hs.status)[k])
+                epsk = float(np.asarray(hs.x)[k, p.dim])
+                has_strict = bool(np.any(
+                    (p.strict_l & np.isfinite(p.l))
+                    | (p.strict_u & np.isfinite(p.u))))
+                if stk == batch_qp.DUAL_INFEASIBLE:
+                    host_lane[k] = True          # strictly feasible
+                elif stk == batch_qp.SOLVED and (
+                        not has_strict or epsk > tol or epsk <= -tol):
+                    host_lane[k] = True
+            if host_lane.all():
+                sol = hs
+            elif host_lane.any():
+                sub = [j for j, h in enumerate(host_lane) if not h]
+                ss = batch_qp.solve_qp_batch_padded(
+                    np.array([Ps[j] for j in sub]),
+                    np.array([qs[j] for j in sub]),
+                    np.array([As[j] for j in sub]),
+                    np.array([ls[j] for j in sub]),
+                    np.array([us[j] for j in sub]),
+                    np.array([masks[j] for j in sub]), eps=1e-6)
+                X = np.array(hs.x)
+                Y = np.array(hs.y)
+                St = np.array(hs.status)
+                X[sub] = np.asarray(ss.x)
+                Y[sub] = np.asarray(ss.y)
+                St[sub] = np.asarray(ss.status)
+                sol = batch_qp.QPSolution(
+                    x=X, y=Y, z=hs.z, obj=hs.obj, status=St,
+                    prim_res=hs.prim_res, dual_res=hs.dual_res,
+                    iters=hs.iters)
         elif use_host:
             # opt-in full host exemplar engine (witness-grade by request)
             from ..ops.lemke import solve_lp_host_batch
             sol = solve_lp_host_batch(
                 np.array(qs), np.array(As), np.array(ls), np.array(us),
                 np.array(masks))
-            host_lane[:] = sol is not None
+            host_lane[:] = True
         if sol is None:
             # eps 1e-6: the ε*/dual decisions here compare against
             # tol=1e-2 / 1e-6, and the terminal active-set polish inside

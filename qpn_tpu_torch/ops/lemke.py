@@ -26,6 +26,8 @@ Layout of the port:
 * :func:`solve_lemke_batch_state` / :func:`solve_lemke_batch_state_auto` —
   setup, pivot loop, z extraction; ``_auto`` picks the engine from
   ``CONFIG.lemke_kernel`` and the tensors' device.
+  :func:`solve_lemke_batch` is the public ``(z, status, pivots)`` view
+  (:class:`LemkeResult`).
 * :func:`refactor_batch` — the f64 terminal refactorization, batched on the
   tensors' device (the JAX package does it on the host in numpy).
 * :func:`solve_lemke_batch_padded` and :func:`lemke_escalate` — the f64
@@ -330,10 +332,12 @@ class PivotResult(NamedTuple):
     status: torch.Tensor   # (B,) int32 LEMKE_*
 
 
-def lemke_setup(M, q, l, u, z0, var_mask, *, tol) -> LemkeInit:
-    """Everything before the pivot loop, batched: masking, synthetic boxes,
-    slack basis, covering direction (the violated rows), first pivot (t
-    enters).
+def lemke_setup(M, q, l, u, z0, var_mask, *, tol, synth_scale=SYNTH_SCALE,
+                cover: str = "viol") -> LemkeInit:
+    """Everything before the pivot loop, batched: masking, synthetic boxes
+    (``synth_scale``), slack basis, covering direction (the violated rows,
+    or every row with ``cover="all"``, the classic Lemke covering), first
+    pivot (t enters).
 
     Shapes: M (B,n,n); q/l/u/z0 (B,n) of one float dtype; var_mask (B,n)
     bool.  Lanes solved at the start keep the slack basis and the
@@ -358,7 +362,7 @@ def lemke_setup(M, q, l, u, z0, var_mask, *, tol) -> LemkeInit:
     fin_mag = torch.maximum(
         torch.where(torch.isfinite(l), l.abs(), zero).amax(1),
         torch.where(torch.isfinite(u), u.abs(), zero).amax(1))
-    L = (SYNTH_SCALE * (1.0 + zc.abs().amax(1) + fin_mag))[:, None]
+    L = (synth_scale * (1.0 + zc.abs().amax(1) + fin_mag))[:, None]
     l = torch.where(torch.isinf(l), zc - L, l)
     u = torch.where(torch.isinf(u), zc + L, u)
     pinned = (u - l) <= 0.0
@@ -385,7 +389,10 @@ def lemke_setup(M, q, l, u, z0, var_mask, *, tol) -> LemkeInit:
     solved = viol.amax(1) <= thresh
 
     # --- first pivot: t enters along the covering direction --------------
-    T0[:, :, T_ID] = -(viol > thresh[:, None]).to(dt)
+    if cover == "all":
+        T0[:, :, T_ID] = -1.0
+    else:
+        T0[:, :, T_ID] = -(viol > thresh[:, None]).to(dt)
     j0 = viol.argmax(1)
     exiting0 = basis0.gather(1, j0[:, None])
     exit_val0 = var_lb.gather(1, exiting0)
@@ -571,7 +578,8 @@ def pivot_engine(device: torch.device) -> PivotEngine:
 
 
 def solve_lemke_batch_state(M, q, l, u, z0, var_mask, *, pivot: PivotEngine,
-                            tol=1e-9, piv_tol=1e-11, max_pivots: int = 512):
+                            tol=1e-9, piv_tol=1e-11, max_pivots: int = 512,
+                            synth_scale=SYNTH_SCALE, cover: str = "viol"):
     """Batched box-AVI Lemke solve with the given pivot engine.
 
     Shapes: M (B,n,n); q/l/u/z0/var_mask (B,n); the dtype of q is the
@@ -579,7 +587,8 @@ def solve_lemke_batch_state(M, q, l, u, z0, var_mask, *, pivot: PivotEngine,
     pivot count includes the covering pivot (0 for lanes solved at the
     start), and ``basis``/``val`` let the caller refactorize the terminal
     basis in f64 (:func:`refactor_batch`)."""
-    init = lemke_setup(M, q, l, u, z0, var_mask, tol=tol)
+    init = lemke_setup(M, q, l, u, z0, var_mask, tol=tol,
+                       synth_scale=synth_scale, cover=cover)
     res = pivot(init, tol=tol, piv_tol=piv_tol, max_pivots=max_pivots)
     z = _extract_z(res.xB, res.basis, res.val, var_mask.to(torch.bool))
     piv = torch.where(init.status == LEMKE_SUCCESS, 0, res.piv + 1)
@@ -592,6 +601,33 @@ def solve_lemke_batch_state_auto(M, q, l, u, z0, var_mask, **kw):
     (:func:`pivot_engine`)."""
     return solve_lemke_batch_state(M, q, l, u, z0, var_mask,
                                    pivot=pivot_engine(q.device), **kw)
+
+
+class LemkeResult(NamedTuple):
+    """What :func:`solve_lemke_batch` returns, per lane."""
+    z: torch.Tensor        # (B, n) solution estimate
+    status: torch.Tensor   # (B,) LEMKE_SUCCESS, _RAY, _MAX or _SINGULAR
+    pivots: torch.Tensor   # (B,) pivots, the covering one included
+
+
+def solve_lemke_batch(M, q, l, u, z0, var_mask, tol=1e-9, piv_tol=1e-11,
+                      max_pivots: int = 512, synth_scale=SYNTH_SCALE,
+                      cover: str = "viol") -> LemkeResult:
+    """Batched box-AVI Lemke solve.  Shapes: M (B,n,n); q/l/u/z0/var_mask
+    (B,n).  Counterpart of ``qpn_tpu/ops/lemke.py::solve_lemke_batch``.
+
+    A thin view over :func:`solve_lemke_batch_state_auto`: K1 on CUDA
+    tensors, the plain loop on CPU tensors.  Numpy inputs go to
+    ``config.numeric_device()`` (the card unless the caller asks for the
+    CPU), keeping their dtype; the result lies on the inputs' device."""
+    from ..config import numeric_device
+    dev = q.device if isinstance(q, torch.Tensor) else numeric_device()
+    M, q, l, u, z0, var_mask = (torch.as_tensor(a, device=dev)
+                                for a in (M, q, l, u, z0, var_mask))
+    z, status, piv, _, _ = solve_lemke_batch_state_auto(
+        M, q, l, u, z0, var_mask.to(torch.bool), tol=tol, piv_tol=piv_tol,
+        max_pivots=max_pivots, synth_scale=synth_scale, cover=cover)
+    return LemkeResult(z, status, piv)
 
 
 def _extract_z(xB, basis, val, var_mask):
@@ -812,8 +848,8 @@ def solve_lp_host_batch(c, A, l, u, row_mask, *, tol=1e-7,
     its own active rows.  For the ≤64-row LPs behind geometry support and
     emptiness queries each solve takes a fraction of a millisecond.  Lanes
     whose pivot run is uncertified fall back to the ADMM engine.  Returns a
-    ``batch_qp.QPSolution`` of numpy arrays, or None when the native
-    library is unavailable.
+    ``batch_qp.QPSolution`` of numpy arrays; a library that fails to build
+    or load raises.
 
     Under a lockstep broker the geometry LPs park and fuse with the other
     scenarios' requests into one OpenMP batch (counters
@@ -821,8 +857,6 @@ def solve_lp_host_batch(c, A, l, u, row_mask, *, tol=1e-7,
     from . import batch_qp
     from ..utils import native
     from ..utils.metrics import METRICS
-    if not native.native_available():
-        return None
     if not _no_broker:
         from ..parallel.lockstep import active_broker
         br = active_broker()

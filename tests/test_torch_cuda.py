@@ -60,6 +60,27 @@ def test_kernel_matches_plain_loop(cuda_device, dtype, kw):
 
 
 @pytest.mark.gpu
+def test_solve_lemke_batch_launches_k1(cuda_device, monkeypatch):
+    """The public solve_lemke_batch on numpy inputs runs on the card (the
+    default device) through K1: one launch a call, the plain loop's status
+    and pivot counts."""
+    monkeypatch.setattr(CONFIG, "device", "cuda")
+    b = scenario_batch_gavis(num_scenarios=16, T=2, num_obj=1,
+                             num_poly_faces=4, seed=0)
+    args = [b[k] for k in ("M", "q", "l", "u", "z0", "mask")]
+    for call in range(2):
+        before = METRICS.launches[KERNEL]
+        res = lemke.solve_lemke_batch(*args)
+        torch.cuda.synchronize()
+        assert METRICS.launches[KERNEL] == before + 1
+        assert res.z.device.type == "cuda"
+    t = [torch.from_numpy(a) for a in args]
+    plain = lemke.solve_lemke_batch(*t)
+    assert torch.equal(res.status.cpu(), plain.status)
+    assert torch.equal(res.pivots.cpu(), plain.pivots)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("max_pivots", [4, 8])
 def test_kernel_pivot_budget(cuda_device, max_pivots):
     t = _data(cuda_device, S=16)

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from qpn_tpu.ops.lemke import (refactor_batch_np,
+                               solve_lemke_batch as ref_solve_lemke_batch,
                                solve_lemke_batch_state as ref_state)
 from qpn_tpu.ops.lemke_pallas import solve_lemke_batch_state_pallas
 
@@ -256,3 +257,55 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
         lemke_cuda._check(init._replace(val=init.val.t().contiguous().t()))
     with pytest.raises(TypeError, match="dtype"):
         lemke_cuda._check(init._replace(T=init.T.half()))
+
+
+# Natural-residual bounds of solve_lemke_batch's z, set from the dtype:
+# f64 pivoting lands ~1e-14; f32 about a thousand ulps at these magnitudes.
+Z_AUDIT = {np.float64: 1e-10, np.float32: 1e-4}
+
+
+def _natural_residual_np(M, q, l, u, z, vm):
+    F = np.einsum("bij,bj->bi", M, z) + q
+    return np.abs(np.where(vm, z - np.clip(z - F, l, u), 0.0)).max(1)
+
+
+@pytest.mark.parametrize("cover", ["viol", "all"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("data", ["psd", "pd_boxes"])
+def test_solve_lemke_batch_matches_reference(data, dtype, cover):
+    """The public (z, status, pivots) view against the JAX package's on
+    seeded lanes: equal status and pivot counts; z audited by natural
+    residual (bases are never compared, ROADMAP queue 3)."""
+    M, q, l, u, vm = (_rand_psd_lcp(16, 10, 0) if data == "psd"
+                      else _random_pd())
+    kw = HOT if dtype == np.float32 else {}
+    args = [a.astype(dtype) for a in (M, q, l, u)] + \
+        [np.zeros(q.shape, dtype), vm]
+    got = lemke.solve_lemke_batch(*args, cover=cover, **kw)
+    want = ref_solve_lemke_batch(*args, cover=cover, **kw)
+    assert isinstance(got, lemke.LemkeResult)
+    assert got.z.dtype == torch.from_numpy(args[1]).dtype
+    assert got.z.device.type == "cpu"
+    np.testing.assert_array_equal(got.status.numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got.pivots.numpy(), np.asarray(want[2]))
+    assert (got.status.numpy() == lemke.LEMKE_SUCCESS).all()
+    res = _natural_residual_np(M, q, l, u, got.z.numpy().astype(float), vm)
+    assert res.max() <= Z_AUDIT[dtype]
+
+
+def test_solve_lemke_batch_follows_the_numeric_device(monkeypatch):
+    """Numpy inputs go to config.numeric_device(): with the card asked for
+    and none here, the call raises; tensors keep their own device."""
+    M, q, l, u, vm = _rand_psd_lcp(4, 6, 1)
+    z0 = np.zeros_like(q)
+    monkeypatch.setattr(CONFIG, "device", "cuda")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CONFIG.device"):
+            lemke.solve_lemke_batch(M, q, l, u, z0, vm)
+    t = [torch.from_numpy(a) for a in (M, q, l, u, z0, vm)]
+    res = lemke.solve_lemke_batch(*t)
+    assert res.z.device.type == "cpu"
+    np.testing.assert_array_equal(res.status.numpy(),
+                                  np.asarray(ref_solve_lemke_batch(
+                                      M, q, l, u, z0, vm)[1]))

@@ -32,7 +32,7 @@ from qpn_tpu_torch.parallel.lockstep import (LockstepBroker, _Request,
                                              active_broker,
                                              solve_many_lockstep)
 from qpn_tpu_torch.utils.metrics import METRICS
-from qpn_tpu_torch.utils.native import native_available
+from qpn_tpu_torch.utils.native import library_path
 
 torch.set_num_threads(1)
 
@@ -252,7 +252,7 @@ def test_host_lp_requests_fuse_and_match_direct():
     """Host-engine geometry LPs park at the broker and fuse into one native
     batch (broker_lp_host_waves / _fused), each worker getting its direct
     call's solution, and the JAX package's."""
-    assert native_available()
+    assert library_path().exists()
     assert ref_native.native_available()
     jobs = _lp_jobs()
     direct = [solve_lp_host_batch(*a) for a in jobs]
@@ -275,7 +275,7 @@ def test_remove_subsets_parks_host_lps():
     and fuse across workers, with the direct path's decisions."""
     from qpn_tpu_torch.geometry.poly import PolyUnion, random_polys_of_dim
     from qpn_tpu_torch.geometry.setops import remove_subsets
-    assert native_available() and CONFIG.support_engine == "host"
+    assert library_path().exists() and CONFIG.support_engine == "host"
 
     def union(seed):
         return PolyUnion(random_polys_of_dim(np.random.default_rng(seed), 6,

@@ -92,14 +92,15 @@ def test_setup_rejects_models_of_later_slices():
 
 
 def test_native_dedupe_matches_reference():
-    """The port builds the JAX package's qpn_host.cpp by path; its row
-    dedup (used while models build their polyhedra) agrees."""
+    """The port builds its own copy of the native host source,
+    ``qpn_tpu_torch/csrc/qpn_host.cpp``; its row dedup (used while models
+    build their polyhedra) agrees with the JAX package's library."""
     rng = np.random.default_rng(0)
     rows = np.round(rng.standard_normal((40, 5)), 3)
     rows[7] = rows[3]
     rows[20] = rows[3] + 1e-9          # equal after 5-digit quantization
     rows[31] = -0.0 * rows[31]
-    assert native.native_available()       # the g++ build of qpn_host.cpp
+    assert native.library_path().exists()  # the g++ build of the port's copy
     assert ref_native.native_available()
     got = native.dedupe_rows_mask(rows)
     np.testing.assert_array_equal(got, ref_native.dedupe_rows_mask(rows))

@@ -18,6 +18,12 @@ loader then only loads a finished file.  If g++ cannot build it, nothing
 is left behind and the loader's own attempt fails as before
 (``tests/test_native.py::test_native_builds`` says so).  The step imports
 neither JAX nor the JAX package; the tests below do.
+
+This concerns the JAX package's library only, which the parity tests load
+as the reference.  The port builds its own copy of the source,
+``qpn_tpu_torch/csrc/qpn_host.cpp``, into ``build/qpn_tpu_torch/`` through
+``utils/cuda_build.build_library`` (a private temporary per process, so no
+race), and raises when that build fails.
 """
 
 import ctypes

@@ -115,6 +115,27 @@ Phases, one line each, with their seconds; any failure exits non-zero:
    wherever the CPU solve runs them (the native library answered them);
    the native library's path, which must lie under ``build/qpn_tpu_torch/``,
    each model's wall on both devices and the kernels' launches.
+20. the kernels' whole domain: lanes past a block's shared memory run in
+   each kernel's global-memory instance.  (a) robust_avoid S=256 at T=4 and
+   T=5 with num_obj=2 (n=152, 190; num_poly_faces=4, seed 0) through
+   ``solve_kkt_avi_batch(tol=1e-8)``: every lane certified, 0 uncertified,
+   the numpy re-audit, at least one launch of K1's global instance a call
+   and none of the shared one; the same calls with the plain loop on the
+   card: equal pivots and certification on all lanes; K1 against the plain
+   loop from one f32 setup on all 256 lanes (status and pivots identical,
+   the refactorized residual and z as in phase 4), solves/s both ways; (b)
+   phase 9's forced stragglers at n=152: ``lemke_escalate`` in K1's global
+   f64 instance, and K1 f64 against the plain loop on 16 lanes; (c) the
+   generic route at T=8, num_obj=2 (n=304, S=256) with the EG pre-pass of
+   phase 8, which runs in K2's global instance: every lane certified, the
+   numpy re-audit, then K2 against the plain loop at 300 and 20000 steps
+   as in phase 7; (d) ``is_empty_batch`` with the screen on for 4 seeded
+   polyhedra of 260 rows in dimension 240 (no strict rows, centred on the
+   origin, every second one empty): the verdicts the truth, at least one
+   launch of K3's global instance, and K3 against the plain loop as in
+   phase 10; (e) each global instance on 8 lanes against the bits of its
+   g++ host instance (K1 f32 at n=190 and f64 at n=152, K2 at n=304 and 300
+   steps, K3 on the 4 polyhedra).
 
 Then one JSON line for the kernels (launches on the main paths, error
 against the plain version, the kernel's, the plain version's and the bound's
@@ -228,6 +249,16 @@ ESCALATION_Z_RTOL = 1e-10
 # its hard seed.
 LARGE = dict(num_scenarios=1024, T=8, num_obj=4, num_poly_faces=4, seed=0)
 HARD = dict(num_scenarios=32, T=8, num_obj=4, num_poly_faces=4, seed=2)
+# Phase 20: the ensembles between the flagship and the shared route, whose
+# lanes pass a block's shared memory (T, num_obj; n = 152 and 190 per lane),
+# the generic route's row for K2's global instance (n = 304), and the
+# polyhedra for K3's (rows, dimension); the lanes held to the host bits.
+MIDSIZE = [(4, 2), (5, 2)]
+MIDSIZE_GENERIC = (8, 2)
+DOMAIN_SCREEN_B, DOMAIN_SCREEN_M, DOMAIN_SCREEN_N = 4, 260, 240
+HOST_BIT_LANES = 8
+# Timed calls of phase 20 (the plain loops take 1-3 s a call there).
+DOMAIN_REPEATS = 3
 SHARED_Z_TOL = 1e-8   # shared route vs KKT path at T=2: one solution
 SHARED_RUNGS = ("shared_kkt_chip_admm_rung", "shared_kkt_admm_escalation",
                 "shared_kkt_generic_escalation")
@@ -342,7 +373,8 @@ def timed_build(build):
     return time.perf_counter() - t0
 
 
-def compare_engines(data, lanes, dtype, kw, kernel, device):
+def compare_engines(data, lanes, dtype, kw, kernel, device,
+                    repeats=REPEATS):
     """Kernel vs plain pivot loop on the same setup: status and pivot counts
     equal on every lane, refactorized residual and z within tolerance.
     Returns (max |z_kernel - z_plain|, kernel s, plain s, kernel result,
@@ -375,8 +407,9 @@ def compare_engines(data, lanes, dtype, kw, kernel, device):
     err = float((zk - zp).abs().max())
     if not err <= Z_TOL:
         fail(f"{dtype}: refactorized z differs by {err!r}")
-    t_k = device_timed(lambda: kernel(init, **kw), device)
-    t_p = device_timed(lambda: lemke.lemke_pivot_torch(init, **kw), device)
+    t_k = device_timed(lambda: kernel(init, **kw), device, repeats)
+    t_p = device_timed(lambda: lemke.lemke_pivot_torch(init, **kw), device,
+                       repeats)
     return err, t_k, t_p, rk, lemke_bound(init, rk)
 
 
@@ -405,10 +438,12 @@ def numpy_audit(batch, z, lanes=None):
     return np.abs(z - np.clip(z - F, l, u)).max(axis=1)
 
 
-def compare_eg(data, device, say, card):
+def compare_eg(data, device, say, card, repeats=REPEATS):
     """Kernel vs plain extragradient loop on all lanes from the same
-    prepared inputs, at 300 and EG_STEPS steps.  Returns (max |dz| at
-    EG_STEPS, kernel s, plain s, the bound of that launch)."""
+    prepared inputs, at 300 and EG_STEPS steps, the kernel timed as the
+    median of ``repeats`` runs (the plain loop at EG_STEPS of at most 3).
+    Returns (max |dz| at EG_STEPS, kernel s, plain s, the bound of that
+    launch)."""
     import torch
     from qpn_tpu_torch.ops import eg, eg_cuda
     from qpn_tpu_torch.ops.avi import natural_residual
@@ -436,19 +471,19 @@ def compare_eg(data, device, say, card):
         if bool(((acc[0] != acc[1]) & ~near).any()):
             fail(f"eg_warmstart {steps} steps: the residual audit accepts "
                  "other lanes for the kernel than for the plain loop")
+        plain_repeats = repeats if steps < EG_STEPS else min(3, repeats)
         t_k = device_timed(lambda: eg_cuda.eg_warmstart_cuda(*ins, steps),
-                           device)
+                           device, repeats)
         t_p = device_timed(lambda: eg.eg_steps_torch(*ins, steps), device,
-                           REPEATS if steps < EG_STEPS else 3)
+                           plain_repeats)
         max_abs = float(dz.max())
         say(f"eg_warmstart B={p.M.shape[0]} n={p.M.shape[1]} steps={steps}: "
             f"max |dz| {max_abs:.3g} ({err:.3g} of the lane scale), residual "
             f"{rerr:.3g} relative, both <= {tol}; accepted lanes "
             f"{int(acc[0].sum())} kernel, {int(acc[1].sum())} plain; median "
             f"residual {float(r0.median()):.3g} -> {float(rk.median()):.3g}; "
-            f"kernel {t_k * 1e3:.4f} ms (median of {REPEATS}), plain "
-            f"{t_p * 1e3:.4f} ms (median of "
-            f"{REPEATS if steps < EG_STEPS else 3}) [{card}]")
+            f"kernel {t_k * 1e3:.4f} ms (median of {repeats}), plain "
+            f"{t_p * 1e3:.4f} ms (median of {plain_repeats}) [{card}]")
     return max_abs, t_k, t_p, eg_bound(ins, zk, EG_STEPS)
 
 
@@ -517,12 +552,13 @@ def generic_path(data, batch, device, z_kkt, say, card):
     return launches
 
 
-def forced_stragglers(data, batch, device, say, card, lanes=16):
+def forced_stragglers(data, batch, device, say, card, lanes=16,
+                      kernel="lemke_pivot"):
     """Far starts and one short budget stage leave the lanes to
-    lemke_escalate, whose f64 pivot loop runs in the Lemke kernel."""
+    lemke_escalate, whose f64 pivot loop runs in the Lemke kernel's
+    instance ``kernel`` (its launch count's name)."""
     import numpy as np
     import torch
-    from qpn_tpu_torch.ops import lemke_cuda
     from qpn_tpu_torch.ops.avi import solve_avi_batch_adaptive
     from qpn_tpu_torch.utils.metrics import METRICS
     M, q, l, u, _, vm = (data[k][:lanes] for k in KEYS)
@@ -534,7 +570,7 @@ def forced_stragglers(data, batch, device, say, card, lanes=16):
                                    budgets=(1,), mixed=True)
     torch.cuda.synchronize(device)
     escalated = int(METRICS.counters["escalated_lanes"])
-    pivots = METRICS.launches[lemke_cuda.KERNEL]
+    pivots = METRICS.launches[kernel]
     conv = res.converged.cpu().numpy()
     if escalated < 1 or pivots < 1:
         fail(f"forced stragglers: {escalated} escalated lanes, {pivots} "
@@ -545,24 +581,24 @@ def forced_stragglers(data, batch, device, say, card, lanes=16):
     resid = numpy_audit(batch, res.z.cpu().numpy(), lanes)
     if not resid[conv].max() <= SOLVE_TOL:
         fail(f"forced stragglers, numpy audit: {resid[conv].max()!r}")
-    say(f"forced stragglers: {lanes} lanes from z0 = {FAR_START:g}*N(0,1), "
-        f"budgets=(1,): {escalated} escalated, {pivots} pivot kernel "
-        f"launch(es) (f64), {int(conv.sum())}/{lanes} certified, max resid "
-        f"{resid[conv].max():.3g} [{card}]")
+    say(f"forced stragglers n={q.shape[1]}: {lanes} lanes from z0 = "
+        f"{FAR_START:g}*N(0,1), budgets=(1,): {escalated} escalated, "
+        f"{pivots} {kernel} launch(es) (f64), {int(conv.sum())}/{lanes} "
+        f"certified, max resid {resid[conv].max():.3g} [{card}]")
 
 
-def screen_batch(B, m, n, seed):
+def screen_batch(B, m, n, seed, centre=0.1):
     """Seeded polyhedra l ≤ Ax ≤ u (no strict rows): A ~ N(0,1), bounds a
-    random width around a centre near the origin, ~30% of the rows one-
-    sided; every odd one made empty by two rows with the same normal and
-    bounds 2 apart.  Returns (polys, empty truth)."""
+    random width around a centre of scale ``centre`` near the origin, ~30%
+    of the rows one-sided; every odd one made empty by two rows with the
+    same normal and bounds 2 apart.  Returns (polys, empty truth)."""
     import numpy as np
     from qpn_tpu_torch.geometry import Poly
     rng = np.random.default_rng(seed)
     polys, truth = [], np.zeros(B, dtype=bool)
     for b in range(B):
         A = rng.standard_normal((m, n))
-        ax = A @ (0.1 * rng.standard_normal(n))
+        ax = A @ (centre * rng.standard_normal(n))
         w = 0.5 + rng.random(m)
         one_sided = rng.random(m) < 0.3
         low_open = one_sided & (rng.random(m) < 0.5)
@@ -1425,6 +1461,261 @@ def multi_device_phase(batch, data, big, res_large, device, say, card):
         f"[{card}]")
 
 
+def host_bits(name, kernel_out, host_out):
+    """Fail unless every output tensor of a kernel equals its host
+    instance's bit for bit."""
+    import torch
+    for i, (k, h) in enumerate(zip(kernel_out, host_out)):
+        if not torch.equal(k.cpu(), h):
+            fail(f"{name}: output {i} differs from the g++ host instance's "
+                 f"on {int((k.cpu() != h).sum())} entries")
+
+
+def midsize_kkt(T, num_obj, device, say, card, repeats):
+    """Phase 20 (a) at one size: the KKT route on the card with K1's global
+    instance, the same calls with the plain loop, and K1 against the plain
+    loop from one f32 setup.  Returns (launches of the global instance, the
+    data and batch, compare_engines' result)."""
+    import numpy as np
+    import torch
+    from qpn_tpu_torch.config import CONFIG
+    from qpn_tpu_torch.models.robust_avoid import scenario_batch_gavis
+    from qpn_tpu_torch.ops import lemke_cuda
+    from qpn_tpu_torch.ops.avi import batch_from_numpy, solve_kkt_avi_batch
+    from qpn_tpu_torch.utils.metrics import METRICS
+    batch = scenario_batch_gavis(num_scenarios=S, T=T, num_obj=num_obj,
+                                 num_poly_faces=FACES, seed=SEED)
+    data = batch_from_numpy(batch)
+    B, n = data["q"].shape
+    args = (data["M"], data["q"], data["l"], data["u"], data["mask"],
+            data["structure"])
+    METRICS.reset()
+    res = solve_kkt_avi_batch(*args, tol=SOLVE_TOL)
+    torch.cuda.synchronize(device)
+    launches = METRICS.launches[lemke_cuda.KERNEL_GLOBAL]
+    shared = METRICS.launches[lemke_cuda.KERNEL]
+    uncertified = METRICS.counters["kkt_uncertified_lanes"]
+    routed = METRICS.counters["kkt_shared_route"]
+    if launches < 1 or shared != 0:
+        fail(f"n={n}: {launches} launches of K1's global instance and "
+             f"{shared} of its shared one in the KKT call")
+    z = res.z.cpu().numpy()
+    conv = float(res.converged.double().mean())
+    if z.shape != (B, n) or not np.isfinite(z).all():
+        fail(f"n={n}: z has shape {z.shape} or non-finite values")
+    if conv != 1.0 or uncertified != 0 or routed != 0:
+        fail(f"n={n}: conv {conv}, {uncertified} uncertified lanes, "
+             f"{routed} lanes on the shared route")
+    resid = numpy_audit(batch, z)
+    if not resid.max() <= SOLVE_TOL:
+        fail(f"n={n}, numpy audit: max natural residual {resid.max()!r}")
+    CONFIG.lemke_kernel = "torch"
+    try:
+        plain = solve_kkt_avi_batch(*args, tol=SOLVE_TOL)
+        t_plain = timed(lambda: solve_kkt_avi_batch(*args, tol=SOLVE_TOL),
+                        device, repeats)
+    finally:
+        CONFIG.lemke_kernel = "auto"
+    if not (torch.equal(plain.iters, res.iters)
+            and torch.equal(plain.converged, res.converged)):
+        bad = int((plain.iters != res.iters).sum())
+        fail(f"n={n}: the plain loop's pivots differ on {bad} lanes")
+    dz = float((plain.z - res.z).abs().max())
+    if not dz <= Z_TOL:
+        fail(f"n={n}: z differs from the plain loop's by {dz!r}")
+    t_kernel = timed(lambda: solve_kkt_avi_batch(*args, tol=SOLVE_TOL),
+                     device, repeats)
+    eng = compare_engines(data, B, torch.float32, HOT,
+                          lemke_cuda.lemke_pivot_cuda, device, repeats)
+    err, t_k, t_p, rk, bnd = eng
+    piv = res.iters.double()
+    say(f"midsize KKT robust_avoid S={B} T={T} num_obj={num_obj} n={n}: "
+        f"conv {conv}, max resid {resid.max():.3g}, {int(uncertified)} "
+        f"uncertified, {launches} launch(es) of {lemke_cuda.KERNEL_GLOBAL}; "
+        f"pivots {int(piv.min())}-{int(piv.max())} equal to the plain "
+        f"loop's on all lanes, z within {dz:.3g}; {B / t_kernel:.1f} "
+        f"solves/s with the kernel ({t_kernel * 1e3:.3f} ms), "
+        f"{B / t_plain:.1f} with the plain loop ({t_plain * 1e3:.3f} ms), "
+        f"median of {repeats}; f32 pivot loop alone: status and pivots "
+        f"identical, max |dz| {err:.3g}, kernel {t_k * 1e3:.4f} ms, plain "
+        f"{t_p * 1e3:.4f} ms, bound {bnd[0]:.5f} ms by {bnd[1]} [{card}]")
+    return launches, data, batch, eng
+
+
+def k1_global_host_bits(data, dtype, kw, say, label):
+    """K1's global instance on HOST_BIT_LANES lanes against its host
+    instance, bit for bit."""
+    from qpn_tpu_torch.ops import lemke, lemke_cuda
+    M, q, l, u, z0, vm = (data[k][:HOST_BIT_LANES] for k in KEYS)
+    init = lemke.lemke_setup(*(a.to(dtype) for a in (M, q, l, u, z0)), vm,
+                             tol=kw["tol"])
+    n = q.shape[1]
+    if lemke_cuda.host_lane_instance(n, init.T.element_size(),
+                                     lemke_cuda.card_optin(q.device)
+                                     ) != lemke_cuda.LANE_GLOBAL:
+        fail(f"K1 {label}: n={n} does not take the global instance")
+    rk = lemke_cuda.lemke_pivot_cuda(init, **kw)
+    rh = lemke_cuda.lemke_pivot_host(lemke.LemkeInit(*(a.cpu() for a in
+                                                       init)), **kw)
+    host_bits(f"K1 global {label}", [rk.status, rk.piv, rk.basis, rk.val,
+                                     rk.xB],
+              [rh.status, rh.piv, rh.basis, rh.val, rh.xB])
+    say(f"K1 global {label} n={n}: status, pivots, basis, values and basic "
+        f"values equal to the g++ host instance's bit for bit on "
+        f"{HOST_BIT_LANES} lanes")
+
+
+def midsize_generic(device, say, card):
+    """Phase 20 (c): the generic route at n=304 with the EG pre-pass in K2's
+    global instance; then K2 against the plain loop and its host bits.
+    Returns (launches, compare_eg's (err, kernel s, plain s, bound))."""
+    import numpy as np
+    import torch
+    from qpn_tpu_torch.models.robust_avoid import scenario_batch_gavis
+    from qpn_tpu_torch.ops import eg, eg_cuda
+    from qpn_tpu_torch.ops.avi import batch_from_numpy, solve_avi_batch_adaptive
+    from qpn_tpu_torch.utils.metrics import METRICS
+    T, num_obj = MIDSIZE_GENERIC
+    batch = scenario_batch_gavis(num_scenarios=S, T=T, num_obj=num_obj,
+                                 num_poly_faces=FACES, seed=SEED)
+    data = batch_from_numpy(batch)
+    args = [data[k] for k in KEYS]
+    B, n = data["q"].shape
+    kw = dict(tol=SOLVE_TOL, mixed=True, onchip_eg_steps=EG_STEPS)
+    METRICS.reset()
+    t0 = time.perf_counter()
+    res = solve_avi_batch_adaptive(*args, **kw)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = METRICS.launches[eg_cuda.KERNEL_GLOBAL]
+    shared = METRICS.launches[eg_cuda.KERNEL]
+    accepted = int(METRICS.counters["eg_accepted_lanes"])
+    escalated = int(METRICS.counters["escalated_lanes"])
+    if launches < 1 or shared != 0:
+        fail(f"generic n={n}: {launches} launches of K2's global instance, "
+             f"{shared} of the others")
+    z = res.z.cpu().numpy()
+    conv = float(res.converged.double().mean())
+    if z.shape != (B, n) or not np.isfinite(z).all() or conv != 1.0:
+        fail(f"generic n={n}: z shape {z.shape}, conv {conv}")
+    resid = numpy_audit(batch, z)
+    if not resid.max() <= SOLVE_TOL:
+        fail(f"generic n={n}, numpy audit: max natural residual "
+             f"{resid.max()!r}")
+    say(f"midsize generic solve_avi_batch_adaptive S={B} T={T} "
+        f"num_obj={num_obj} n={n} mixed=True onchip_eg_steps={EG_STEPS}: "
+        f"conv {conv}, max resid {resid.max():.3g}, {launches} launch(es) "
+        f"of {eg_cuda.KERNEL_GLOBAL}, EG accepted on {accepted}/{B} lanes, "
+        f"{escalated} escalated; {wall:.3f} s (first call) [{card}]")
+    p = eg.eg_prepare(*(a[:HOST_BIT_LANES] for a in args))
+    ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
+    optin = eg_cuda.card_optin(device)
+    if eg_cuda.host_instance(n, optin) != eg_cuda.EG_GLOBAL:
+        fail(f"K2: n={n} does not take the global instance")
+    zk = eg_cuda.eg_warmstart_cuda(*ins, 300)
+    zh = eg_cuda.eg_steps_host(*(a.cpu() for a in ins), 300, optin=optin)
+    host_bits("K2 global", [zk], [zh])
+    say(f"K2 global n={n}: z after 300 steps equal to the g++ host "
+        f"instance's bit for bit on {HOST_BIT_LANES} lanes")
+    return launches, compare_eg(data, device, say, card,
+                                repeats=DOMAIN_REPEATS)
+
+
+def midsize_screen(device, say, card):
+    """Phase 20 (d): is_empty_batch on polyhedra past shared memory, K3
+    against the plain loop and its host bits.  Returns (launches,
+    compare_screen's result)."""
+    import numpy as np
+    import torch
+    from qpn_tpu_torch.config import CONFIG
+    from qpn_tpu_torch.geometry import is_empty_batch
+    from qpn_tpu_torch.geometry.query_cache import CACHE
+    from qpn_tpu_torch.ops import screen, screen_cuda
+    from qpn_tpu_torch.utils.metrics import METRICS
+    B, m, n = DOMAIN_SCREEN_B, DOMAIN_SCREEN_M, DOMAIN_SCREEN_N
+    polys, truth = screen_batch(B, m, n, SEED, centre=0.0)
+    CONFIG.use_screen = True
+    try:
+        CACHE.clear()
+        METRICS.reset()
+        t0 = time.perf_counter()
+        verdict = is_empty_batch(polys)
+        wall = time.perf_counter() - t0
+        launches = METRICS.launches[screen_cuda.KERNEL_GLOBAL]
+        shared = METRICS.launches[screen_cuda.KERNEL]
+        witnessed = int(METRICS.counters["screen_witnessed"])
+        lps = int(METRICS.counters["lp_host"])
+    finally:
+        CONFIG.use_screen = None
+        CACHE.clear()
+    if not np.array_equal(verdict, truth):
+        fail(f"is_empty_batch {m} x {n}: {int((verdict != truth).sum())} "
+             "verdicts differ from the truth")
+    if launches < 1 or shared != 0:
+        fail(f"is_empty_batch {m} x {n}: {launches} launches of K3's global "
+             f"instance, {shared} of the others")
+    say(f"geometry is_empty_batch B={B} m={m} n={n}: verdicts the truth "
+        f"({int(truth.sum())} empty), {launches} launch(es) of "
+        f"{screen_cuda.KERNEL_GLOBAL}, {witnessed} witnessed, {lps} host "
+        f"LPs, {wall:.3f} s [{card}]")
+    ins = [torch.as_tensor(a, device=device)
+           for a in screen.screen_prepare(polys)]
+    optin = screen_cuda.card_optin(device)
+    if screen_cuda.host_instance(m, n, optin) != screen_cuda.SCREEN_GLOBAL:
+        fail(f"K3: {m} x {n} does not take the global instance")
+    xk, vk = screen_cuda.feasibility_screen_cuda(*ins, SCREEN_STEPS,
+                                                 SCREEN_LR)
+    xh, vh = screen_cuda.screen_steps_host(*(a.cpu() for a in ins),
+                                           SCREEN_STEPS, SCREEN_LR,
+                                           optin=optin)
+    host_bits("K3 global", [xk, vk], [xh, vh])
+    say(f"K3 global {m} x {n}: x and max |v| equal to the g++ host "
+        f"instance's bit for bit on {B} polyhedra")
+    return launches, compare_screen(polys, truth, device, say, card,
+                                    "past shared memory")
+
+
+def domain_phase(device, say, card):
+    """Phase 20: every kernel's global-memory instance on the normal entry
+    points.  Returns the three kernel rows of the JSON line."""
+    import torch
+    from qpn_tpu_torch.ops import eg_cuda, lemke_cuda, screen_cuda
+    rows = {}
+    for i, (T, num_obj) in enumerate(MIDSIZE):
+        last = i == len(MIDSIZE) - 1
+        launches, data, batch, eng = midsize_kkt(T, num_obj, device, say,
+                                                 card, DOMAIN_REPEATS)
+        if i == 0:
+            # (b) the forced stragglers at n=152, in the global f64 instance
+            forced_stragglers(data, batch, device, say, card,
+                              kernel=lemke_cuda.KERNEL_GLOBAL)
+            err64, t_k64, t_p64, _, _ = compare_engines(
+                data, 16, torch.float64, F64, lemke_cuda.lemke_pivot_cuda,
+                device, DOMAIN_REPEATS)
+            say(f"lemke_pivot_global f64 B=16 n={data['q'].shape[1]}: "
+                f"status and pivots identical, max |dz| {err64:.3g}; kernel "
+                f"{t_k64 * 1e3:.4f} ms, plain {t_p64 * 1e3:.4f} ms [{card}]")
+            k1_global_host_bits(data, torch.float64, F64, say, "f64")
+        if last:
+            k1_global_host_bits(data, torch.float32, HOT, say, "f32")
+            err, t_k, t_p, _, bnd = eng
+            rows["k1"] = kernel_row(
+                lemke_cuda.KERNEL_GLOBAL, "qpn_tpu_torch/csrc/lemke_pivot.cu",
+                "qpn_tpu/ops/lemke_pallas.py:118", launches, err, t_k, t_p,
+                bnd)
+    launches, (err, t_k, t_p, bnd) = midsize_generic(device, say, card)
+    rows["k2"] = kernel_row(eg_cuda.KERNEL_GLOBAL,
+                            "qpn_tpu_torch/csrc/eg_warmstart.cu",
+                            "qpn_tpu/ops/pallas_kernels.py:57", launches, err,
+                            t_k, t_p, bnd)
+    launches, (err, t_k, t_p, bnd) = midsize_screen(device, say, card)
+    rows["k3"] = kernel_row(screen_cuda.KERNEL_GLOBAL,
+                            "qpn_tpu_torch/csrc/screen.cu",
+                            "qpn_tpu/ops/pallas_kernels.py:205", launches,
+                            err, t_k, t_p, bnd)
+    return [rows["k1"], rows["k2"], rows["k3"]]
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "qpn_tpu_torch")):
         fail("the qpn_tpu_torch package is not next to chip_smoke.py")
@@ -1511,6 +1802,8 @@ def main() -> None:
     uncertified = METRICS.counters["kkt_uncertified_lanes"]
     if launches < 1:
         fail("the main path did not launch the lemke_pivot kernel")
+    if METRICS.launches[lemke_cuda.KERNEL_GLOBAL] != 0:
+        fail("the flagship's lanes took K1's global instance")
     z = res.z.cpu().numpy()
     conv = float(res.converged.double().mean())
     if z.shape != (B, n) or not np.isfinite(z).all():
@@ -1591,6 +1884,9 @@ def main() -> None:
     # 19. the six models outside the zoo, on the card and on the CPU
     solve_rest(device, say, card)
 
+    # 20. lanes past shared memory: each kernel's global instance
+    domain_rows = domain_phase(device, say, card)
+
     if CONFIG.device != "cuda":
         fail(f"CONFIG.device was left at {CONFIG.device!r}")
     print(json.dumps({"kernels": [
@@ -1602,7 +1898,8 @@ def main() -> None:
                    t_eg, t_eg_plain, eg_bnd),
         kernel_row(screen_cuda.KERNEL, "qpn_tpu_torch/csrc/screen.cu",
                    "qpn_tpu/ops/pallas_kernels.py:205", scr_launches,
-                   scr_err, t_scr, t_scr_plain, scr_bnd)]}))
+                   scr_err, t_scr, t_scr_plain, scr_bnd),
+        *domain_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

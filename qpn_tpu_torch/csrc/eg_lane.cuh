@@ -17,8 +17,9 @@
 //     of the row in registers for all steps, reads z from shared memory
 //     and joins with xor shuffles;
 //   * eg_row_sum: a loop over the same partition and the same butterfly,
-//     for the host instance.  The generic kernel's partition is (1, n): one
-//     chunk, plain column order (eg_row).
+//     for the host instance.  The generic kernels' partition is (1, n): one
+//     chunk, plain column order (eg_row), whether the lane's M sits in
+//     shared memory or stays in device memory (eg_instance picks).
 // Floating-point addition commutes, so every thread of a group ends the
 // butterfly with the same bits, and the loop reproduces them.
 //
@@ -115,45 +116,87 @@ QPN_EG_HD float eg_row_sum(const float* Mi, const float* x, int n, int C) {
     return part[0];
 }
 
-// ---- the lane in memory: the generic kernel and the host instance -------
+// ---- the lane in memory: the generic kernels and the host instance ------
 
-// One lane's working set (shared memory on the card).  The matrix rows are
-// ld = n | 1 floats apart: an odd stride puts the rows that neighbouring
-// threads read on different banks.
+// One lane's working set.  In the shared instance all of it sits in shared
+// memory, the rows of M ld = n | 1 floats apart (an odd stride puts the rows
+// that neighbouring threads read on different banks).  In the global
+// instance, for lanes whose M does not fit, M stays where the batch holds it
+// in device memory (ld = n) and is read every half-step; q, l, u, z and z½
+// sit in shared memory.  The sums read M through `M` either way.
 struct EGLane {
     int n, ld;
-    float* M;    // (n, ld)
-    float* q;    // (n)
+    const float* M;  // (n, ld)
+    float* Ms;       // the shared copy of M that eg_lane_load fills, or null
+    float* q;        // (n)
     float* l;
     float* u;
     float* z;
-    float* zh;   // z½
+    float* zh;       // z½
 };
 
 QPN_EG_HD int eg_ld(int n) { return n | 1; }
 
+// Shared memory of the shared instance's lane, and of the global one's.
 QPN_EG_HD size_t eg_lane_bytes(int n) {
     return ((size_t)n * eg_ld(n) + 5 * (size_t)n) * sizeof(float);
+}
+
+QPN_EG_HD size_t eg_global_lane_bytes(int n) {
+    return 5 * (size_t)n * sizeof(float);
+}
+
+QPN_EG_HD void eg_carve_vectors(EGLane& L, float* base) {
+    L.q = base;
+    L.l = L.q + L.n;
+    L.u = L.l + L.n;
+    L.z = L.u + L.n;
+    L.zh = L.z + L.n;
 }
 
 QPN_EG_HD EGLane eg_lane_carve(float* base, int n) {
     EGLane L;
     L.n = n;
     L.ld = eg_ld(n);
+    L.Ms = base;
     L.M = base;
-    L.q = L.M + (size_t)n * L.ld;
-    L.l = L.q + n;
-    L.u = L.l + n;
-    L.z = L.u + n;
-    L.zh = L.z + n;
+    eg_carve_vectors(L, base + (size_t)n * L.ld);
     return L;
+}
+
+// Lane b of the batch in the global instance: M read in place.
+QPN_EG_HD EGLane eg_lane_carve_global(const EGBatch& bt, size_t b,
+                                      float* base) {
+    EGLane L;
+    L.n = bt.n;
+    L.ld = bt.n;
+    L.Ms = nullptr;
+    L.M = bt.M + b * (size_t)bt.n * bt.n;
+    eg_carve_vectors(L, base);
+    return L;
+}
+
+// The kernel that takes rows of n columns: the register kernel where an
+// instance of it does (eg_pick_chunk), else the generic kernel with the
+// lane in shared memory while eg_lane_bytes(n) fits the block's opt-in
+// limit `smem_optin` (232448 bytes on an H100: n up to 238), else the
+// generic kernel with M in device memory.  A choice by shape alone.
+enum { EG_REGISTER = 0, EG_SHARED = 1, EG_GLOBAL = 2 };
+
+QPN_EG_HD int eg_instance(int n, long long smem_optin) {
+    if (eg_pick_chunk(n) != 0) return EG_REGISTER;
+    return smem_optin >= 0 && eg_lane_bytes(n) <= (size_t)smem_optin
+               ? EG_SHARED
+               : EG_GLOBAL;
 }
 
 QPN_EG_HD void eg_lane_load(const EGLane& L, const EGBatch& bt, size_t b,
                             int tid, int nthr) {
     const int n = L.n;
     const float* Mb = bt.M + b * (size_t)n * n;
-    for (int k = tid; k < n * n; k += nthr) L.M[(k / n) * L.ld + k % n] = Mb[k];
+    if (L.Ms != nullptr)
+        for (int k = tid; k < n * n; k += nthr)
+            L.Ms[(k / n) * L.ld + k % n] = Mb[k];
     for (int i = tid; i < n; i += nthr) {
         L.q[i] = bt.q[b * n + i];
         L.l[i] = bt.l[b * n + i];

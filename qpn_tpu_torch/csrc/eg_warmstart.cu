@@ -23,16 +23,23 @@
 // G = 4 (eg_lane.cuh::kEgGroup; 8 threads a row measured no faster on an
 // H100), and the launcher picks the instance's C from n
 // (eg_lane.cuh::eg_pick_chunk).  Rows beyond the instances (n > 128) take
-// the generic kernel: one thread per row, the matrix in dynamic shared
-// memory, every row summed in column order.
+// the generic kernel: one thread per row, every row summed in column order,
+// the matrix in dynamic shared memory (the shared instance, n up to 238 on
+// an H100), or, where it does not fit, read in place from device memory
+// every half-step with z, z½, q, l and u in shared memory (the global
+// instance: bound by the bytes of M it streams, n² floats a half-step a
+// lane, through L1 and L2).  The wrapper picks the instance from n and the
+// card's opt-in limit (eg_lane.cuh::eg_instance) before the launch.
 //
 // The order of every sum is defined in eg_lane.cuh, where a loop walks the
 // same partition for the host instance.  Built with nvcc -O3 -fmad=false,
 // no fast math (utils/cuda_build.py), so each product and sum rounds
 // separately, as in the plain PyTorch version.
 //
-// C interface (ctypes): qpn_eg_warmstart_f32 returns 0 or a cudaError_t, or
-// QPN_ERR_SMEM when the lane does not fit in shared memory.
+// C interface (ctypes): qpn_eg_warmstart_f32 (the register kernel or the
+// shared instance, picked from n) and qpn_eg_warmstart_global_f32 return 0
+// or a cudaError_t; qpn_eg_instance is the pure choice, qpn_eg_smem_optin
+// the current card's limit.
 
 #include <cuda_runtime.h>
 
@@ -41,14 +48,16 @@
 namespace {
 
 constexpr int kGenericMaxThreads = 256;
-constexpr int QPN_ERR_SMEM = -1;
 constexpr int G = qpn::kEgGroup;
 
+// kGlobal: M read in place from device memory, else copied to shared memory.
+template <bool kGlobal>
 __global__ void __launch_bounds__(kGenericMaxThreads)
 eg_generic_kernel(qpn::EGBatch bt) {
     extern __shared__ __align__(16) float smem[];
-    const qpn::EGLane L = qpn::eg_lane_carve(smem, bt.n);
     const size_t b = blockIdx.x;
+    const qpn::EGLane L = kGlobal ? qpn::eg_lane_carve_global(bt, b, smem)
+                                  : qpn::eg_lane_carve(smem, bt.n);
     qpn::eg_lane_load(L, bt, b, threadIdx.x, blockDim.x);
     qpn::eg_lane_run<1>(L, bt.tau[b], bt.steps, bt.n, threadIdx.x,
                         blockDim.x);
@@ -108,22 +117,19 @@ int launch_register(const qpn::EGBatch& bt, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
-int launch_generic(const qpn::EGBatch& bt, cudaStream_t stream) {
+int generic_threads(int n) {
+    const int threads = (n + 31) / 32 * 32;
+    return threads > kGenericMaxThreads ? kGenericMaxThreads : threads;
+}
+
+int launch_shared(const qpn::EGBatch& bt, cudaStream_t stream) {
     const size_t bytes = qpn::eg_lane_bytes(bt.n);
-    int dev = 0, optin = 0;
-    cudaError_t e = cudaGetDevice(&dev);
+    cudaError_t e = cudaFuncSetAttribute(
+        eg_generic_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
     if (e != cudaSuccess) return e;
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-    if (e != cudaSuccess) return e;
-    if (bytes > (size_t)optin) return QPN_ERR_SMEM;
-    e = cudaFuncSetAttribute(eg_generic_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-    if (e != cudaSuccess) return e;
-    int threads = (bt.n + 31) / 32 * 32;
-    if (threads > kGenericMaxThreads) threads = kGenericMaxThreads;
-    eg_generic_kernel<<<bt.B, threads, bytes, stream>>>(bt);
+    eg_generic_kernel<false>
+        <<<bt.B, generic_threads(bt.n), bytes, stream>>>(bt);
     return cudaGetLastError();
 }
 
@@ -135,7 +141,19 @@ int launch(const qpn::EGBatch& bt, cudaStream_t stream) {
     case 16: return launch_register<16>(bt, stream);
     case 32: return launch_register<32>(bt, stream);
     }
-    return launch_generic(bt, stream);
+    return launch_shared(bt, stream);
+}
+
+int launch_global(const qpn::EGBatch& bt, cudaStream_t stream) {
+    if (bt.B <= 0 || bt.n <= 0) return 0;
+    const size_t bytes = qpn::eg_global_lane_bytes(bt.n);
+    cudaError_t e = cudaFuncSetAttribute(
+        eg_generic_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (e != cudaSuccess) return e;
+    eg_generic_kernel<true>
+        <<<bt.B, generic_threads(bt.n), bytes, stream>>>(bt);
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -146,8 +164,23 @@ int qpn_eg_warmstart_f32(QPN_EG_PARAMS, void* stream) {
     return launch(QPN_EG_BATCH, (cudaStream_t)stream);
 }
 
-long long qpn_eg_lane_bytes(int n) {
-    return (long long)qpn::eg_lane_bytes(n);
+int qpn_eg_warmstart_global_f32(QPN_EG_PARAMS, void* stream) {
+    return launch_global(QPN_EG_BATCH, (cudaStream_t)stream);
+}
+
+int qpn_eg_instance(int n, long long smem_optin) {
+    return qpn::eg_instance(n, smem_optin);
+}
+
+// The shared memory a block can opt into on the current card, or minus a
+// cudaError_t.
+long long qpn_eg_smem_optin(void) {
+    int dev = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    return e == cudaSuccess ? (long long)optin : -(long long)e;
 }
 
 const char* qpn_eg_error_string(int code) {

@@ -26,6 +26,12 @@
 // Rows of the tableau are W | 1 elements apart (lane_stride): an odd stride
 // puts the rows that neighbouring threads read on different banks.
 //
+// The lane's working set is carved by lane_carve from any 16-byte aligned
+// buffer: the block's dynamic shared memory while lane_bytes(n) fits the
+// block's opt-in limit, else a lane of a device-memory workspace
+// (lane_instance picks; the barriers order global memory for the block as
+// they order shared memory).  The functions below do not know which.
+//
 // Semantics follow the JAX package's pivot loop lane for lane
 // (qpn_tpu/ops/lemke.py::_lemke_single, qpn_tpu/ops/lemke_pallas.py):
 //   * the iteration counter starts at 1; the loop runs while it is below
@@ -225,7 +231,7 @@ struct LaneCtl {
 #endif
 };
 
-// One lane's working set (shared memory on the card).
+// One lane's working set (shared or device memory on the card).
 template <typename T>
 struct Lane {
     int n, ld;   // ld: elements between tableau rows
@@ -289,6 +295,21 @@ QPN_HD Lane<T> lane_carve(unsigned char* base, int n) {
     L.basis = reinterpret_cast<int*>(rest);
     L.clist = reinterpret_cast<int*>(rest + lk_align16((size_t)n * sizeof(int)));
     return L;
+}
+
+// Where a lane's working set lives on the card: LANE_SHARED, the block's
+// dynamic shared memory, while lane_bytes(n) fits the block's opt-in limit
+// `smem_optin` (232448 bytes on an H100: f32 up to n = 135, f64 up to
+// n = 94); else LANE_GLOBAL, lane_bytes(n) bytes of a device-memory
+// workspace a lane (a multiple of 16, so every lane stays 16-byte aligned).
+// A choice by shape alone, made before the launch.
+enum { LANE_SHARED = 0, LANE_GLOBAL = 1 };
+
+QPN_HD int lane_instance(int n, int itemsize, long long smem_optin) {
+    const size_t bytes = itemsize == 4 ? lane_bytes<float>(n)
+                                       : lane_bytes<double>(n);
+    return smem_optin >= 0 && bytes <= (size_t)smem_optin ? LANE_SHARED
+                                                          : LANE_GLOBAL;
 }
 
 template <typename T>

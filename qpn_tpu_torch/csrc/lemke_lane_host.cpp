@@ -1,7 +1,8 @@
 // Host instance of the Lemke pivot kernel's lane code (lemke_lane.cuh),
 // built with plain g++ and loaded with ctypes by the CPU tests: each lane
 // runs the same step functions as a thread block on the card, as thread 0
-// of 1 with no-op barriers.  Not on any production path.
+// of 1 with no-op barriers, on a lane carved by the same lane_carve as both
+// of the card's instances.  Not on any production path.
 
 #include <vector>
 
@@ -51,5 +52,16 @@ int qpn_lk_scan_ties_f64(const double* theta, const int* tag, int n,
 }
 
 int qpn_lemke_lane_stride(int n) { return qpn::lane_stride(n); }
+
+// The instance the card's launcher picks for a lane (lemke_lane.cuh), and
+// the bytes of its working set: the same functions as the CUDA library's.
+int qpn_lemke_lane_instance(int n, int itemsize, long long smem_optin) {
+    return qpn::lane_instance(n, itemsize, smem_optin);
+}
+
+long long qpn_lemke_lane_bytes(int n, int itemsize) {
+    return itemsize == 4 ? (long long)qpn::lane_bytes<float>(n)
+                         : (long long)qpn::lane_bytes<double>(n);
+}
 
 }  // extern "C"

@@ -7,8 +7,8 @@
 //
 // Design: one thread block of 256 threads per lane, a grid of B blocks.
 // The lane's tableau (n, 3n+2) and its bookkeeping live in dynamic shared
-// memory for the whole path (f32 at n=38: about 20 KB; up to n of about 130
-// in f32 fits the 227 KB a block can opt into), rows an odd number of
+// memory for the whole path (f32 at n=38: about 20 KB; up to n = 135 in
+// f32 and 94 in f64 fits the 227 KB a block can opt into), rows an odd number of
 // elements apart.  A pivot is four phases between barriers
 // (lemke_lane.cuh): basic values and the ratio test, each row's sum split
 // over four threads of a warp; the decision by the first warp, as scans
@@ -30,11 +30,23 @@
 // conflict between a warp's rows, and loads batched ahead of the stores
 // that may alias them.
 //
+// Two instances of that design, picked by the wrapper from the shape alone
+// (lemke_lane.cuh::lane_instance against the card's opt-in limit): the
+// shared instance above, and for lanes that do not fit (f32 n >= 136, f64
+// n >= 95 on an H100) the global instance, the same block and phases on a
+// lane carved from a device-memory workspace that the wrapper allocates
+// (lane_bytes(n) a lane; f32 at n=190 about 0.44 MB).  Its tableau is read
+// and written through L1 and L2 every pivot, so it is bound by memory
+// traffic where the shared instance is bound by latency; it is the first
+// design for such lanes, not a tuned one.
+//
 // Templated on float (the hot f32 tier) and double (the straggler re-pivot).
 // Built with nvcc -O3 -fmad=false, no fast math (utils/cuda_build.py).
 //
-// C interface (ctypes): qpn_lemke_pivot_f32 / _f64 return 0 or a
-// cudaError_t, or QPN_ERR_SMEM when the lane does not fit in shared memory.
+// C interface (ctypes): qpn_lemke_pivot_f32 / _f64 (the shared instance)
+// and qpn_lemke_pivot_global_f32 / _f64 (the global instance, given its
+// workspace) return 0 or a cudaError_t; qpn_lemke_lane_instance is the pure
+// choice, qpn_lemke_smem_optin the current card's limit.
 
 #include <cuda_runtime.h>
 
@@ -43,14 +55,17 @@
 namespace {
 
 constexpr int kThreads = 256;   // a multiple of 32 and of qpn::kLemkeSplit
-constexpr int QPN_ERR_SMEM = -1;
 
-template <typename T>
+// One block a lane; kGlobal: the lane's working set is lane b of the
+// device-memory workspace, else the block's dynamic shared memory.
+template <typename T, bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
-lemke_pivot_kernel(qpn::LemkeBatch<T> bt) {
+lemke_pivot_kernel(qpn::LemkeBatch<T> bt, unsigned char* workspace) {
     extern __shared__ __align__(16) unsigned char smem[];
-    const qpn::Lane<T> L = qpn::lane_carve<T>(smem, bt.n);
     const size_t b = blockIdx.x;
+    unsigned char* base =
+        kGlobal ? workspace + b * qpn::lane_bytes<T>(bt.n) : smem;
+    const qpn::Lane<T> L = qpn::lane_carve<T>(base, bt.n);
     qpn::lane_load(L, bt, b, threadIdx.x, kThreads);
     qpn::lane_run(L, threadIdx.x, kThreads, bt.tol, bt.piv_tol,
                   bt.max_pivots);
@@ -58,21 +73,25 @@ lemke_pivot_kernel(qpn::LemkeBatch<T> bt) {
 }
 
 template <typename T>
-int launch(const qpn::LemkeBatch<T>& bt, cudaStream_t stream) {
+int launch_shared(const qpn::LemkeBatch<T>& bt, cudaStream_t stream) {
     if (bt.B <= 0) return 0;
     const size_t bytes = qpn::lane_bytes<T>(bt.n);
-    int dev = 0, optin = 0;
-    cudaError_t e = cudaGetDevice(&dev);
+    cudaError_t e = cudaFuncSetAttribute(
+        lemke_pivot_kernel<T, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-    if (e != cudaSuccess) return e;
-    if (bytes > (size_t)optin) return QPN_ERR_SMEM;
-    e = cudaFuncSetAttribute(lemke_pivot_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-    if (e != cudaSuccess) return e;
-    lemke_pivot_kernel<T><<<bt.B, kThreads, bytes, stream>>>(bt);
+    lemke_pivot_kernel<T, false><<<bt.B, kThreads, bytes, stream>>>(bt,
+                                                                    nullptr);
+    return cudaGetLastError();
+}
+
+template <typename T>
+int launch_global(const qpn::LemkeBatch<T>& bt, void* workspace,
+                  cudaStream_t stream) {
+    if (bt.B <= 0) return 0;
+    if (workspace == nullptr) return cudaErrorInvalidValue;
+    lemke_pivot_kernel<T, true><<<bt.B, kThreads, 0, stream>>>(
+        bt, static_cast<unsigned char*>(workspace));
     return cudaGetLastError();
 }
 
@@ -81,16 +100,44 @@ int launch(const qpn::LemkeBatch<T>& bt, cudaStream_t stream) {
 extern "C" {
 
 int qpn_lemke_pivot_f32(QPN_LEMKE_PARAMS(float), void* stream) {
-    return launch(QPN_LEMKE_BATCH(float), (cudaStream_t)stream);
+    return launch_shared(QPN_LEMKE_BATCH(float), (cudaStream_t)stream);
 }
 
 int qpn_lemke_pivot_f64(QPN_LEMKE_PARAMS(double), void* stream) {
-    return launch(QPN_LEMKE_BATCH(double), (cudaStream_t)stream);
+    return launch_shared(QPN_LEMKE_BATCH(double), (cudaStream_t)stream);
+}
+
+// workspace: B * qpn_lemke_lane_bytes(n, itemsize) bytes of device memory
+int qpn_lemke_pivot_global_f32(QPN_LEMKE_PARAMS(float), void* workspace,
+                               void* stream) {
+    return launch_global(QPN_LEMKE_BATCH(float), workspace,
+                         (cudaStream_t)stream);
+}
+
+int qpn_lemke_pivot_global_f64(QPN_LEMKE_PARAMS(double), void* workspace,
+                               void* stream) {
+    return launch_global(QPN_LEMKE_BATCH(double), workspace,
+                         (cudaStream_t)stream);
 }
 
 long long qpn_lemke_lane_bytes(int n, int itemsize) {
     return itemsize == 4 ? (long long)qpn::lane_bytes<float>(n)
                          : (long long)qpn::lane_bytes<double>(n);
+}
+
+int qpn_lemke_lane_instance(int n, int itemsize, long long smem_optin) {
+    return qpn::lane_instance(n, itemsize, smem_optin);
+}
+
+// The shared memory a block can opt into on the current card, or minus a
+// cudaError_t.
+long long qpn_lemke_smem_optin(void) {
+    int dev = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    return e == cudaSuccess ? (long long)optin : -(long long)e;
 }
 
 const char* qpn_cuda_error_string(int code) {

@@ -25,14 +25,22 @@
 //   entries).  No block barrier anywhere; max |v| by a shuffle butterfly.
 // * larger polyhedra, the generic kernel: one thread block per polyhedron,
 //   A (odd row stride), l, u, v and x in dynamic shared memory, a thread per
-//   row, then per column, a block barrier after each phase.
+//   row, then per column, a block barrier after each phase.  Where A does
+//   not fit (m = n above 238 on an H100), its global instance: the same
+//   phases with A read in place from device memory every phase (bound by
+//   those bytes, through L1 and L2), l, u, v and x in shared memory.
+//
+// The wrapper picks the instance from the shape and the card's opt-in limit
+// (screen_lane.cuh::screen_instance) before the launch.
 //
 // Built with nvcc -O3 -fmad=false, no fast math (utils/cuda_build.py), so
 // each product and sum rounds separately, as in the plain PyTorch version,
 // and both kernels sum in the order of the g++ host instance.
 //
-// C interface (ctypes): qpn_screen_f32 returns 0 or a cudaError_t, or
-// QPN_ERR_SMEM when a polyhedron does not fit in shared memory.
+// C interface (ctypes): qpn_screen_f32 (the warp kernel or the generic
+// kernel's shared instance, picked from the shape) and qpn_screen_global_f32
+// return 0 or a cudaError_t; qpn_screen_instance is the pure choice,
+// qpn_screen_smem_optin the current card's limit.
 
 #include <cuda_runtime.h>
 
@@ -40,16 +48,9 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;
+constexpr int kMaxThreads = 256;   // qpn::screen_block_threads' ceiling
 constexpr int kWarps = 4;           // polyhedra in a block of the warp kernel
-constexpr int QPN_ERR_SMEM = -1;
 constexpr unsigned kFullMask = 0xffffffffu;
-
-int block_threads(int m, int n) {
-    const int work = m > n ? m : n;
-    int threads = (work + 31) / 32 * 32;
-    return threads > kMaxThreads ? kMaxThreads : threads;
-}
 
 template <int MC, int NC>
 __global__ void __launch_bounds__(kWarps * qpn::kScreenWarp)
@@ -103,14 +104,32 @@ cudaError_t launch_warp(const qpn::ScreenBatch& bt, cudaStream_t stream) {
 using WarpLaunch = cudaError_t (*)(const qpn::ScreenBatch&, cudaStream_t);
 const WarpLaunch kWarpLaunch[8][8] = QPN_SCREEN_TABLE(launch_warp);
 
+// kGlobal: A read in place from device memory, else copied to shared memory.
+template <bool kGlobal>
 __global__ void __launch_bounds__(kMaxThreads)
 screen_kernel(qpn::ScreenBatch bt) {
     extern __shared__ __align__(16) float smem[];
-    const qpn::ScreenLane L = qpn::screen_lane_carve(smem, bt.m, bt.n);
     const size_t b = blockIdx.x;
+    const qpn::ScreenLane L =
+        kGlobal ? qpn::screen_lane_carve_global(bt, b, smem)
+                : qpn::screen_lane_carve(smem, bt.m, bt.n);
     qpn::screen_lane_load(L, bt, b, threadIdx.x, blockDim.x);
     qpn::screen_lane_run(L, bt.steps, bt.lr, threadIdx.x, blockDim.x);
     qpn::screen_lane_store(L, bt, b, threadIdx.x, blockDim.x);
+}
+
+template <bool kGlobal>
+int launch_generic(const qpn::ScreenBatch& bt, cudaStream_t stream) {
+    const int threads = qpn::screen_block_threads(bt.m, bt.n);
+    const size_t bytes =
+        kGlobal ? qpn::screen_global_lane_bytes(bt.m, bt.n, threads)
+                : qpn::screen_lane_bytes(bt.m, bt.n, threads);
+    cudaError_t e = cudaFuncSetAttribute(
+        screen_kernel<kGlobal>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (e != cudaSuccess) return e;
+    screen_kernel<kGlobal><<<bt.B, threads, bytes, stream>>>(bt);
+    return cudaGetLastError();
 }
 
 int launch(const qpn::ScreenBatch& bt, cudaStream_t stream) {
@@ -118,21 +137,7 @@ int launch(const qpn::ScreenBatch& bt, cudaStream_t stream) {
     if (qpn::screen_fits_warp(bt.m, bt.n))
         return kWarpLaunch[qpn::screen_ceiling_index(bt.m)]
                           [qpn::screen_ceiling_index(bt.n)](bt, stream);
-    const int threads = block_threads(bt.m, bt.n);
-    const size_t bytes = qpn::screen_lane_bytes(bt.m, bt.n, threads);
-    int dev = 0, optin = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return e;
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-    if (e != cudaSuccess) return e;
-    if (bytes > (size_t)optin) return QPN_ERR_SMEM;
-    e = cudaFuncSetAttribute(screen_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-    if (e != cudaSuccess) return e;
-    screen_kernel<<<bt.B, threads, bytes, stream>>>(bt);
-    return cudaGetLastError();
+    return launch_generic<false>(bt, stream);
 }
 
 }  // namespace
@@ -143,8 +148,25 @@ int qpn_screen_f32(QPN_SCREEN_PARAMS, void* stream) {
     return launch(QPN_SCREEN_BATCH, (cudaStream_t)stream);
 }
 
-long long qpn_screen_lane_bytes(int m, int n) {
-    return (long long)qpn::screen_lane_bytes(m, n, block_threads(m, n));
+int qpn_screen_global_f32(QPN_SCREEN_PARAMS, void* stream) {
+    const qpn::ScreenBatch bt = QPN_SCREEN_BATCH;
+    if (bt.B <= 0 || bt.n <= 0 || bt.m <= 0) return 0;
+    return launch_generic<true>(bt, (cudaStream_t)stream);
+}
+
+int qpn_screen_instance(int m, int n, long long smem_optin) {
+    return qpn::screen_instance(m, n, smem_optin);
+}
+
+// The shared memory a block can opt into on the current card, or minus a
+// cudaError_t.
+long long qpn_screen_smem_optin(void) {
+    int dev = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    return e == cudaSuccess ? (long long)optin : -(long long)e;
 }
 
 const char* qpn_screen_error_string(int code) {

@@ -13,7 +13,7 @@
 // The order of both sums is the same in the two instances below, so they
 // give the same bits.
 //
-// Two instances, picked from the shape alone (screen_fits_warp):
+// Two instances, picked from the shape alone (screen_instance):
 //
 // * the warp instance, for max(m, n) ≤ 32: one polyhedron in one warp, A in
 //   registers for all steps.  Thread t keeps row t of A (phase 1) and column
@@ -29,6 +29,9 @@
 //   polyhedron, A, l, u, v and x in shared memory, a thread per row in phase
 //   1 and per column in phase 2, barriers between (QPN_SCREEN_SYNC:
 //   __syncthreads() on the card, a no-op for the host's one "thread").
+//   Where A does not fit the block's shared memory, the same code reads A in
+//   place from device memory (the global instance; l, u, v and x stay in
+//   shared memory).  screen_instance picks from the shape alone.
 //
 // max and min propagate NaN, as jnp.maximum / jnp.minimum and torch do
 // (fmaxf/fminf would drop it and could turn a diverged polyhedron into a
@@ -65,21 +68,32 @@ struct ScreenBatch {
     float lr;
 };
 
-// The generic instance.  One polyhedron's working set (shared memory on the
-// card).  Rows of A are ld = n | 1 floats apart: the odd stride puts the rows
+// The generic instance.  One polyhedron's working set.  In shared memory
+// the rows of A are ld = n | 1 floats apart: the odd stride puts the rows
 // that neighbouring threads read in phase 1 on different banks, while phase
-// 2's threads read neighbouring columns of one row.
+// 2's threads read neighbouring columns of one row.  In the global instance
+// A stays where the batch holds it (ld = n).  The sums read A through `A`
+// either way.
 struct ScreenLane {
     int m, n, ld;
-    float* A;     // (m, ld)
-    float* l;     // (m)
+    const float* A;  // (m, ld)
+    float* As;       // the shared copy of A that screen_lane_load fills, or null
+    float* l;        // (m)
     float* u;
-    float* v;     // signed violation
-    float* x;     // (n)
-    float* red;   // (nthr) partial maxima of |v|
+    float* v;        // signed violation
+    float* x;        // (n)
+    float* red;      // (nthr) partial maxima of |v|
 };
 
 QPN_SCREEN_HD int screen_ld(int n) { return n | 1; }
+
+// Threads of the generic instance's block: a row (then a column) each, up
+// to 256.
+QPN_SCREEN_HD int screen_block_threads(int m, int n) {
+    const int work = m > n ? m : n;
+    const int threads = (work + 31) / 32 * 32;
+    return threads > 256 ? 256 : threads;
+}
 
 // Bytes of one polyhedron's working set with `nthr` threads: about 1.9 KB
 // at robust_avoid's piece shape (18 rows, dimension 18, 32 threads).
@@ -88,17 +102,40 @@ QPN_SCREEN_HD size_t screen_lane_bytes(int m, int n, int nthr) {
             + (size_t)nthr) * sizeof(float);
 }
 
+// The same in the global instance: all but A.
+QPN_SCREEN_HD size_t screen_global_lane_bytes(int m, int n, int nthr) {
+    return (3 * (size_t)m + (size_t)n + (size_t)nthr) * sizeof(float);
+}
+
+QPN_SCREEN_HD void screen_carve_vectors(ScreenLane& L, float* base) {
+    L.l = base;
+    L.u = L.l + L.m;
+    L.v = L.u + L.m;
+    L.x = L.v + L.m;
+    L.red = L.x + L.n;
+}
+
 QPN_SCREEN_HD ScreenLane screen_lane_carve(float* base, int m, int n) {
     ScreenLane L;
     L.m = m;
     L.n = n;
     L.ld = screen_ld(n);
+    L.As = base;
     L.A = base;
-    L.l = L.A + (size_t)m * L.ld;
-    L.u = L.l + m;
-    L.v = L.u + m;
-    L.x = L.v + m;
-    L.red = L.x + n;
+    screen_carve_vectors(L, base + (size_t)m * L.ld);
+    return L;
+}
+
+// Polyhedron b of the batch in the global instance: A read in place.
+QPN_SCREEN_HD ScreenLane screen_lane_carve_global(const ScreenBatch& bt,
+                                                  size_t b, float* base) {
+    ScreenLane L;
+    L.m = bt.m;
+    L.n = bt.n;
+    L.ld = bt.n;
+    L.As = nullptr;
+    L.A = bt.A + b * (size_t)bt.m * bt.n;
+    screen_carve_vectors(L, base);
     return L;
 }
 
@@ -114,7 +151,9 @@ QPN_SCREEN_HD void screen_lane_load(const ScreenLane& L, const ScreenBatch& bt,
                                     size_t b, int tid, int nthr) {
     const int m = L.m, n = L.n;
     const float* Ab = bt.A + b * (size_t)m * n;
-    for (int k = tid; k < m * n; k += nthr) L.A[(k / n) * L.ld + k % n] = Ab[k];
+    if (L.As != nullptr)
+        for (int k = tid; k < m * n; k += nthr)
+            L.As[(k / n) * L.ld + k % n] = Ab[k];
     for (int r = tid; r < m; r += nthr) {
         L.l[r] = bt.l[b * m + r];
         L.u[r] = bt.u[b * m + r];
@@ -183,6 +222,20 @@ constexpr int kScreenWarp = 32;     // threads, and the largest m and n
 
 QPN_SCREEN_HD bool screen_fits_warp(int m, int n) {
     return m <= kScreenWarp && n <= kScreenWarp;
+}
+
+// The instance the card's launcher runs for polyhedra of m rows in dimension
+// n: the warp instance where it fits, else the generic instance with A in
+// shared memory while screen_lane_bytes fits the block's opt-in limit
+// `smem_optin` (232448 bytes on an H100: m = n up to 238), else the generic
+// instance with A in device memory.  A choice by shape alone.
+enum { SCREEN_WARP = 0, SCREEN_SHARED = 1, SCREEN_GLOBAL = 2 };
+
+QPN_SCREEN_HD int screen_instance(int m, int n, long long smem_optin) {
+    if (screen_fits_warp(m, n)) return SCREEN_WARP;
+    const size_t bytes = screen_lane_bytes(m, n, screen_block_threads(m, n));
+    return smem_optin >= 0 && bytes <= (size_t)smem_optin ? SCREEN_SHARED
+                                                          : SCREEN_GLOBAL;
 }
 
 // Index of the compile-time ceiling of k rows or columns: ceilings are 4, 8,

@@ -3,7 +3,8 @@
 // tests.  It picks the instance as the card's launcher does, from the shape
 // alone: polyhedra that fit a warp run the warp instance's register code with
 // the 32 threads as a loop; larger ones run the generic phase functions as
-// thread 0 of 1 with no-op barriers.  Not on any production path.
+// thread 0 of 1 with no-op barriers, on a working set carved as the shared
+// or the global instance carves it.  Not on any production path.
 
 #include <vector>
 
@@ -14,12 +15,13 @@ namespace {
 using WarpHost = void (*)(const qpn::ScreenBatch&);
 const WarpHost kWarpHost[8][8] = QPN_SCREEN_TABLE(qpn::screen_warp_host);
 
-void generic_host(const qpn::ScreenBatch& bt) {
+void generic_host(const qpn::ScreenBatch& bt, bool global) {
     std::vector<float> buf(qpn::screen_lane_bytes(bt.m, bt.n, 1)
                            / sizeof(float));
     for (size_t b = 0; b < (size_t)bt.B; ++b) {
-        const qpn::ScreenLane L = qpn::screen_lane_carve(buf.data(), bt.m,
-                                                         bt.n);
+        const qpn::ScreenLane L =
+            global ? qpn::screen_lane_carve_global(bt, b, buf.data())
+                   : qpn::screen_lane_carve(buf.data(), bt.m, bt.n);
         qpn::screen_lane_load(L, bt, b, 0, 1);
         qpn::screen_lane_run(L, bt.steps, bt.lr, 0, 1);
         qpn::screen_lane_store(L, bt, b, 0, 1);
@@ -30,22 +32,28 @@ void generic_host(const qpn::ScreenBatch& bt) {
 
 extern "C" {
 
-void qpn_screen_host_f32(QPN_SCREEN_PARAMS) {
+// The instance the card's launcher picks under the opt-in limit smem_optin.
+void qpn_screen_host_f32(QPN_SCREEN_PARAMS, long long smem_optin) {
     const qpn::ScreenBatch bt = QPN_SCREEN_BATCH;
     if (bt.B <= 0 || bt.m <= 0 || bt.n <= 0) return;
-    if (qpn::screen_fits_warp(bt.m, bt.n))
+    const int instance = qpn::screen_instance(bt.m, bt.n, smem_optin);
+    if (instance == qpn::SCREEN_WARP)
         kWarpHost[qpn::screen_ceiling_index(bt.m)]
                  [qpn::screen_ceiling_index(bt.n)](bt);
     else
-        generic_host(bt);
+        generic_host(bt, instance == qpn::SCREEN_GLOBAL);
 }
 
-// The generic instance at any shape: the tests hold the warp instance to
-// its bits.
+// The generic instance with A in the working set at any shape: the tests
+// hold the warp instance to its bits.
 void qpn_screen_host_generic_f32(QPN_SCREEN_PARAMS) {
     const qpn::ScreenBatch bt = QPN_SCREEN_BATCH;
     if (bt.B <= 0 || bt.m <= 0 || bt.n <= 0) return;
-    generic_host(bt);
+    generic_host(bt, false);
+}
+
+int qpn_screen_instance(int m, int n, long long smem_optin) {
+    return qpn::screen_instance(m, n, smem_optin);
 }
 
 }  // extern "C"

@@ -7,8 +7,12 @@ steps (``csrc/eg_warmstart.cu``; it replaces the JAX package's Pallas kernel
 like the plain PyTorch loop ``eg.eg_steps_torch`` it is held against.  It
 takes CUDA tensors only and raises on anything the kernel does not take;
 there is no fallback to the plain loop.  The kernel is built with nvcc on
-first use (``utils/cuda_build.py``) and launched on the current stream;
-every launch is counted in ``METRICS.launches["eg_warmstart"]``.
+first use (``utils/cuda_build.py``) and launched on the current stream.
+Before the launch the wrapper picks the instance from n alone
+(``csrc/eg_lane.cuh::eg_instance`` against the card's shared-memory opt-in
+limit): M in registers (n <= 128) or in shared memory (up to n = 238 on an
+H100), counted in ``METRICS.launches["eg_warmstart"]``; or M read in place
+from device memory, counted in ``METRICS.launches["eg_warmstart_global"]``.
 
 :func:`eg_steps_host` runs the same lane code built with g++ on CPU
 tensors — the CPU tests' window on the kernel's logic.
@@ -21,11 +25,13 @@ from typing import Optional
 
 import torch
 
-from ..utils.cuda_build import load_cuda_library, load_host_library
+from ..utils.cuda_build import (HOPPER_SMEM_OPTIN, load_cuda_library,
+                                load_host_library, smem_optin)
 from ..utils.metrics import METRICS
 
 KERNEL = "eg_warmstart"
-_ERR_SMEM = -1
+KERNEL_GLOBAL = "eg_warmstart_global"
+EG_REGISTER, EG_SHARED, EG_GLOBAL = 0, 1, 2    # csrc/eg_lane.cuh::eg_instance
 _PARAMS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
 _CUDA_LIB: Optional[ctypes.CDLL] = None
 _HOST_LIB: Optional[ctypes.CDLL] = None
@@ -35,10 +41,12 @@ def _cuda_lib() -> ctypes.CDLL:
     global _CUDA_LIB
     if _CUDA_LIB is None:
         lib = load_cuda_library(KERNEL, ["eg_warmstart.cu"], ["eg_lane.cuh"])
-        lib.qpn_eg_warmstart_f32.restype = ctypes.c_int
-        lib.qpn_eg_warmstart_f32.argtypes = _PARAMS + [ctypes.c_void_p]
-        lib.qpn_eg_lane_bytes.restype = ctypes.c_longlong
-        lib.qpn_eg_lane_bytes.argtypes = [ctypes.c_int]
+        for fn in (lib.qpn_eg_warmstart_f32, lib.qpn_eg_warmstart_global_f32):
+            fn.restype = ctypes.c_int
+            fn.argtypes = _PARAMS + [ctypes.c_void_p]
+        _instance_function(lib)
+        lib.qpn_eg_smem_optin.restype = ctypes.c_longlong
+        lib.qpn_eg_smem_optin.argtypes = []
         lib.qpn_eg_error_string.restype = ctypes.c_char_p
         lib.qpn_eg_error_string.argtypes = [ctypes.c_int]
         _CUDA_LIB = lib
@@ -51,11 +59,24 @@ def _host_lib() -> ctypes.CDLL:
         lib = load_host_library("eg_lane_host", ["eg_lane_host.cpp"],
                                 ["eg_lane.cuh"])
         lib.qpn_eg_warmstart_host_f32.restype = None
-        lib.qpn_eg_warmstart_host_f32.argtypes = _PARAMS
+        lib.qpn_eg_warmstart_host_f32.argtypes = _PARAMS + [ctypes.c_longlong]
         lib.qpn_eg_pick_chunk.restype = ctypes.c_int
         lib.qpn_eg_pick_chunk.argtypes = [ctypes.c_int]
+        _instance_function(lib)
         _HOST_LIB = lib
     return _HOST_LIB
+
+
+def _instance_function(lib: ctypes.CDLL) -> None:
+    lib.qpn_eg_instance.restype = ctypes.c_int
+    lib.qpn_eg_instance.argtypes = [ctypes.c_int, ctypes.c_longlong]
+
+
+def card_optin(device: torch.device) -> int:
+    """The shared memory a block can opt into on the CUDA ``device``, as
+    the kernel library reads it (the limit the instance is picked by)."""
+    lib = _cuda_lib()
+    return smem_optin(lib.qpn_eg_smem_optin, device)
 
 
 def build() -> None:
@@ -98,41 +119,43 @@ def _args(M, q, l, u, z0, tau, out, steps):
 def eg_warmstart_cuda(M, q, l, u, z0, tau, steps: int) -> torch.Tensor:
     """Run ``steps`` extragradient steps of every lane in the CUDA kernel
     (one launch).  M (B,n,n); q/l/u/z0 (B,n); tau (B,); all f32 on one CUDA
-    device.  The launcher picks the kernel from n: the register kernel up to
-    n = 128, beyond that the generic shared-memory kernel."""
+    device.  The instance is picked from n: the register kernel up to
+    n = 128, beyond that the generic kernel with M in shared memory while it
+    fits, else with M read from device memory."""
     if M.device.type != "cuda":
         raise ValueError("eg_warmstart_cuda takes CUDA tensors; CPU tensors "
                          "go to eg.eg_steps_torch")
     _check(M, q, l, u, z0, tau, steps)
     out = torch.empty_like(z0)
-    if M.shape[0] == 0 or M.shape[1] == 0:
+    B, n, _ = M.shape
+    if B == 0 or n == 0:
         return out
     lib = _cuda_lib()
     stream = torch.cuda.current_stream(M.device).cuda_stream
     with torch.cuda.device(M.device):
-        rc = lib.qpn_eg_warmstart_f32(*_args(M, q, l, u, z0, tau, out, steps),
-                                      stream)
-    if rc == _ERR_SMEM:
-        n = M.shape[1]
-        raise ValueError(f"eg kernel: a lane of n={n} needs "
-                         f"{lib.qpn_eg_lane_bytes(n)} bytes of shared memory, "
-                         "more than a block can have on this card")
+        instance = lib.qpn_eg_instance(n, card_optin(M.device))
+        fn = (lib.qpn_eg_warmstart_global_f32 if instance == EG_GLOBAL
+              else lib.qpn_eg_warmstart_f32)
+        rc = fn(*_args(M, q, l, u, z0, tau, out, steps), stream)
     if rc != 0:
         raise RuntimeError("eg kernel launch failed: "
                            + lib.qpn_eg_error_string(rc).decode())
-    METRICS.launched(KERNEL)
+    METRICS.launched(KERNEL_GLOBAL if instance == EG_GLOBAL else KERNEL)
     return out
 
 
-def eg_steps_host(M, q, l, u, z0, tau, steps: int) -> torch.Tensor:
+def eg_steps_host(M, q, l, u, z0, tau, steps: int,
+                  optin: int = HOPPER_SMEM_OPTIN) -> torch.Tensor:
     """The kernel's lane code built for the host, on CPU tensors: every sum
-    in the order of the kernel that the launcher picks for this n."""
+    in the order of, and the lane carved as by, the kernel that the launcher
+    picks for this n under the opt-in limit ``optin`` (an H100's by
+    default)."""
     if M.device.type != "cpu":
         raise ValueError("eg_steps_host takes CPU tensors")
     _check(M, q, l, u, z0, tau, steps)
     out = torch.empty_like(z0)
     _host_lib().qpn_eg_warmstart_host_f32(
-        *_args(M, q, l, u, z0, tau, out, steps))
+        *_args(M, q, l, u, z0, tau, out, steps), int(optin))
     return out
 
 
@@ -140,3 +163,10 @@ def host_pick_chunk(n: int) -> int:
     """Columns per thread of the register kernel's instance for rows of
     ``n`` columns (0: none, the generic kernel), from the kernel's header."""
     return _host_lib().qpn_eg_pick_chunk(int(n))
+
+
+def host_instance(n: int, optin: int) -> int:
+    """The instance the launcher picks for rows of ``n`` columns under the
+    opt-in limit ``optin`` in bytes (EG_REGISTER, EG_SHARED or EG_GLOBAL),
+    from the kernel's header built for the host."""
+    return _host_lib().qpn_eg_instance(int(n), int(optin))

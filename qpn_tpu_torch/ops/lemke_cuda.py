@@ -8,7 +8,13 @@ exactly like the plain PyTorch loop ``lemke.lemke_pivot_torch`` it is held
 against.  It takes CUDA tensors only and raises on anything the kernel does
 not take; there is no fallback to the plain loop.  The kernel is built with
 nvcc on first use (``utils/cuda_build.py``) and launched on the current
-stream; every launch is counted in ``METRICS.launches["lemke_pivot"]``.
+stream.  Before the launch the wrapper picks one of the kernel's two
+instances from the shape alone (``csrc/lemke_lane.cuh::lane_instance``
+against the card's shared-memory opt-in limit): the lane in the block's
+shared memory, counted in ``METRICS.launches["lemke_pivot"]``, or, for a
+lane that does not fit (f32 n >= 136, f64 n >= 95 on an H100), the lane in a
+device-memory workspace that the wrapper allocates, counted in
+``METRICS.launches["lemke_pivot_global"]``.
 
 :func:`lemke_pivot_host` runs the same lane code built with g++ on CPU
 tensors — the CPU tests' window on the kernel's logic.
@@ -21,12 +27,14 @@ from typing import Optional
 
 import torch
 
-from ..utils.cuda_build import load_cuda_library, load_host_library
+from ..utils.cuda_build import (load_cuda_library, load_host_library,
+                                smem_optin)
 from ..utils.metrics import METRICS
 from .lemke import LemkeInit, PivotResult
 
 KERNEL = "lemke_pivot"
-_ERR_SMEM = -1
+KERNEL_GLOBAL = "lemke_pivot_global"
+LANE_SHARED, LANE_GLOBAL = 0, 1     # csrc/lemke_lane.cuh::lane_instance
 _PARAMS = [ctypes.c_void_p] * 16 + [ctypes.c_int, ctypes.c_int,
                                     ctypes.c_double, ctypes.c_double,
                                     ctypes.c_int]
@@ -41,8 +49,13 @@ def _cuda_lib() -> ctypes.CDLL:
         for fn in (lib.qpn_lemke_pivot_f32, lib.qpn_lemke_pivot_f64):
             fn.restype = ctypes.c_int
             fn.argtypes = _PARAMS + [ctypes.c_void_p]
-        lib.qpn_lemke_lane_bytes.restype = ctypes.c_longlong
-        lib.qpn_lemke_lane_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        for fn in (lib.qpn_lemke_pivot_global_f32,
+                   lib.qpn_lemke_pivot_global_f64):
+            fn.restype = ctypes.c_int
+            fn.argtypes = _PARAMS + [ctypes.c_void_p] * 2
+        _shape_functions(lib)
+        lib.qpn_lemke_smem_optin.restype = ctypes.c_longlong
+        lib.qpn_lemke_smem_optin.argtypes = []
         lib.qpn_cuda_error_string.restype = ctypes.c_char_p
         lib.qpn_cuda_error_string.argtypes = [ctypes.c_int]
         _CUDA_LIB = lib
@@ -66,8 +79,39 @@ def _host_lib() -> ctypes.CDLL:
                   ctypes.POINTER(ci)]),
                 (lib.qpn_lemke_lane_stride, ci, [ci])):
             fn.restype, fn.argtypes = res, args
+        _shape_functions(lib)
         _HOST_LIB = lib
     return _HOST_LIB
+
+
+def _shape_functions(lib: ctypes.CDLL) -> None:
+    """Types of the pure functions of the shape that both libraries
+    export."""
+    lib.qpn_lemke_lane_bytes.restype = ctypes.c_longlong
+    lib.qpn_lemke_lane_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.qpn_lemke_lane_instance.restype = ctypes.c_int
+    lib.qpn_lemke_lane_instance.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_longlong]
+
+
+def host_lane_instance(n: int, itemsize: int, optin: int) -> int:
+    """The instance the launcher picks for a lane of ``n`` (LANE_SHARED or
+    LANE_GLOBAL) under the opt-in limit ``optin`` in bytes, from the
+    kernel's header built for the host."""
+    return _host_lib().qpn_lemke_lane_instance(int(n), int(itemsize),
+                                               int(optin))
+
+
+def host_lane_bytes(n: int, itemsize: int) -> int:
+    """Bytes of one lane's working set, from the kernel's header."""
+    return _host_lib().qpn_lemke_lane_bytes(int(n), int(itemsize))
+
+
+def card_optin(device: torch.device) -> int:
+    """The shared memory a block can opt into on the CUDA ``device``, as
+    the kernel library reads it (the limit the instance is picked by)."""
+    lib = _cuda_lib()
+    return smem_optin(lib.qpn_lemke_smem_optin, device)
 
 
 def host_scans() -> ctypes.CDLL:
@@ -134,30 +178,38 @@ def _args(init: LemkeInit, out: PivotResult, tol, piv_tol, max_pivots):
 
 def lemke_pivot_cuda(init: LemkeInit, *, tol, piv_tol, max_pivots
                      ) -> PivotResult:
-    """Run the pivot loop of every lane in the CUDA kernel (one launch)."""
+    """Run the pivot loop of every lane in the CUDA kernel (one launch of
+    the instance that the lane's shape picks)."""
     if init.T.device.type != "cuda":
         raise ValueError("lemke_pivot_cuda takes CUDA tensors; CPU tensors "
                          "go to lemke.lemke_pivot_torch")
     _check(init)
     out = _outputs(init)
-    if init.T.shape[0] == 0:
+    B, n, _ = init.T.shape
+    if B == 0:
         return out
     lib = _cuda_lib()
-    fn = (lib.qpn_lemke_pivot_f32 if init.T.dtype == torch.float32
-          else lib.qpn_lemke_pivot_f64)
-    stream = torch.cuda.current_stream(init.T.device).cuda_stream
-    with torch.cuda.device(init.T.device):
-        rc = fn(*_args(init, out, tol, piv_tol, max_pivots), stream)
-    if rc == _ERR_SMEM:
-        n = init.T.shape[1]
-        need = lib.qpn_lemke_lane_bytes(n, init.T.element_size())
-        raise ValueError(f"lemke pivot kernel: a {init.T.dtype} lane of "
-                         f"n={n} needs {need} bytes of shared memory, more "
-                         "than a block can have on this card")
+    device = init.T.device
+    f32 = init.T.dtype == torch.float32
+    itemsize = init.T.element_size()
+    args = _args(init, out, tol, piv_tol, max_pivots)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        instance = lib.qpn_lemke_lane_instance(n, itemsize,
+                                               card_optin(device))
+        if instance == LANE_GLOBAL:
+            workspace = torch.empty(B * lib.qpn_lemke_lane_bytes(n, itemsize),
+                                    dtype=torch.uint8, device=device)
+            fn = (lib.qpn_lemke_pivot_global_f32 if f32
+                  else lib.qpn_lemke_pivot_global_f64)
+            rc = fn(*args, workspace.data_ptr(), stream)
+        else:
+            fn = lib.qpn_lemke_pivot_f32 if f32 else lib.qpn_lemke_pivot_f64
+            rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError("lemke pivot kernel launch failed: "
                            + lib.qpn_cuda_error_string(rc).decode())
-    METRICS.launched(KERNEL)
+    METRICS.launched(KERNEL_GLOBAL if instance == LANE_GLOBAL else KERNEL)
     return out
 
 

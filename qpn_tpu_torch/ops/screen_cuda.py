@@ -7,12 +7,17 @@
 projected-subgradient steps and its max |violation|, exactly like the plain
 PyTorch loop ``screen.screen_steps_torch`` it is held against.  It takes CUDA
 tensors only and raises on anything the kernel does not take; there is no
-fallback to the plain loop.  The launcher picks one of two kernels from the
-shape alone (one polyhedron in a warp with A in registers up to 32 rows and
-columns, else a thread block per polyhedron); there is no launch option.
-The kernel is built with nvcc on first use (``utils/cuda_build.py``) and
-launched on the current stream; every launch is counted in
-``METRICS.launches["feasibility_screen"]``.
+fallback to the plain loop.  Before the launch the wrapper picks the
+instance from the shape alone (``csrc/screen_lane.cuh::screen_instance``
+against the card's shared-memory opt-in limit): one polyhedron in a warp
+with A in registers up to 32 rows and columns, else a thread block per
+polyhedron with A in shared memory, both counted in
+``METRICS.launches["feasibility_screen"]``; or, where A does not fit (m = n
+above 238 on an H100), a thread block per polyhedron with A read in place
+from device memory, counted in
+``METRICS.launches["feasibility_screen_global"]``.  There is no launch
+option.  The kernel is built with nvcc on first use
+(``utils/cuda_build.py``) and launched on the current stream.
 
 :func:`screen_steps_host` runs the same lane code built with g++ on CPU
 tensors — the CPU tests' window on the kernel's logic.
@@ -25,11 +30,14 @@ from typing import Optional
 
 import torch
 
-from ..utils.cuda_build import load_cuda_library, load_host_library
+from ..utils.cuda_build import (HOPPER_SMEM_OPTIN, load_cuda_library,
+                                load_host_library, smem_optin)
 from ..utils.metrics import METRICS
 
 KERNEL = "feasibility_screen"
-_ERR_SMEM = -1
+KERNEL_GLOBAL = "feasibility_screen_global"
+# csrc/screen_lane.cuh::screen_instance
+SCREEN_WARP, SCREEN_SHARED, SCREEN_GLOBAL = 0, 1, 2
 _PARAMS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float]
 _CUDA_LIB: Optional[ctypes.CDLL] = None
 _HOST_LIB: Optional[ctypes.CDLL] = None
@@ -39,10 +47,12 @@ def _cuda_lib() -> ctypes.CDLL:
     global _CUDA_LIB
     if _CUDA_LIB is None:
         lib = load_cuda_library(KERNEL, ["screen.cu"], ["screen_lane.cuh"])
-        lib.qpn_screen_f32.restype = ctypes.c_int
-        lib.qpn_screen_f32.argtypes = _PARAMS + [ctypes.c_void_p]
-        lib.qpn_screen_lane_bytes.restype = ctypes.c_longlong
-        lib.qpn_screen_lane_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        for fn in (lib.qpn_screen_f32, lib.qpn_screen_global_f32):
+            fn.restype = ctypes.c_int
+            fn.argtypes = _PARAMS + [ctypes.c_void_p]
+        _instance_function(lib)
+        lib.qpn_screen_smem_optin.restype = ctypes.c_longlong
+        lib.qpn_screen_smem_optin.argtypes = []
         lib.qpn_screen_error_string.restype = ctypes.c_char_p
         lib.qpn_screen_error_string.argtypes = [ctypes.c_int]
         _CUDA_LIB = lib
@@ -54,10 +64,26 @@ def _host_lib() -> ctypes.CDLL:
     if _HOST_LIB is None:
         lib = load_host_library("screen_lane_host", ["screen_lane_host.cpp"],
                                 ["screen_lane.cuh"])
-        for fn in (lib.qpn_screen_host_f32, lib.qpn_screen_host_generic_f32):
-            fn.restype, fn.argtypes = None, _PARAMS
+        lib.qpn_screen_host_f32.restype = None
+        lib.qpn_screen_host_f32.argtypes = _PARAMS + [ctypes.c_longlong]
+        lib.qpn_screen_host_generic_f32.restype = None
+        lib.qpn_screen_host_generic_f32.argtypes = _PARAMS
+        _instance_function(lib)
         _HOST_LIB = lib
     return _HOST_LIB
+
+
+def _instance_function(lib: ctypes.CDLL) -> None:
+    lib.qpn_screen_instance.restype = ctypes.c_int
+    lib.qpn_screen_instance.argtypes = [ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_longlong]
+
+
+def card_optin(device: torch.device) -> int:
+    """The shared memory a block can opt into on the CUDA ``device``, as
+    the kernel library reads it (the limit the instance is picked by)."""
+    lib = _cuda_lib()
+    return smem_optin(lib.qpn_screen_smem_optin, device)
 
 
 def build() -> None:
@@ -115,26 +141,25 @@ def feasibility_screen_cuda(A, l, u, x0, steps: int, lr: float):
     lib = _cuda_lib()
     stream = torch.cuda.current_stream(A.device).cuda_stream
     with torch.cuda.device(A.device):
-        rc = lib.qpn_screen_f32(*_args(A, l, u, x0, x_out, v_out, steps, lr),
-                                stream)
-    if rc == _ERR_SMEM:
-        raise ValueError(f"screen kernel: a polyhedron of {m} rows in "
-                         f"dimension {n} needs "
-                         f"{lib.qpn_screen_lane_bytes(m, n)} bytes of shared "
-                         "memory, more than a block can have on this card")
+        instance = lib.qpn_screen_instance(m, n, card_optin(A.device))
+        fn = (lib.qpn_screen_global_f32 if instance == SCREEN_GLOBAL
+              else lib.qpn_screen_f32)
+        rc = fn(*_args(A, l, u, x0, x_out, v_out, steps, lr), stream)
     if rc != 0:
         raise RuntimeError("screen kernel launch failed: "
                            + lib.qpn_screen_error_string(rc).decode())
-    METRICS.launched(KERNEL)
+    METRICS.launched(KERNEL_GLOBAL if instance == SCREEN_GLOBAL else KERNEL)
     return x_out, v_out
 
 
 def screen_steps_host(A, l, u, x0, steps: int, lr: float,
-                      generic: bool = False):
+                      generic: bool = False, optin: int = HOPPER_SMEM_OPTIN):
     """The kernels' lane code built for the host, on CPU tensors: the
-    instance the card's launcher would pick for this shape (the warp
-    instance up to 32 rows and columns), or with ``generic`` the generic
-    instance at any shape."""
+    instance the card's launcher would pick for this shape under the opt-in
+    limit ``optin`` (an H100's by default; the warp instance up to 32 rows
+    and columns, A carved into the working set or read in place beyond),
+    or with ``generic`` the generic instance with A in the working set at
+    any shape."""
     if A.device.type != "cpu":
         raise ValueError("screen_steps_host takes CPU tensors")
     _check(A, l, u, x0, steps)
@@ -142,6 +167,17 @@ def screen_steps_host(A, l, u, x0, steps: int, lr: float,
     x_out = torch.empty_like(x0)
     v_out = torch.empty(B, dtype=torch.float32)
     lib = _host_lib()
-    run = lib.qpn_screen_host_generic_f32 if generic else lib.qpn_screen_host_f32
-    run(*_args(A, l, u, x0, x_out, v_out, steps, lr))
+    args = _args(A, l, u, x0, x_out, v_out, steps, lr)
+    if generic:
+        lib.qpn_screen_host_generic_f32(*args)
+    else:
+        lib.qpn_screen_host_f32(*args, int(optin))
     return x_out, v_out
+
+
+def host_instance(m: int, n: int, optin: int) -> int:
+    """The instance the launcher picks for polyhedra of ``m`` rows in
+    dimension ``n`` under the opt-in limit ``optin`` in bytes (SCREEN_WARP,
+    SCREEN_SHARED or SCREEN_GLOBAL), from the kernel's header built for the
+    host."""
+    return _host_lib().qpn_screen_instance(int(m), int(n), int(optin))

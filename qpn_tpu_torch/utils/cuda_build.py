@@ -84,3 +84,28 @@ def load_host_library(name: str, sources: Sequence[str],
     so = build_library(name, [CSRC_DIR / s for s in sources],
                        ["g++", *GXX_FLAGS], [CSRC_DIR / h for h in headers])
     return ctypes.CDLL(str(so))
+
+
+# Bytes of shared memory a block can opt into on an H100 (sm_90): what the
+# card's launchers find there, and what the host instances take to pick the
+# instance the card would run.
+HOPPER_SMEM_OPTIN = 232448
+
+_SMEM_OPTIN: dict = {}
+
+
+def smem_optin(query, device) -> int:
+    """The shared memory a block can opt into on the CUDA ``device``, from a
+    kernel library's ``query`` function (the opt-in limit, or minus a
+    ``cudaError_t``); cached per device.  Raises when the query fails."""
+    import torch
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    if index not in _SMEM_OPTIN:
+        with torch.cuda.device(index):
+            optin = query()
+        if optin < 0:
+            raise RuntimeError(f"the shared-memory limit of cuda:{index} "
+                               f"could not be read (cudaError {-optin})")
+        _SMEM_OPTIN[index] = optin
+    return _SMEM_OPTIN[index]

@@ -107,16 +107,35 @@ def test_main_path_goes_through_the_kernel(cuda_device):
 
 
 @pytest.mark.gpu
-def test_kernel_rejects_a_lane_too_large_for_shared_memory(cuda_device):
-    n = 140                                   # f32 lane of ~246 KB
-    M = torch.eye(n, device=cuda_device)[None]
-    q = -torch.ones(1, n, device=cuda_device)
-    zeros = torch.zeros(1, n, device=cuda_device)
-    init = lemke.lemke_setup(M, q, zeros, torch.full_like(zeros, 1.0), zeros,
-                             torch.ones(1, n, dtype=torch.bool,
-                                        device=cuda_device), tol=1e-6)
-    with pytest.raises(ValueError, match="shared memory"):
-        lemke_pivot_cuda(init, max_pivots=16, **HOT)
+@pytest.mark.parametrize("dtype,kw", [(torch.float32, HOT),
+                                      (torch.float64, F64)],
+                         ids=["f32", "f64"])
+def test_kernel_takes_a_lane_too_large_for_shared_memory(cuda_device, dtype,
+                                                         kw):
+    """robust_avoid lanes of n=152 (T=4, num_obj=2: 0.47 MB of working set
+    in f64, 0.29 MB in f32) run in the kernel's global instance: one launch
+    counted under its own name, the plain loop's status and pivot counts,
+    and the bits of the host instance."""
+    from qpn_tpu_torch.ops.lemke_cuda import KERNEL_GLOBAL, lemke_pivot_host
+    b = scenario_batch_gavis(num_scenarios=8, T=4, num_obj=2,
+                             num_poly_faces=4, seed=0)
+    t = batch_from_numpy(b, cuda_device)
+    init = lemke.lemke_setup(*(t[k].to(dtype) for k in
+                               ("M", "q", "l", "u", "z0")), t["mask"],
+                             tol=kw["tol"])
+    METRICS.reset()
+    rk = lemke_pivot_cuda(init, max_pivots=1024, **kw)
+    torch.cuda.synchronize()
+    assert METRICS.launches[KERNEL_GLOBAL] == 1
+    assert METRICS.launches[KERNEL] == 0
+    rp = lemke.lemke_pivot_torch(init, max_pivots=1024, **kw)
+    assert torch.equal(rk.status, rp.status)
+    assert torch.equal(rk.piv, rp.piv)
+    assert (rk.status == lemke.LEMKE_SUCCESS).all()
+    rh = lemke_pivot_host(lemke.LemkeInit(*(a.cpu() for a in init)),
+                          max_pivots=1024, **kw)
+    for name in ("status", "piv", "basis", "val", "xB"):
+        assert torch.equal(getattr(rk, name).cpu(), getattr(rh, name)), name
 
 
 @pytest.mark.gpu
@@ -232,14 +251,24 @@ def test_eg_kernel_pins_masked_variables(cuda_device):
 
 
 @pytest.mark.gpu
-def test_eg_kernel_rejects_a_lane_too_large_for_shared_memory(cuda_device):
-    n = 240                                   # f32 lane of ~236 KB
-    f = dict(device=cuda_device, dtype=torch.float32)
-    M = torch.eye(n, **f)[None].contiguous()
-    v = torch.zeros(1, n, **f)
-    with pytest.raises(ValueError, match="shared memory"):
-        eg_cuda.eg_warmstart_cuda(M, v, v, v + 1, v, torch.full((1,), 0.4, **f),
-                                  4)
+@pytest.mark.parametrize("n", [239, 304])
+def test_eg_kernel_takes_a_lane_too_large_for_shared_memory(cuda_device, n):
+    """Past shared memory (n = 239: M of 233 KB with its odd stride) the
+    kernel reads M in place: one launch counted under the global instance's
+    name, the plain loop within 1e-5 of the lane scale after 300 steps, the
+    host instance's bits."""
+    p = _eg_random(cuda_device, n, B=4, seed=n)
+    ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
+    METRICS.reset()
+    zk = eg_cuda.eg_warmstart_cuda(*ins, 300)
+    torch.cuda.synchronize()
+    assert METRICS.launches[eg_cuda.KERNEL_GLOBAL] == 1
+    assert METRICS.launches[eg_cuda.KERNEL] == 0
+    zp = eg.eg_steps_torch(*ins, 300)
+    scale = 1.0 + float(zp.abs().max())
+    assert float((zk - zp).abs().max()) <= 1e-5 * scale
+    zh = eg_cuda.eg_steps_host(*(a.cpu() for a in ins), 300)
+    assert torch.equal(zk.cpu(), zh)
 
 
 @pytest.mark.gpu
@@ -395,15 +424,26 @@ def test_screen_kernel_keeps_nan(cuda_device):
 
 
 @pytest.mark.gpu
-def test_screen_kernel_rejects_a_block_too_large_for_shared_memory(
+def test_screen_kernel_takes_a_block_too_large_for_shared_memory(
         cuda_device):
-    B, m, n = 1, 300, 300          # 300 x 301 f32 rows: 361 KB
-    A = torch.zeros(B, m, n, device=cuda_device)
-    l = torch.full((B, m), -float("inf"), device=cuda_device)
-    u = torch.full((B, m), float("inf"), device=cuda_device)
-    x0 = torch.zeros(B, n, device=cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
-        screen_cuda.feasibility_screen_cuda(A, l, u, x0, 120, 0.05)
+    """Polyhedra of 260 rows in dimension 240 (A of 245 KB with its odd
+    stride) run in the global instance: one launch counted under its name,
+    the host instance's bits, the plain loop within 1e-4 (relative)."""
+    polys, _ = _screen_polys(4, 260, 240, seed=4)
+    prob = screen.screen_prepare(polys)
+    ins = [torch.as_tensor(a, device=cuda_device) for a in prob]
+    METRICS.reset()
+    xk, vk = screen_cuda.feasibility_screen_cuda(*ins, 120, 0.05)
+    torch.cuda.synchronize()
+    assert METRICS.launches[screen_cuda.KERNEL_GLOBAL] == 1
+    assert METRICS.launches[screen_cuda.KERNEL] == 0
+    xh, vh = screen_cuda.screen_steps_host(*(a.cpu() for a in ins), 120,
+                                           0.05)
+    assert torch.equal(xk.cpu(), xh) and torch.equal(vk.cpu(), vh)
+    xp, vp = screen.screen_steps_torch(*ins, 120, 0.05)
+    assert float(((xk - xp).abs().amax(1)
+                  / (1.0 + xp.abs().amax(1))).max()) <= 1e-4
+    assert float(((vk - vp).abs() / (1.0 + vp)).max()) <= 1e-4
 
 
 @pytest.mark.gpu

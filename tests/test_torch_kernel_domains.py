@@ -1,0 +1,224 @@
+"""The whole domain of each kernel: the instance its launcher picks from the
+shape, and the host build of the instances for lanes past shared memory.
+
+Each kernel has an instance whose working set lives in a block's shared
+memory, and one for lanes that do not fit the block's opt-in limit (232448
+bytes on an H100), whose large array stays in device memory: K1's tableau
+(``csrc/lemke_lane.cuh``), K2's M (``csrc/eg_lane.cuh``), K3's A
+(``csrc/screen_lane.cuh``).  The choice is a pure function of the shape and
+the limit, built here with g++ from the kernels' headers; the tests pin its
+boundaries.  The g++ host instances run the lane code of the instance the
+launcher picks, on a lane carved as that instance carves it; at the new
+sizes they are held to the plain PyTorch versions with each file's
+contract:
+
+* K1 (robust_avoid lanes, n = 114, 152, 190; f32 at the hot route's
+  tolerances, f64 at the re-pivot's): status and pivot counts identical,
+  z after the f64 refactorization within 1e-10;
+* K2 (n = 239, 304): z within 1e-5 of the lane scale after 300 steps (f32
+  sums in another order), as ``test_torch_eg.py``;
+* K3 (260 rows in dimension 240): x within 1e-5 of its scale and max |v|
+  within 1e-5 relative, as ``test_torch_screen.py``.
+
+Where the card holds a large array in device memory or in shared memory,
+the sums are the same: both carvings give the same bits.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from qpn_tpu_torch.config import CONFIG
+from qpn_tpu_torch.models.robust_avoid import scenario_batch_gavis
+from qpn_tpu_torch.ops import eg, eg_cuda, lemke, lemke_cuda, screen
+from qpn_tpu_torch.ops import screen_cuda
+from qpn_tpu_torch.ops.avi import natural_residual
+from qpn_tpu_torch.utils.cuda_build import HOPPER_SMEM_OPTIN
+
+HOT = dict(tol=1e-6, piv_tol=1e-5, max_pivots=1024)
+F64 = dict(tol=1e-11, piv_tol=1e-11, max_pivots=1024)
+Z_TOL = 1e-10
+EG_RTOL = 1e-5
+SCREEN_TOL = 1e-5
+SCREEN_STEPS, SCREEN_LR = 120, 0.05
+BIG_OPTIN = 1 << 40        # a limit every lane fits: the shared carving
+
+
+@pytest.fixture(autouse=True)
+def _cpu_device(monkeypatch):
+    """These tests run on the CPU: they ask the port for it (its default
+    device is the card)."""
+    monkeypatch.setattr(CONFIG, "device", "cpu")
+
+
+# --- the choice of instance --------------------------------------------------
+
+@pytest.mark.parametrize("itemsize,n,want", [
+    (4, 38, lemke_cuda.LANE_SHARED), (4, 135, lemke_cuda.LANE_SHARED),
+    (4, 136, lemke_cuda.LANE_GLOBAL), (8, 38, lemke_cuda.LANE_SHARED),
+    (8, 94, lemke_cuda.LANE_SHARED), (8, 95, lemke_cuda.LANE_GLOBAL)],
+    ids=["f32_38", "f32_135", "f32_136", "f64_38", "f64_94", "f64_95"])
+def test_k1_instance_at_its_boundary(itemsize, n, want):
+    assert lemke_cuda.host_lane_instance(n, itemsize,
+                                         HOPPER_SMEM_OPTIN) == want
+    fits = lemke_cuda.host_lane_bytes(n, itemsize) <= HOPPER_SMEM_OPTIN
+    assert fits == (want == lemke_cuda.LANE_SHARED)
+    # a lane of the global instance stays 16-byte aligned in the workspace
+    assert lemke_cuda.host_lane_bytes(n, itemsize) % 16 == 0
+
+
+@pytest.mark.parametrize("n,want", [
+    (38, eg_cuda.EG_REGISTER), (128, eg_cuda.EG_REGISTER),
+    (129, eg_cuda.EG_SHARED), (238, eg_cuda.EG_SHARED),
+    (239, eg_cuda.EG_GLOBAL), (304, eg_cuda.EG_GLOBAL)])
+def test_k2_instance_at_its_boundary(n, want):
+    assert eg_cuda.host_instance(n, HOPPER_SMEM_OPTIN) == want
+
+
+@pytest.mark.parametrize("m,n,want", [
+    (18, 18, screen_cuda.SCREEN_WARP), (32, 32, screen_cuda.SCREEN_WARP),
+    (33, 33, screen_cuda.SCREEN_SHARED), (238, 238, screen_cuda.SCREEN_SHARED),
+    (239, 239, screen_cuda.SCREEN_GLOBAL),
+    (260, 240, screen_cuda.SCREEN_GLOBAL)])
+def test_k3_instance_at_its_boundary(m, n, want):
+    assert screen_cuda.host_instance(m, n, HOPPER_SMEM_OPTIN) == want
+
+
+def test_a_failed_limit_query_picks_the_global_instances():
+    """A negative limit (minus a CUDA error) fits nothing."""
+    assert lemke_cuda.host_lane_instance(38, 4, -1) == lemke_cuda.LANE_GLOBAL
+    assert eg_cuda.host_instance(130, -1) == eg_cuda.EG_GLOBAL
+    assert screen_cuda.host_instance(40, 40, -1) == screen_cuda.SCREEN_GLOBAL
+
+
+# --- K1: lanes past shared memory --------------------------------------------
+
+@pytest.mark.parametrize("dtype,kw", [(torch.float32, HOT),
+                                      (torch.float64, F64)],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("T,n", [(3, 114), (4, 152), (5, 190)],
+                         ids=["n114", "n152", "n190"])
+def test_k1_host_instance_matches_plain_loop_midsize(T, n, dtype, kw):
+    b = scenario_batch_gavis(num_scenarios=8, T=T, num_obj=2,
+                             num_poly_faces=4, seed=0)
+    M, q, l, u, z0 = (torch.as_tensor(b[k]) for k in
+                      ("M", "q", "l", "u", "z0"))
+    vm = torch.as_tensor(b["mask"])
+    assert q.shape == (8, n)
+    init = lemke.lemke_setup(M.to(dtype), q.to(dtype), l.to(dtype),
+                             u.to(dtype), z0.to(dtype), vm, tol=kw["tol"])
+    host = lemke_cuda.lemke_pivot_host(init, **kw)
+    plain = lemke.lemke_pivot_torch(init, **kw)
+    assert torch.equal(host.status, plain.status)
+    assert torch.equal(host.piv, plain.piv)
+    assert (host.status == lemke.LEMKE_SUCCESS).all()
+    zs = []
+    for res in (host, plain):
+        z, ok = lemke.refactor_batch(M, q, l, u, res.basis, res.val, vm)
+        assert bool(ok.all())
+        assert float(natural_residual(M, q, l, u, z, vm).max()) <= 1e-9
+        zs.append(z)
+    assert float((zs[0] - zs[1]).abs().max()) <= Z_TOL
+
+
+# --- K2: M read in place ------------------------------------------------------
+
+def _box_avi(n, seed, B=4):
+    """Seeded monotone box AVIs (``test_torch_eg.py``'s recipe)."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, n, n)) / np.sqrt(n)
+    M = np.einsum("bij,bkj->bik", A, A) + 0.1 * np.eye(n)[None]
+    q = rng.standard_normal((B, n))
+    l = np.where(rng.random((B, n)) < 0.5, 0.0, -np.inf)
+    u = np.where(rng.random((B, n)) < 0.3, 1.0, np.inf)
+    return eg.eg_prepare(*(torch.as_tensor(a) for a in
+                           (M, q, l, u, np.zeros((B, n)))),
+                         torch.ones(B, n, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("steps", [0, 1, 300])
+@pytest.mark.parametrize("n", [239, 304])
+def test_k2_global_instance_matches_plain_loop(n, steps):
+    p = _box_avi(n, seed=n)
+    ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
+    assert eg_cuda.host_instance(n, HOPPER_SMEM_OPTIN) == eg_cuda.EG_GLOBAL
+    zh = eg_cuda.eg_steps_host(*ins, steps)
+    zp = eg.eg_steps_torch(*ins, steps)
+    if steps == 0:
+        assert torch.equal(zh, p.z0)
+    scale = 1.0 + float(zp.abs().max())
+    assert float((zh - zp).abs().max()) <= EG_RTOL * scale
+
+
+def test_k2_global_and_shared_carvings_give_the_same_bits():
+    p = _box_avi(304, seed=3, B=2)
+    ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
+    assert eg_cuda.host_instance(304, BIG_OPTIN) == eg_cuda.EG_SHARED
+    assert torch.equal(eg_cuda.eg_steps_host(*ins, 50),
+                       eg_cuda.eg_steps_host(*ins, 50, optin=BIG_OPTIN))
+
+
+# --- K3: A read in place ------------------------------------------------------
+
+def _polys(B, m, n, seed, centre=0.1):
+    """Seeded polyhedra without strict rows around a centre of scale
+    ``centre``, every odd one empty by two rows with one normal and bounds 2
+    apart; returns (polys, empty truth)."""
+    from qpn_tpu_torch.geometry import Poly
+    rng = np.random.default_rng(seed)
+    polys, truth = [], np.zeros(B, dtype=bool)
+    for b in range(B):
+        A = rng.standard_normal((m, n))
+        ax = A @ (centre * rng.standard_normal(n))
+        w = 0.5 + rng.random(m)
+        l, u = ax - w, ax + w
+        u[2] = np.inf
+        if b % 2:
+            A[1] = A[0]
+            l[0], u[0] = ax[0] + 1.0, np.inf
+            l[1], u[1] = -np.inf, ax[0] - 1.0
+            truth[b] = True
+        polys.append(Poly(A, l, u, normalize=False, dedupe=False))
+    return polys, truth
+
+
+def test_k3_global_instance_matches_plain_loop():
+    polys, _ = _polys(4, 260, 240, seed=0)
+    ins = [torch.as_tensor(a) for a in screen.screen_prepare(polys)]
+    assert ins[0].shape == (4, 260, 240)
+    xh, vh = screen_cuda.screen_steps_host(*ins, SCREEN_STEPS, SCREEN_LR)
+    xp, vp = screen.screen_steps_torch(*ins, SCREEN_STEPS, SCREEN_LR)
+    assert bool(torch.isfinite(xh).all()) and bool(torch.isfinite(vh).all())
+    xerr = (xh - xp).abs().amax(1) / (1.0 + xp.abs().amax(1))
+    assert float(xerr.max()) <= SCREEN_TOL
+    assert float(((vh - vp).abs() / (1.0 + vp)).max()) <= SCREEN_TOL
+    # A read in place, or copied as the shared instance copies it: same bits
+    xs, vs = screen_cuda.screen_steps_host(*ins, SCREEN_STEPS, SCREEN_LR,
+                                           generic=True)
+    assert torch.equal(xh, xs) and torch.equal(vh, vs)
+
+
+def test_k3_global_instance_verdicts_on_the_cpu(monkeypatch):
+    """is_empty_batch with the screen on and the host build of the global
+    instance as the screen's engine (an opt-in limit of 0 bytes sends
+    polyhedra of 40 rows in dimension 36 there): the nonempty polyhedra,
+    centred on the origin, are witnessed; every verdict is the truth."""
+    from qpn_tpu_torch.geometry import is_empty_batch
+    from qpn_tpu_torch.geometry.query_cache import CACHE
+    from qpn_tpu_torch.utils.metrics import METRICS
+    polys, truth = _polys(4, 40, 36, seed=1, centre=0.0)
+    assert screen_cuda.host_instance(40, 36, 0) == screen_cuda.SCREEN_GLOBAL
+    calls = []
+
+    def host_engine(A, l, u, x0, steps, lr):
+        calls.append(tuple(A.shape))
+        return screen_cuda.screen_steps_host(A, l, u, x0, steps, lr, optin=0)
+
+    monkeypatch.setattr(CONFIG, "use_screen", True)
+    monkeypatch.setattr(screen, "screen_engine", lambda device: host_engine)
+    CACHE.clear()
+    METRICS.reset()
+    np.testing.assert_array_equal(is_empty_batch(polys), truth)
+    CACHE.clear()
+    assert calls == [(4, 40, 36)]
+    assert METRICS.counters["screen_witnessed"] == 2

@@ -19,6 +19,16 @@ is left behind and the loader's own attempt fails as before
 (``tests/test_native.py::test_native_builds`` says so).  The step imports
 neither JAX nor the JAX package; the tests below do.
 
+A worker may have imported the loader and lost the race before it
+collects this file: ``tests/test_host_engine.py`` asks
+``native_available()`` when it is imported, and it sorts first.  The
+loader remembers its failure (``_TRIED`` set, ``_LIB`` None) for the
+worker's life.  :func:`forget_a_lost_race` runs after the build: where the
+library file now exists and the loader still remembers the failure, it
+clears the memo, so the next call loads the finished file.  The decisions
+that a test file makes when it is imported, before this file is collected,
+stay as they were.
+
 This concerns the JAX package's library only, which the parity tests load
 as the reference.  The port builds its own copy of the source,
 ``qpn_tpu_torch/csrc/qpn_host.cpp``, into ``build/qpn_tpu_torch/`` through
@@ -86,7 +96,20 @@ def ensure_reference_native(cache_dir=None) -> bool:
                 os.remove(tmp)
 
 
+def forget_a_lost_race(cache_dir=None) -> bool:
+    """Clear the loader's memo of a failed load when the library is there
+    now; True when it did."""
+    native = sys.modules.get("qpn_tpu.utils.native")
+    if native is None or not native._TRIED or native._LIB is not None:
+        return False
+    if not os.path.exists(library_path(cache_dir)):
+        return False
+    native._TRIED = False
+    return True
+
+
 ensure_reference_native()
+forget_a_lost_race()
 
 
 def test_reference_loader_loads_exactly_that_library():
@@ -129,3 +152,21 @@ def test_concurrent_callers_leave_one_valid_library(tmp_path):
                                              cache))]
     lib = ctypes.CDLL(library_path(cache))
     assert hasattr(lib, "qpn_lemke_batch")
+
+
+def test_a_lost_race_is_forgotten_once_the_library_is_there(monkeypatch):
+    """A loader that remembers a failed load (a worker that lost the race)
+    loads the finished library after the memo is cleared; a loader that
+    has its library, or has not tried, is left as it is."""
+    from qpn_tpu.utils import native
+    assert native._load() is not None
+    monkeypatch.setattr(native, "_TRIED", True)
+    monkeypatch.setattr(native, "_LIB", None)
+    assert native.native_available() is False
+    assert forget_a_lost_race() is True
+    assert native.native_available() is True
+    assert native._LIB is not None
+    assert forget_a_lost_race() is False
+    monkeypatch.setattr(native, "_TRIED", False)
+    monkeypatch.setattr(native, "_LIB", None)
+    assert forget_a_lost_race() is False

@@ -20,7 +20,8 @@ Phases, one line each, with their seconds; any failure exits non-zero:
    timed with CUDA events;
 5. the same for the kernel's f64 instance on 16 lanes (tol 1e-11);
 6. the KKT main path, ``ops.avi.solve_kkt_avi_batch(..., tol=1e-8)``: every
-   lane certified, the kernel's launch count above 0, the natural residual
+   lane certified, the kernel's launch count above 0 (its shared instance;
+   none of its cluster or global instance), the natural residual
    re-audited in numpy, z against the port's CPU path on 8 lanes; solves/s
    as the median of 7 warm runs, with the kernel and with the plain loop;
 7. the extragradient kernel against its plain PyTorch version on all 256
@@ -116,32 +117,52 @@ Phases, one line each, with their seconds; any failure exits non-zero:
    the native library's path, which must lie under ``build/qpn_tpu_torch/``,
    each model's wall on both devices and the kernels' launches.
 20. the kernels' whole domain: lanes past a block's shared memory run in
-   each kernel's global-memory instance.  (a) robust_avoid S=256 at T=4 and
-   T=5 with num_obj=2 (n=152, 190; num_poly_faces=4, seed 0) through
-   ``solve_kkt_avi_batch(tol=1e-8)``: every lane certified, 0 uncertified,
-   the numpy re-audit, at least one launch of K1's global instance a call
-   and none of the shared one; the same calls with the plain loop on the
-   card: equal pivots and certification on all lanes; K1 against the plain
-   loop from one f32 setup on all 256 lanes (status and pivots identical,
-   the refactorized residual and z as in phase 4), solves/s both ways; (b)
-   phase 9's forced stragglers at n=152: ``lemke_escalate`` in K1's global
-   f64 instance, and K1 f64 against the plain loop on 16 lanes; (c) the
-   generic route at T=8, num_obj=2 (n=304, S=256) with the EG pre-pass of
-   phase 8, which runs in K2's global instance: every lane certified, the
-   numpy re-audit, then K2 against the plain loop at 300 and 20000 steps
-   as in phase 7; (d) ``is_empty_batch`` with the screen on for 4 seeded
-   polyhedra of 260 rows in dimension 240 (no strict rows, centred on the
-   origin, every second one empty): the verdicts the truth, at least one
-   launch of K3's global instance, and K3 against the plain loop as in
-   phase 10; (e) each global instance on 8 lanes against the bits of its
-   g++ host instance (K1 f32 at n=190 and f64 at n=152, K2 at n=304 and 300
-   steps, K3 on the 4 polyhedra).
+   K1's and K2's cluster instances (the lane spread over the shared memory
+   of a cluster of 2-8 blocks) and K3's global-memory instance.  (a)
+   robust_avoid S=256 at T=4 and T=5 with num_obj=2 (n=152, 190;
+   num_poly_faces=4, seed 0) through ``solve_kkt_avi_batch(tol=1e-8)``:
+   every lane certified, 0 uncertified, the numpy re-audit, at least one
+   launch of K1's cluster instance a call and none of the others; the same
+   calls with the plain loop on the card: equal pivots and certification
+   on all lanes; K1 against the plain loop from one f32 setup on all 256
+   lanes (status and pivots identical, the refactorized residual and z as
+   in phase 4), solves/s both ways; (b) phase 9's forced stragglers at
+   n=152: ``lemke_escalate`` in K1's cluster f64 instance, and K1 f64
+   against the plain loop on 16 lanes; (c) the generic route at T=8,
+   num_obj=2 (n=304, S=256) with the EG pre-pass of phase 8, which runs in
+   K2's cluster instance and no other: every lane certified, the numpy
+   re-audit, its wall warm, then K2 against the plain loop at 300 and
+   20000 steps as in phase 7; (d) ``is_empty_batch`` with the screen on for
+   4 seeded polyhedra of 260 rows in dimension 240 (no strict rows, centred
+   on the origin, every second one empty): the verdicts the truth, at least
+   one launch of K3's global instance, and K3 against the plain loop as in
+   phase 10; (e) each instance on 8 lanes against the bits of its g++ host
+   build (K1 f32 at n=190 and f64 at n=152 and K2 at n=304 and 300 steps,
+   emulating the cluster's ranks; K3 on the 4 polyhedra); (f) the A/B in
+   this run: K1's and K2's global instances through the wrappers' private
+   launchers at the cluster instances' shapes (K1 f32 S=256 n=190, f64 16
+   lanes n=152; K2 n=304, 20000 steps), equal to the cluster instances bit
+   for bit, both timed (median of 7 launches between CUDA events; K2 of
+   3), the ratio printed; (g) phase 9's forced stragglers at n=304, whose
+   f64 re-pivot lanes are past K1's cluster reach: ``lemke_escalate`` in
+   K1's global instance, then that instance against the plain loop on the
+   16 lanes (f64 at n=304, as in (b)); (h) the generic route at T=18,
+   num_obj=2 (n=684, S=4), past K2's cluster reach: its EG pre-pass in
+   K2's global instance and no other, every lane certified, the numpy
+   re-audit, then that instance against the plain loop on the 4 lanes at
+   300 and 20000 steps, as in phase 7.
 
-Then one JSON line for the kernels (launches on the main paths, error
-against the plain version, the kernel's, the plain version's and the bound's
-milliseconds: the larger of the bytes each call must move over 3.35 TB/s
-and its operations over 67 TFLOP/s, the f32 rate outside the tensor cores,
-counted from this run's shapes, steps and pivots), and the last line
+Then one JSON line for the kernels, a row for each instance (K1 and K2:
+shared or register, cluster, global; K3: warp or shared, global): launches
+on the main paths, error against the plain version, the kernel's, the plain
+version's and the bound's milliseconds: the larger of the bytes each call
+must move over 3.35 TB/s and its operations over the rate of their type
+outside the tensor cores (f32 67 TFLOP/s; 34 for K1's global row, whose
+lanes are f64), counted from this run's shapes, steps and pivots.
+The global rows of K1 and K2 count their launches on (g) and (h) and take
+their error, times and bound from the comparisons at those shapes; the
+A/B's times are printed on its own lines.
+Then the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The script needs no network and imports nothing of JAX.
 """
@@ -255,6 +276,8 @@ HARD = dict(num_scenarios=32, T=8, num_obj=4, num_poly_faces=4, seed=2)
 # polyhedra for K3's (rows, dimension); the lanes held to the host bits.
 MIDSIZE = [(4, 2), (5, 2)]
 MIDSIZE_GENERIC = (8, 2)
+# the generic route past K2's cluster reach (S, T, num_obj; n = 684)
+LARGE_GENERIC = (4, 18, 2)
 DOMAIN_SCREEN_B, DOMAIN_SCREEN_M, DOMAIN_SCREEN_N = 4, 260, 240
 HOST_BIT_LANES = 8
 # Timed calls of phase 20 (the plain loops take 1-3 s a call there).
@@ -268,13 +291,16 @@ def tensor_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, f64: bool = False):
     """(least ms the card could take, which resource sets it, bytes, flops):
     every input read once and every output written once over the memory
-    rate, against the operations over the f32 rate outside the tensor
-    cores (what these three f32 kernels can use)."""
-    from qpn_tpu_torch.utils.flops import H100_HBM_BYTES_S, H100_PEAK_F32
-    t_b, t_f = nbytes / H100_HBM_BYTES_S, flops / H100_PEAK_F32
+    rate, against the operations over the rate of their type outside the
+    tensor cores (what these kernels can use): f32, or f64 for K1's f64
+    tier."""
+    from qpn_tpu_torch.utils.flops import (H100_HBM_BYTES_S, H100_PEAK_F32,
+                                           H100_PEAK_F64)
+    peak = H100_PEAK_F64 if f64 else H100_PEAK_F32
+    t_b, t_f = nbytes / H100_HBM_BYTES_S, flops / peak
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations",
             nbytes, flops)
 
@@ -286,7 +312,8 @@ def lemke_bound(init, res):
     n = init.T.shape[1]
     iters = float((res.piv.double() + 1).sum())
     return bound(tensor_bytes(*init) + tensor_bytes(*res),
-                 iters * (2 * n * (3 * n + 1) + 2 * n * (3 * n + 2)))
+                 iters * (2 * n * (3 * n + 1) + 2 * n * (3 * n + 2)),
+                 f64=init.T.dtype.itemsize == 8)
 
 
 def eg_bound(ins, out, steps):
@@ -1472,9 +1499,9 @@ def host_bits(name, kernel_out, host_out):
 
 
 def midsize_kkt(T, num_obj, device, say, card, repeats):
-    """Phase 20 (a) at one size: the KKT route on the card with K1's global
+    """Phase 20 (a) at one size: the KKT route on the card with K1's cluster
     instance, the same calls with the plain loop, and K1 against the plain
-    loop from one f32 setup.  Returns (launches of the global instance, the
+    loop from one f32 setup.  Returns (launches of the cluster instance, the
     data and batch, compare_engines' result)."""
     import numpy as np
     import torch
@@ -1492,13 +1519,14 @@ def midsize_kkt(T, num_obj, device, say, card, repeats):
     METRICS.reset()
     res = solve_kkt_avi_batch(*args, tol=SOLVE_TOL)
     torch.cuda.synchronize(device)
-    launches = METRICS.launches[lemke_cuda.KERNEL_GLOBAL]
-    shared = METRICS.launches[lemke_cuda.KERNEL]
+    launches = METRICS.launches[lemke_cuda.KERNEL_CLUSTER]
+    others = (METRICS.launches[lemke_cuda.KERNEL]
+              + METRICS.launches[lemke_cuda.KERNEL_GLOBAL])
     uncertified = METRICS.counters["kkt_uncertified_lanes"]
     routed = METRICS.counters["kkt_shared_route"]
-    if launches < 1 or shared != 0:
-        fail(f"n={n}: {launches} launches of K1's global instance and "
-             f"{shared} of its shared one in the KKT call")
+    if launches < 1 or others != 0:
+        fail(f"n={n}: {launches} launches of K1's cluster instance and "
+             f"{others} of its shared and global ones in the KKT call")
     z = res.z.cpu().numpy()
     conv = float(res.converged.double().mean())
     if z.shape != (B, n) or not np.isfinite(z).all():
@@ -1529,50 +1557,93 @@ def midsize_kkt(T, num_obj, device, say, card, repeats):
                           lemke_cuda.lemke_pivot_cuda, device, repeats)
     err, t_k, t_p, rk, bnd = eng
     piv = res.iters.double()
+    _, ranks = lemke_cuda.card_instance(n, 4, device)
     say(f"midsize KKT robust_avoid S={B} T={T} num_obj={num_obj} n={n}: "
         f"conv {conv}, max resid {resid.max():.3g}, {int(uncertified)} "
-        f"uncertified, {launches} launch(es) of {lemke_cuda.KERNEL_GLOBAL}; "
-        f"pivots {int(piv.min())}-{int(piv.max())} equal to the plain "
-        f"loop's on all lanes, z within {dz:.3g}; {B / t_kernel:.1f} "
-        f"solves/s with the kernel ({t_kernel * 1e3:.3f} ms), "
-        f"{B / t_plain:.1f} with the plain loop ({t_plain * 1e3:.3f} ms), "
-        f"median of {repeats}; f32 pivot loop alone: status and pivots "
-        f"identical, max |dz| {err:.3g}, kernel {t_k * 1e3:.4f} ms, plain "
-        f"{t_p * 1e3:.4f} ms, bound {bnd[0]:.5f} ms by {bnd[1]} [{card}]")
+        f"uncertified, {launches} launch(es) of {lemke_cuda.KERNEL_CLUSTER} "
+        f"({ranks} blocks a lane); pivots "
+        f"{int(piv.min())}-{int(piv.max())} equal to the plain loop's on all "
+        f"lanes, z within {dz:.3g}; {B / t_kernel:.1f} solves/s with the "
+        f"kernel ({t_kernel * 1e3:.3f} ms), {B / t_plain:.1f} with the plain "
+        f"loop ({t_plain * 1e3:.3f} ms), median of {repeats}; f32 pivot loop "
+        f"alone: status and pivots identical, max |dz| {err:.3g}, kernel "
+        f"{t_k * 1e3:.4f} ms, plain {t_p * 1e3:.4f} ms, bound {bnd[0]:.5f} "
+        f"ms by {bnd[1]} [{card}]")
     return launches, data, batch, eng
 
 
-def k1_global_host_bits(data, dtype, kw, say, label):
-    """K1's global instance on HOST_BIT_LANES lanes against its host
-    instance, bit for bit."""
+def k1_host_bits(data, dtype, kw, say, label):
+    """K1's cluster instance on HOST_BIT_LANES lanes against the bits of its
+    g++ host emulation (the lane spread over the same ranks)."""
     from qpn_tpu_torch.ops import lemke, lemke_cuda
     M, q, l, u, z0, vm = (data[k][:HOST_BIT_LANES] for k in KEYS)
     init = lemke.lemke_setup(*(a.to(dtype) for a in (M, q, l, u, z0)), vm,
                              tol=kw["tol"])
     n = q.shape[1]
-    if lemke_cuda.host_lane_instance(n, init.T.element_size(),
-                                     lemke_cuda.card_optin(q.device)
-                                     ) != lemke_cuda.LANE_GLOBAL:
-        fail(f"K1 {label}: n={n} does not take the global instance")
+    instance, ranks = lemke_cuda.card_instance(n, init.T.element_size(),
+                                               q.device)
+    if instance != lemke_cuda.LANE_CLUSTER:
+        fail(f"K1 {label}: n={n} does not take the cluster instance")
     rk = lemke_cuda.lemke_pivot_cuda(init, **kw)
     rh = lemke_cuda.lemke_pivot_host(lemke.LemkeInit(*(a.cpu() for a in
-                                                       init)), **kw)
-    host_bits(f"K1 global {label}", [rk.status, rk.piv, rk.basis, rk.val,
-                                     rk.xB],
+                                                       init)),
+                                     optin=lemke_cuda.card_optin(q.device),
+                                     **kw)
+    host_bits(f"K1 cluster {label}", [rk.status, rk.piv, rk.basis, rk.val,
+                                      rk.xB],
               [rh.status, rh.piv, rh.basis, rh.val, rh.xB])
-    say(f"K1 global {label} n={n}: status, pivots, basis, values and basic "
-        f"values equal to the g++ host instance's bit for bit on "
-        f"{HOST_BIT_LANES} lanes")
+    say(f"K1 cluster {label} n={n} on {ranks} blocks a lane: status, pivots, "
+        f"basis, values and basic values equal to the g++ host emulation's "
+        f"of {ranks} ranks bit for bit on {HOST_BIT_LANES} lanes")
+
+
+def k1_ab(data, lanes, dtype, kw, device, say, card, label):
+    """The A/B of phase 20: K1's global instance at a cluster size through
+    the wrapper's private launcher, against the cluster instance on the same
+    setup: the same bits, both timed (median of REPEATS launches between
+    CUDA events)."""
+    import torch
+    from qpn_tpu_torch.ops import lemke, lemke_cuda
+    M, q, l, u = (data[k][:lanes] for k in ("M", "q", "l", "u"))
+    vm = data["mask"][:lanes]
+    init = lemke.lemke_setup(*(a.to(dtype) for a in (M, q, l, u)),
+                             torch.zeros_like(q, dtype=dtype), vm,
+                             tol=kw["tol"])
+    n = q.shape[1]
+
+    def glob():
+        return lemke_cuda._launch(init, instance=lemke_cuda.LANE_GLOBAL,
+                                  **kw)
+
+    rc = lemke_cuda.lemke_pivot_cuda(init, **kw)
+    rg = glob()
+    torch.cuda.synchronize(device)
+    for name, a, b in zip(rc._fields, rc, rg):
+        if not torch.equal(a, b):
+            fail(f"K1 A/B {label} n={n}: {name} of the global instance "
+                 f"differs from the cluster instance's on "
+                 f"{int((a != b).sum())} entries")
+    t_c = device_timed(lambda: lemke_cuda.lemke_pivot_cuda(init, **kw),
+                       device)
+    t_g = device_timed(glob, device)
+    say(f"K1 A/B {label} B={lanes} n={n}: global instance (private launcher) "
+        f"equal to the cluster instance bit for bit; cluster {t_c * 1e3:.4f} "
+        f"ms, global {t_g * 1e3:.4f} ms (median of {REPEATS}), global / "
+        f"cluster {t_g / t_c:.2f} [{card}]")
 
 
 def midsize_generic(device, say, card):
     """Phase 20 (c): the generic route at n=304 with the EG pre-pass in K2's
-    global instance; then K2 against the plain loop and its host bits.
-    Returns (launches, compare_eg's (err, kernel s, plain s, bound))."""
+    cluster instance; then K2 against the plain loop, its host bits and the
+    A/B with the global instance; (g) the forced stragglers at n=304, whose
+    f64 re-pivot takes K1's global instance, and that instance against the
+    plain loop on their lanes.  Returns (launches, compare_eg's (err, kernel
+    s, plain s, bound), K1 global launches, compare_engines' (err, kernel s,
+    plain s, bound) for K1's global instance)."""
     import numpy as np
     import torch
     from qpn_tpu_torch.models.robust_avoid import scenario_batch_gavis
-    from qpn_tpu_torch.ops import eg, eg_cuda
+    from qpn_tpu_torch.ops import eg, eg_cuda, lemke_cuda
     from qpn_tpu_torch.ops.avi import batch_from_numpy, solve_avi_batch_adaptive
     from qpn_tpu_torch.utils.metrics import METRICS
     T, num_obj = MIDSIZE_GENERIC
@@ -1587,13 +1658,14 @@ def midsize_generic(device, say, card):
     res = solve_avi_batch_adaptive(*args, **kw)
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
-    launches = METRICS.launches[eg_cuda.KERNEL_GLOBAL]
-    shared = METRICS.launches[eg_cuda.KERNEL]
+    launches = METRICS.launches[eg_cuda.KERNEL_CLUSTER]
+    others = (METRICS.launches[eg_cuda.KERNEL]
+              + METRICS.launches[eg_cuda.KERNEL_GLOBAL])
     accepted = int(METRICS.counters["eg_accepted_lanes"])
     escalated = int(METRICS.counters["escalated_lanes"])
-    if launches < 1 or shared != 0:
-        fail(f"generic n={n}: {launches} launches of K2's global instance, "
-             f"{shared} of the others")
+    if launches < 1 or others != 0:
+        fail(f"generic n={n}: {launches} launches of K2's cluster instance, "
+             f"{others} of the others")
     z = res.z.cpu().numpy()
     conv = float(res.converged.double().mean())
     if z.shape != (B, n) or not np.isfinite(z).all() or conv != 1.0:
@@ -1602,21 +1674,107 @@ def midsize_generic(device, say, card):
     if not resid.max() <= SOLVE_TOL:
         fail(f"generic n={n}, numpy audit: max natural residual "
              f"{resid.max()!r}")
+    t_warm = timed(lambda: solve_avi_batch_adaptive(*args, **kw), device,
+                   DOMAIN_REPEATS)
+    _, ranks = eg_cuda.card_instance(n, device)
     say(f"midsize generic solve_avi_batch_adaptive S={B} T={T} "
         f"num_obj={num_obj} n={n} mixed=True onchip_eg_steps={EG_STEPS}: "
         f"conv {conv}, max resid {resid.max():.3g}, {launches} launch(es) "
-        f"of {eg_cuda.KERNEL_GLOBAL}, EG accepted on {accepted}/{B} lanes, "
-        f"{escalated} escalated; {wall:.3f} s (first call) [{card}]")
+        f"of {eg_cuda.KERNEL_CLUSTER} ({ranks} blocks a lane), EG accepted "
+        f"on {accepted}/{B} lanes, "
+        f"{escalated} escalated; {wall:.3f} s the first call, "
+        f"{t_warm:.3f} s warm (median of {DOMAIN_REPEATS}), "
+        f"{B / t_warm:.1f} solves/s [{card}]")
     p = eg.eg_prepare(*(a[:HOST_BIT_LANES] for a in args))
     ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
     optin = eg_cuda.card_optin(device)
-    if eg_cuda.host_instance(n, optin) != eg_cuda.EG_GLOBAL:
-        fail(f"K2: n={n} does not take the global instance")
+    if eg_cuda.host_instance(n, optin) != eg_cuda.EG_CLUSTER:
+        fail(f"K2: n={n} does not take the cluster instance")
     zk = eg_cuda.eg_warmstart_cuda(*ins, 300)
     zh = eg_cuda.eg_steps_host(*(a.cpu() for a in ins), 300, optin=optin)
-    host_bits("K2 global", [zk], [zh])
-    say(f"K2 global n={n}: z after 300 steps equal to the g++ host "
-        f"instance's bit for bit on {HOST_BIT_LANES} lanes")
+    host_bits("K2 cluster", [zk], [zh])
+    say(f"K2 cluster n={n} on {ranks} blocks a lane: z after 300 steps equal "
+        f"to the g++ host emulation's of {ranks} ranks bit for bit on "
+        f"{HOST_BIT_LANES} lanes")
+    eg_row = compare_eg(data, device, say, card, repeats=DOMAIN_REPEATS)
+    # the A/B: the global instance at the same shape, 20000 steps
+    p = eg.eg_prepare(*args)
+    ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
+    zc = eg_cuda.eg_warmstart_cuda(*ins, EG_STEPS)
+    zg = eg_cuda._launch(*ins, EG_STEPS, instance=eg_cuda.EG_GLOBAL)
+    torch.cuda.synchronize(device)
+    if not torch.equal(zc, zg):
+        fail(f"K2 A/B n={n}: the global instance differs from the cluster "
+             f"instance on {int((zc != zg).sum())} entries")
+    t_c = device_timed(lambda: eg_cuda.eg_warmstart_cuda(*ins, EG_STEPS),
+                       device, DOMAIN_REPEATS)
+    t_g = device_timed(lambda: eg_cuda._launch(
+        *ins, EG_STEPS, instance=eg_cuda.EG_GLOBAL), device, DOMAIN_REPEATS)
+    say(f"K2 A/B B={B} n={n} steps={EG_STEPS}: global instance (private "
+        f"launcher) equal to the cluster instance bit for bit; cluster "
+        f"{t_c * 1e3:.4f} ms, global {t_g * 1e3:.4f} ms (median of "
+        f"{DOMAIN_REPEATS}), global / cluster {t_g / t_c:.2f} [{card}]")
+    # (g) stragglers at n=304: f64 lanes past 8 ranks, K1's global instance
+    lanes = 16
+    forced_stragglers(data, batch, device, say, card, lanes=lanes,
+                      kernel=lemke_cuda.KERNEL_GLOBAL)
+    k1_global = METRICS.launches[lemke_cuda.KERNEL_GLOBAL]
+    if lemke_cuda.card_instance(n, 8, device)[0] != lemke_cuda.LANE_GLOBAL:
+        fail(f"K1 f64 n={n} does not take the global instance")
+    err, t_k, t_p, _, bnd = compare_engines(
+        data, lanes, torch.float64, F64, lemke_cuda.lemke_pivot_cuda, device,
+        DOMAIN_REPEATS)
+    say(f"{lemke_cuda.KERNEL_GLOBAL} f64 B={lanes} n={n}: status and pivots "
+        f"identical to the plain loop's, max |dz| {err:.3g}; kernel "
+        f"{t_k * 1e3:.4f} ms, plain {t_p * 1e3:.4f} ms (median of "
+        f"{DOMAIN_REPEATS}), bound {bnd[0]:.5f} ms by {bnd[1]} [{card}]")
+    return launches, eg_row, k1_global, (err, t_k, t_p, bnd)
+
+
+def large_generic(device, say, card):
+    """Phase 20 (h): the generic route past K2's cluster reach, where its
+    EG pre-pass takes the global instance; then that instance against the
+    plain loop on the same lanes.  Returns (its launches in the route,
+    compare_eg's (err, kernel s, plain s, bound))."""
+    import numpy as np
+    import torch
+    from qpn_tpu_torch.models.robust_avoid import scenario_batch_gavis
+    from qpn_tpu_torch.ops import eg_cuda
+    from qpn_tpu_torch.ops.avi import batch_from_numpy, solve_avi_batch_adaptive
+    from qpn_tpu_torch.utils.metrics import METRICS
+    lanes, T, num_obj = LARGE_GENERIC
+    batch = scenario_batch_gavis(num_scenarios=lanes, T=T, num_obj=num_obj,
+                                 num_poly_faces=FACES, seed=SEED)
+    data = batch_from_numpy(batch)
+    B, n = data["q"].shape
+    METRICS.reset()
+    t0 = time.perf_counter()
+    res = solve_avi_batch_adaptive(*(data[k] for k in KEYS), tol=SOLVE_TOL,
+                                   mixed=True, onchip_eg_steps=EG_STEPS)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = METRICS.launches[eg_cuda.KERNEL_GLOBAL]
+    others = (METRICS.launches[eg_cuda.KERNEL]
+              + METRICS.launches[eg_cuda.KERNEL_CLUSTER])
+    if launches < 1 or others != 0:
+        fail(f"generic n={n}: {launches} launches of K2's global instance, "
+             f"{others} of the others")
+    z = res.z.cpu().numpy()
+    conv = float(res.converged.double().mean())
+    if z.shape != (B, n) or not np.isfinite(z).all() or conv != 1.0:
+        fail(f"generic n={n}: z shape {z.shape}, conv {conv}")
+    resid = numpy_audit(batch, z)
+    if not resid.max() <= SOLVE_TOL:
+        fail(f"generic n={n}, numpy audit: max natural residual "
+             f"{resid.max()!r}")
+    say(f"large generic solve_avi_batch_adaptive S={B} T={T} "
+        f"num_obj={num_obj} n={n}: conv {conv}, max resid "
+        f"{resid.max():.3g}, {launches} launch(es) of "
+        f"{eg_cuda.KERNEL_GLOBAL}, EG accepted on "
+        f"{int(METRICS.counters['eg_accepted_lanes'])}/{B} lanes; "
+        f"{wall:.3f} s the first call [{card}]")
+    if eg_cuda.card_instance(n, device)[0] != eg_cuda.EG_GLOBAL:
+        fail(f"K2 n={n} does not take the global instance")
     return launches, compare_eg(data, device, say, card,
                                 repeats=DOMAIN_REPEATS)
 
@@ -1676,8 +1834,9 @@ def midsize_screen(device, say, card):
 
 
 def domain_phase(device, say, card):
-    """Phase 20: every kernel's global-memory instance on the normal entry
-    points.  Returns the three kernel rows of the JSON line."""
+    """Phase 20: the kernels' instances for lanes past a block's shared
+    memory on the normal entry points.  Returns the kernel rows of the JSON
+    line: K1 and K2 cluster and global, K3 global."""
     import torch
     from qpn_tpu_torch.ops import eg_cuda, lemke_cuda, screen_cuda
     rows = {}
@@ -1686,34 +1845,40 @@ def domain_phase(device, say, card):
         launches, data, batch, eng = midsize_kkt(T, num_obj, device, say,
                                                  card, DOMAIN_REPEATS)
         if i == 0:
-            # (b) the forced stragglers at n=152, in the global f64 instance
+            # (b) the forced stragglers at n=152, in the cluster f64 instance
             forced_stragglers(data, batch, device, say, card,
-                              kernel=lemke_cuda.KERNEL_GLOBAL)
+                              kernel=lemke_cuda.KERNEL_CLUSTER)
             err64, t_k64, t_p64, _, _ = compare_engines(
                 data, 16, torch.float64, F64, lemke_cuda.lemke_pivot_cuda,
                 device, DOMAIN_REPEATS)
-            say(f"lemke_pivot_global f64 B=16 n={data['q'].shape[1]}: "
+            say(f"lemke_pivot_cluster f64 B=16 n={data['q'].shape[1]}: "
                 f"status and pivots identical, max |dz| {err64:.3g}; kernel "
                 f"{t_k64 * 1e3:.4f} ms, plain {t_p64 * 1e3:.4f} ms [{card}]")
-            k1_global_host_bits(data, torch.float64, F64, say, "f64")
+            k1_host_bits(data, torch.float64, F64, say, "f64")
+            k1_ab(data, 16, torch.float64, F64, device, say, card, "f64")
         if last:
-            k1_global_host_bits(data, torch.float32, HOT, say, "f32")
+            k1_host_bits(data, torch.float32, HOT, say, "f32")
             err, t_k, t_p, _, bnd = eng
-            rows["k1"] = kernel_row(
-                lemke_cuda.KERNEL_GLOBAL, "qpn_tpu_torch/csrc/lemke_pivot.cu",
-                "qpn_tpu/ops/lemke_pallas.py:118", launches, err, t_k, t_p,
-                bnd)
-    launches, (err, t_k, t_p, bnd) = midsize_generic(device, say, card)
-    rows["k2"] = kernel_row(eg_cuda.KERNEL_GLOBAL,
-                            "qpn_tpu_torch/csrc/eg_warmstart.cu",
-                            "qpn_tpu/ops/pallas_kernels.py:57", launches, err,
-                            t_k, t_p, bnd)
+            k1_ab(data, S, torch.float32, HOT, device, say, card, "f32")
+            rows["k1c"] = (lemke_cuda.KERNEL_CLUSTER, launches, err, t_k, t_p,
+                           bnd)
+    launches, k2c, k1_global, k1g = midsize_generic(device, say, card)
+    # each global row: launches, error and times at the shape it launches at
+    # on the path, (g) and (h)
+    rows["k1g"] = (lemke_cuda.KERNEL_GLOBAL, k1_global, *k1g)
+    rows["k2c"] = (eg_cuda.KERNEL_CLUSTER, launches, *k2c)
+    launches, k2g = large_generic(device, say, card)
+    rows["k2g"] = (eg_cuda.KERNEL_GLOBAL, launches, *k2g)
     launches, (err, t_k, t_p, bnd) = midsize_screen(device, say, card)
-    rows["k3"] = kernel_row(screen_cuda.KERNEL_GLOBAL,
-                            "qpn_tpu_torch/csrc/screen.cu",
-                            "qpn_tpu/ops/pallas_kernels.py:205", launches,
-                            err, t_k, t_p, bnd)
-    return [rows["k1"], rows["k2"], rows["k3"]]
+    rows["k3g"] = (screen_cuda.KERNEL_GLOBAL, launches, err, t_k, t_p, bnd)
+    sources = {"k1": ("qpn_tpu_torch/csrc/lemke_pivot.cu",
+                      "qpn_tpu/ops/lemke_pallas.py:118"),
+               "k2": ("qpn_tpu_torch/csrc/eg_warmstart.cu",
+                      "qpn_tpu/ops/pallas_kernels.py:57"),
+               "k3": ("qpn_tpu_torch/csrc/screen.cu",
+                      "qpn_tpu/ops/pallas_kernels.py:205")}
+    return [kernel_row(name, *sources[key[:2]], launches, err, t_k, t_p, bnd)
+            for key, (name, launches, err, t_k, t_p, bnd) in rows.items()]
 
 
 def main() -> None:
@@ -1802,8 +1967,9 @@ def main() -> None:
     uncertified = METRICS.counters["kkt_uncertified_lanes"]
     if launches < 1:
         fail("the main path did not launch the lemke_pivot kernel")
-    if METRICS.launches[lemke_cuda.KERNEL_GLOBAL] != 0:
-        fail("the flagship's lanes took K1's global instance")
+    if (METRICS.launches[lemke_cuda.KERNEL_GLOBAL]
+            + METRICS.launches[lemke_cuda.KERNEL_CLUSTER]) != 0:
+        fail("the flagship's lanes took K1's cluster or global instance")
     z = res.z.cpu().numpy()
     conv = float(res.converged.double().mean())
     if z.shape != (B, n) or not np.isfinite(z).all():

@@ -18,10 +18,22 @@
 //     and joins with xor shuffles;
 //   * eg_row_sum: a loop over the same partition and the same butterfly,
 //     for the host instance.  The generic kernels' partition is (1, n): one
-//     chunk, plain column order (eg_row), whether the lane's M sits in
-//     shared memory or stays in device memory (eg_instance picks).
+//     chunk, plain column order (eg_row), whether the lane's M sits in one
+//     block's shared memory, is spread over a cluster's, or stays in device
+//     memory (eg_instance picks).
 // Floating-point addition commutes, so every thread of a group ends the
 // butterfly with the same bits, and the loop reproduces them.
+//
+// Ranks (the cluster instance; R = 1 elsewhere).  Rank k of R holds a band
+// of nb = ceil(n / R) rows of M, k·nb onwards, with their q, l and u, and
+// a copy of the whole z and z½.  A half-step computes the band's rows of
+// the new vector from this rank's copy of the old one and writes each new
+// entry into every rank's copy (eg_put: distributed shared memory on the
+// card); one barrier of the ranks follows.  Between two barriers no rank
+// reads what another writes: the first half-step reads z and writes z½,
+// the second reads z½ and the band's own rows of z, writes z, and each row
+// of z is written by its band's rank only.  So the host's emulation, each
+// half-step run for rank 0, 1, ..., R-1 in turn, gives the card's bits.
 //
 // The projection is min(max(x, l), u) with NaN passing through, like
 // torch.clamp and jnp.clip: a lane that diverges to NaN stays NaN, and the
@@ -37,10 +49,8 @@
 #define QPN_EG_HD inline
 #endif
 
-#if defined(__CUDA_ARCH__)
-#define QPN_EG_SYNC() __syncthreads()
-#else
-#define QPN_EG_SYNC() ((void)0)
+#if defined(__CUDACC__)
+#include <cooperative_groups.h>
 #endif
 
 namespace qpn {
@@ -118,49 +128,86 @@ QPN_EG_HD float eg_row_sum(const float* Mi, const float* x, int n, int C) {
 
 // ---- the lane in memory: the generic kernels and the host instance ------
 
-// One lane's working set.  In the shared instance all of it sits in shared
-// memory, the rows of M ld = n | 1 floats apart (an odd stride puts the rows
-// that neighbouring threads read on different banks).  In the global
-// instance, for lanes whose M does not fit, M stays where the batch holds it
-// in device memory (ld = n) and is read every half-step; q, l, u, z and z½
-// sit in shared memory.  The sums read M through `M` either way.
+// One lane's working set, or one rank's part of it.  In the shared instance
+// all of it sits in shared memory, the rows of M ld = n | 1 floats apart (an
+// odd stride puts the rows that neighbouring threads read on different
+// banks); in the cluster instance each rank's part does.  In the global
+// instance, for lanes whose M fits no cluster, M stays where the batch
+// holds it in device memory (ld = n) and is read every half-step; q, l, u,
+// z and z½ sit in shared memory.  The sums read M through `M` either way.
 struct EGLane {
     int n, ld;
-    const float* M;  // (n, ld)
+    int R, rank;     // ranks of the lane, and this one
+    int nb, r0;      // rows a band, ceil(n / R); this rank's first row
+    int rows;        // this rank's rows: nb, fewer in the last band
+    const float* M;  // (nb, ld): rows r0 + [0, rows)
     float* Ms;       // the shared copy of M that eg_lane_load fills, or null
-    float* q;        // (n)
+    float* q;        // (nb) the band's rows
     float* l;
     float* u;
-    float* z;
-    float* zh;       // z½
+    float* z;        // (n) the whole vector
+    float* zh;       // (n) z½
+    float* const* bases;  // host: each rank's buffer (R > 1)
 };
 
 QPN_EG_HD int eg_ld(int n) { return n | 1; }
 
-// Shared memory of the shared instance's lane, and of the global one's.
-QPN_EG_HD size_t eg_lane_bytes(int n) {
-    return ((size_t)n * eg_ld(n) + 5 * (size_t)n) * sizeof(float);
+QPN_EG_HD int eg_band_height(int n, int R) { return (n + R - 1) / R; }
+
+// Floats rounded up to a multiple of 4 (16 bytes).
+QPN_EG_HD size_t eg_align4(size_t k) { return (k + 3) & ~size_t(3); }
+
+// Floats of the vectors: z and z½ first, each 16-byte aligned (eg_row reads
+// them four at a time), then the band's q, l and u.
+QPN_EG_HD size_t eg_vector_floats(int n, int nb) {
+    return 2 * eg_align4((size_t)n) + 3 * (size_t)nb;
 }
+
+// Shared memory of one rank of a lane whose bands are nb rows high, of the
+// shared instance's lane (one band), and of the global one's.
+QPN_EG_HD size_t eg_band_bytes(int n, int nb) {
+    return (eg_align4((size_t)nb * eg_ld(n)) + eg_vector_floats(n, nb))
+           * sizeof(float);
+}
+
+QPN_EG_HD size_t eg_lane_bytes(int n) { return eg_band_bytes(n, n); }
 
 QPN_EG_HD size_t eg_global_lane_bytes(int n) {
-    return 5 * (size_t)n * sizeof(float);
+    return eg_vector_floats(n, n) * sizeof(float);
 }
 
+// The vectors from a 16-byte aligned base.
 QPN_EG_HD void eg_carve_vectors(EGLane& L, float* base) {
-    L.q = base;
-    L.l = L.q + L.n;
-    L.u = L.l + L.n;
-    L.z = L.u + L.n;
-    L.zh = L.z + L.n;
+    L.z = base;
+    L.zh = L.z + eg_align4((size_t)L.n);
+    L.q = L.zh + eg_align4((size_t)L.n);
+    L.l = L.q + L.nb;
+    L.u = L.l + L.nb;
 }
 
-QPN_EG_HD EGLane eg_lane_carve(float* base, int n) {
-    EGLane L;
+QPN_EG_HD void eg_set_ranks(EGLane& L, int n, int R, int rank,
+                            float* const* bases) {
     L.n = n;
+    L.R = R;
+    L.rank = rank;
+    L.nb = eg_band_height(n, R);
+    L.r0 = rank * L.nb;
+    const int left = n - L.r0;
+    L.rows = left < 0 ? 0 : (left < L.nb ? left : L.nb);
+    L.bases = bases;
+}
+
+// Rank `rank` of R of a lane, carved from a buffer of eg_band_bytes (R = 1:
+// the whole lane).  `bases` is the host's table of every rank's buffer,
+// read by eg_put where R > 1; null on the card.
+QPN_EG_HD EGLane eg_lane_carve(float* base, int n, int R = 1, int rank = 0,
+                               float* const* bases = nullptr) {
+    EGLane L;
+    eg_set_ranks(L, n, R, rank, bases);
     L.ld = eg_ld(n);
     L.Ms = base;
     L.M = base;
-    eg_carve_vectors(L, base + (size_t)n * L.ld);
+    eg_carve_vectors(L, base + eg_align4((size_t)L.nb * L.ld));
     return L;
 }
 
@@ -168,7 +215,7 @@ QPN_EG_HD EGLane eg_lane_carve(float* base, int n) {
 QPN_EG_HD EGLane eg_lane_carve_global(const EGBatch& bt, size_t b,
                                       float* base) {
     EGLane L;
-    L.n = bt.n;
+    eg_set_ranks(L, bt.n, 1, 0, nullptr);
     L.ld = bt.n;
     L.Ms = nullptr;
     L.M = bt.M + b * (size_t)bt.n * bt.n;
@@ -178,68 +225,133 @@ QPN_EG_HD EGLane eg_lane_carve_global(const EGBatch& bt, size_t b,
 
 // The kernel that takes rows of n columns: the register kernel where an
 // instance of it does (eg_pick_chunk), else the generic kernel with the
-// lane in shared memory while eg_lane_bytes(n) fits the block's opt-in
-// limit `smem_optin` (232448 bytes on an H100: n up to 238), else the
-// generic kernel with M in device memory.  A choice by shape alone.
-enum { EG_REGISTER = 0, EG_SHARED = 1, EG_GLOBAL = 2 };
+// lane in one block's shared memory while eg_lane_bytes(n) fits the
+// block's opt-in limit `smem_optin` (232448 bytes on an H100: n up to 238),
+// else spread over the shared memory of a cluster of eg_cluster_ranks(n)
+// blocks while a band fits the limit at 8 ranks or fewer (8: the portable
+// cluster size), else with M in device memory.  A choice by shape alone.
+enum { EG_REGISTER = 0, EG_SHARED = 1, EG_GLOBAL = 2, EG_CLUSTER = 3 };
+constexpr int kEgMaxRanks = 8;
+
+// The fewest ranks, 2 to kEgMaxRanks, whose bands fit `smem_optin`; 0
+// where none does (or the limit is unknown: negative).
+QPN_EG_HD int eg_cluster_ranks(int n, long long smem_optin) {
+    if (smem_optin < 0) return 0;
+    for (int R = 2; R <= kEgMaxRanks; ++R)
+        if (eg_band_bytes(n, eg_band_height(n, R)) <= (size_t)smem_optin)
+            return R;
+    return 0;
+}
 
 QPN_EG_HD int eg_instance(int n, long long smem_optin) {
     if (eg_pick_chunk(n) != 0) return EG_REGISTER;
-    return smem_optin >= 0 && eg_lane_bytes(n) <= (size_t)smem_optin
-               ? EG_SHARED
-               : EG_GLOBAL;
+    if (smem_optin < 0) return EG_GLOBAL;
+    if (eg_lane_bytes(n) <= (size_t)smem_optin) return EG_SHARED;
+    return eg_cluster_ranks(n, smem_optin) != 0 ? EG_CLUSTER : EG_GLOBAL;
 }
 
+// The barrier of the lane's ranks: the cluster's where the lane is spread,
+// else the block's.
+QPN_EG_HD void eg_sync_ranks(const EGLane& L) {
+#if defined(__CUDA_ARCH__)
+    if (L.R > 1) cooperative_groups::this_cluster().sync();
+    else __syncthreads();
+#endif
+    (void)L;
+}
+
+// v into entry r of the vector `x` (a field of this rank's part) of every
+// rank.
+QPN_EG_HD void eg_put(const EGLane& L, float* x, int r, float v) {
+    if (L.R == 1) {
+        x[r] = v;
+        return;
+    }
+    for (int k = 0; k < L.R; ++k) {
+#if defined(__CUDA_ARCH__)
+        cooperative_groups::this_cluster().map_shared_rank(x, k)[r] = v;
+#else
+        L.bases[k][(x - L.bases[L.rank]) + r] = v;
+#endif
+    }
+}
+
+// Lane b of the batch into this rank's part: its band of M (unless read in
+// place), q, l and u, and the whole z.  Ends at a barrier of the ranks, so
+// that every rank has started before any writes into another.
 QPN_EG_HD void eg_lane_load(const EGLane& L, const EGBatch& bt, size_t b,
                             int tid, int nthr) {
     const int n = L.n;
-    const float* Mb = bt.M + b * (size_t)n * n;
+    const size_t row0 = b * (size_t)n + L.r0;
+    const float* Mb = bt.M + row0 * n;
     if (L.Ms != nullptr)
-        for (int k = tid; k < n * n; k += nthr)
+        for (int k = tid; k < L.rows * n; k += nthr)
             L.Ms[(k / n) * L.ld + k % n] = Mb[k];
-    for (int i = tid; i < n; i += nthr) {
-        L.q[i] = bt.q[b * n + i];
-        L.l[i] = bt.l[b * n + i];
-        L.u[i] = bt.u[b * n + i];
-        L.z[i] = bt.z0[b * n + i];
+    for (int i = tid; i < L.rows; i += nthr) {
+        L.q[i] = bt.q[row0 + i];
+        L.l[i] = bt.l[row0 + i];
+        L.u[i] = bt.u[row0 + i];
     }
-    QPN_EG_SYNC();
+    for (int i = tid; i < n; i += nthr) L.z[i] = bt.z0[b * n + i];
+    eg_sync_ranks(L);
 }
 
-// Thread tid of nthr owns rows tid, tid+nthr, ...; a step is two phases
-// separated by barriers: z½ from z, then z from z½.
-// (M x)_i + q_i for row i of the lane in memory.  G = 1 is one chunk: the
-// plain column order.
+// (M x)_i + q_i for row i of the band.  G = 1 is one chunk: the plain
+// column order.  On the card x (z or z½, 16-byte aligned) is read four
+// entries a load, a quarter of the loads that every warp makes of it; the
+// products and sums are the same, in the same order.
 template <int G>
 QPN_EG_HD float eg_row(const EGLane& L, const float* x, int i, int C) {
     const float* Mi = L.M + (size_t)i * L.ld;
     if (G == 1) {
         float acc = 0.0f;
-        for (int j = 0; j < L.n; ++j) acc += Mi[j] * x[j];
+        int j = 0;
+#ifdef __CUDA_ARCH__
+        for (; j + 4 <= L.n; j += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(x + j);
+            acc += Mi[j] * v.x;
+            acc += Mi[j + 1] * v.y;
+            acc += Mi[j + 2] * v.z;
+            acc += Mi[j + 3] * v.w;
+        }
+#endif
+        for (; j < L.n; ++j) acc += Mi[j] * x[j];
         return acc + L.q[i];
     }
     return eg_row_sum<G>(Mi, x, L.n, C) + L.q[i];
 }
 
+// One half-step of the band, y = Π(z − τ(M x + q)) on its rows, into every
+// rank's y.  Thread tid of nthr owns the band's rows tid, tid+nthr, ...
+template <int G>
+QPN_EG_HD void eg_half_step(const EGLane& L, const float* x, float* y,
+                            float tau, int C, int tid, int nthr) {
+    for (int i = tid; i < L.rows; i += nthr) {
+        const int r = L.r0 + i;
+        eg_put(L, y, r, eg_clip(L.z[r] - tau * eg_row<G>(L, x, i, C), L.l[i],
+                                L.u[i]));
+    }
+}
+
+// The steps of one rank of a lane on the card: z½ from z, then z from z½,
+// a barrier of the ranks after each.  The host runs the same half-steps
+// for each rank in turn (eg_lane_host.cpp).
 template <int G>
 QPN_EG_HD void eg_lane_run(const EGLane& L, float tau, int steps, int C,
                            int tid, int nthr) {
-    const int n = L.n;
     for (int s = 0; s < steps; ++s) {
-        for (int i = tid; i < n; i += nthr)
-            L.zh[i] = eg_clip(L.z[i] - tau * eg_row<G>(L, L.z, i, C), L.l[i],
-                              L.u[i]);
-        QPN_EG_SYNC();
-        for (int i = tid; i < n; i += nthr)
-            L.z[i] = eg_clip(L.z[i] - tau * eg_row<G>(L, L.zh, i, C), L.l[i],
-                             L.u[i]);
-        QPN_EG_SYNC();
+        eg_half_step<G>(L, L.z, L.zh, tau, C, tid, nthr);
+        eg_sync_ranks(L);
+        eg_half_step<G>(L, L.zh, L.z, tau, C, tid, nthr);
+        eg_sync_ranks(L);
     }
 }
 
 QPN_EG_HD void eg_lane_store(const EGLane& L, const EGBatch& bt, size_t b,
                              int tid, int nthr) {
-    for (int i = tid; i < L.n; i += nthr) bt.z_out[b * L.n + i] = L.z[i];
+    const size_t row0 = b * (size_t)L.n + L.r0;
+    for (int i = tid; i < L.rows; i += nthr)
+        bt.z_out[row0 + i] = L.z[L.r0 + i];
 }
 
 }  // namespace qpn

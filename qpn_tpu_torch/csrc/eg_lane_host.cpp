@@ -2,7 +2,11 @@
 // built with plain g++ and loaded with ctypes by the CPU tests: each lane
 // runs the step loop as thread 0 of 1 with no-op barriers, every row summed
 // by the loop that walks the partition of the kernel that takes this n, on
-// a lane carved as that kernel carves it.  Not on any production path.
+// a lane carved as that kernel carves it.  A lane of R ranks (the cluster
+// instance) is R buffers carved as the cluster's blocks are, each
+// half-step run for rank 0, 1, ..., R-1 in turn: between two of the
+// card's barriers no rank reads what another writes (eg_lane.cuh), so
+// that gives the card's bits.  Not on any production path.
 
 #include <vector>
 
@@ -13,24 +17,48 @@ extern "C" {
 // The kernel is the one the card's launcher picks from n under the opt-in
 // limit `smem_optin` (eg_instance): the register kernel's partition
 // (kEgGroup, chunk), else the generic kernel's one chunk of n columns with
-// M copied (shared instance) or read in place (global instance).
-void qpn_eg_warmstart_host_f32(QPN_EG_PARAMS, long long smem_optin) {
+// M copied (shared instance), spread over the cluster's ranks (cluster
+// instance) or read in place (global instance).  ranks > 0 spreads the lane
+// over that many ranks whatever the limit picks (1: one block's lane).
+void qpn_eg_warmstart_host_f32(QPN_EG_PARAMS, long long smem_optin,
+                               int ranks) {
     const qpn::EGBatch bt = QPN_EG_BATCH;
     const int instance = qpn::eg_instance(bt.n, smem_optin);
     const int chunk = qpn::eg_pick_chunk(bt.n);
-    std::vector<float> buf(qpn::eg_lane_bytes(bt.n) / sizeof(float));
+    const int G = instance == qpn::EG_REGISTER ? qpn::kEgGroup : 1;
+    const int C = G == 1 ? bt.n : chunk;
+    int R = ranks;
+    if (R <= 0)
+        R = instance == qpn::EG_CLUSTER ? qpn::eg_cluster_ranks(bt.n,
+                                                                smem_optin)
+                                        : 1;
+    const bool in_place = R == 1 && instance == qpn::EG_GLOBAL;
+    const size_t words =
+        qpn::eg_band_bytes(bt.n, qpn::eg_band_height(bt.n, R)) / sizeof(float);
+    std::vector<float> buf(words * R);
+    std::vector<float*> bases(R);
+    for (int k = 0; k < R; ++k) bases[k] = buf.data() + k * words;
+    std::vector<qpn::EGLane> L(R);
     for (size_t b = 0; b < (size_t)bt.B; ++b) {
-        const qpn::EGLane L =
-            instance == qpn::EG_GLOBAL
-                ? qpn::eg_lane_carve_global(bt, b, buf.data())
-                : qpn::eg_lane_carve(buf.data(), bt.n);
-        qpn::eg_lane_load(L, bt, b, 0, 1);
+        for (int k = 0; k < R; ++k) {
+            L[k] = in_place ? qpn::eg_lane_carve_global(bt, b, bases[k])
+                            : qpn::eg_lane_carve(bases[k], bt.n, R, k,
+                                                 bases.data());
+            qpn::eg_lane_load(L[k], bt, b, 0, 1);
+        }
         const float tau = bt.tau[b];
-        if (instance == qpn::EG_REGISTER)
-            qpn::eg_lane_run<qpn::kEgGroup>(L, tau, bt.steps, chunk, 0, 1);
-        else
-            qpn::eg_lane_run<1>(L, tau, bt.steps, bt.n, 0, 1);
-        qpn::eg_lane_store(L, bt, b, 0, 1);
+        for (int s = 0; s < bt.steps; ++s) {
+            for (const auto& r : L) {
+                if (G == 1) qpn::eg_half_step<1>(r, r.z, r.zh, tau, C, 0, 1);
+                else qpn::eg_half_step<qpn::kEgGroup>(r, r.z, r.zh, tau, C, 0, 1);
+            }
+            // the ranks' barrier
+            for (const auto& r : L) {
+                if (G == 1) qpn::eg_half_step<1>(r, r.zh, r.z, tau, C, 0, 1);
+                else qpn::eg_half_step<qpn::kEgGroup>(r, r.zh, r.z, tau, C, 0, 1);
+            }
+        }
+        for (const auto& r : L) qpn::eg_lane_store(r, bt, b, 0, 1);
     }
 }
 
@@ -38,6 +66,10 @@ int qpn_eg_pick_chunk(int n) { return qpn::eg_pick_chunk(n); }
 
 int qpn_eg_instance(int n, long long smem_optin) {
     return qpn::eg_instance(n, smem_optin);
+}
+
+int qpn_eg_cluster_ranks(int n, long long smem_optin) {
+    return qpn::eg_cluster_ranks(n, smem_optin);
 }
 
 }  // extern "C"

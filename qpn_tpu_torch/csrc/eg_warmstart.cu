@@ -23,13 +23,32 @@
 // G = 4 (eg_lane.cuh::kEgGroup; 8 threads a row measured no faster on an
 // H100), and the launcher picks the instance's C from n
 // (eg_lane.cuh::eg_pick_chunk).  Rows beyond the instances (n > 128) take
-// the generic kernel: one thread per row, every row summed in column order,
-// the matrix in dynamic shared memory (the shared instance, n up to 238 on
-// an H100), or, where it does not fit, read in place from device memory
-// every half-step with z, z½, q, l and u in shared memory (the global
-// instance: bound by the bytes of M it streams, n² floats a half-step a
-// lane, through L1 and L2).  The wrapper picks the instance from n and the
-// card's opt-in limit (eg_lane.cuh::eg_instance) before the launch.
+// the generic kernel: one thread per row, every row summed in column order.
+// It has three instances, which the wrapper picks from n and the card's
+// opt-in limit before the launch (eg_lane.cuh::eg_instance):
+//   * shared: the matrix in one block's dynamic shared memory (n up to 238
+//     on an H100); bound by the latency of a row's chain of n dependent
+//     adds a half-step;
+//   * cluster: the lane spread over a cluster of R = 2-8 blocks on
+//     neighbouring SMs (eg_cluster_ranks: the fewest whose bands fit; n=304
+//     on 2, up to n of about 680 on 8).  Rank k holds a band of M's rows
+//     in its shared memory, loaded once, and a copy of z and z½; a
+//     half-step computes the band's rows from the local copy, writes each
+//     new entry into every rank's copy through distributed shared memory,
+//     and ends at one cluster barrier (a ping-pong pair, as the register
+//     kernel's).  Bound by the same chain as the shared instance, plus the
+//     barrier, with one block an SM (a band fills its shared memory).
+//     Launched with cudaLaunchKernelEx and a cluster dimension; the first
+//     launch at each size checks that such a cluster fits the card
+//     (cudaOccupancyMaxActiveClusters) and returns CUDA's error where it
+//     does not: there is no fallback to another instance;
+//   * global: past 8 ranks, M read in place from device memory every
+//     half-step with z, z½, q, l and u in shared memory: bound by the
+//     bytes of M it streams, n² floats a half-step a lane, through L1 and
+//     L2.  The wrapper's private launcher also runs it at cluster sizes,
+//     to hold the two against each other on the card.
+// Every row sums in plain column order in all three, so they give the same
+// bits.
 //
 // The order of every sum is defined in eg_lane.cuh, where a loop walks the
 // same partition for the host instance.  Built with nvcc -O3 -fmad=false,
@@ -37,31 +56,43 @@
 // separately, as in the plain PyTorch version.
 //
 // C interface (ctypes): qpn_eg_warmstart_f32 (the register kernel or the
-// shared instance, picked from n) and qpn_eg_warmstart_global_f32 return 0
-// or a cudaError_t; qpn_eg_instance is the pure choice, qpn_eg_smem_optin
-// the current card's limit.
+// shared instance, picked from n), qpn_eg_warmstart_cluster_f32 (given its
+// ranks) and qpn_eg_warmstart_global_f32 return 0 or a cudaError_t;
+// qpn_eg_instance and qpn_eg_cluster_ranks are the pure choice,
+// qpn_eg_smem_optin the current card's limit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cluster_launch.cuh"
 #include "eg_lane.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kGenericMaxThreads = 256;
 constexpr int G = qpn::kEgGroup;
 
-// kGlobal: M read in place from device memory, else copied to shared memory.
-template <bool kGlobal>
+// EG_SHARED: M copied to the block's shared memory; EG_GLOBAL: M read in
+// place from device memory; EG_CLUSTER: one cluster of R blocks a lane,
+// rank k's band of M in block k's shared memory.
+template <int kInstance>
 __global__ void __launch_bounds__(kGenericMaxThreads)
-eg_generic_kernel(qpn::EGBatch bt) {
+eg_generic_kernel(qpn::EGBatch bt, int R) {
     extern __shared__ __align__(16) float smem[];
-    const size_t b = blockIdx.x;
-    const qpn::EGLane L = kGlobal ? qpn::eg_lane_carve_global(bt, b, smem)
-                                  : qpn::eg_lane_carve(smem, bt.n);
+    const bool spread = kInstance == qpn::EG_CLUSTER;
+    const int rank = spread ? (int)cg::this_cluster().block_rank() : 0;
+    const size_t b = spread ? blockIdx.x / R : blockIdx.x;
+    const qpn::EGLane L = kInstance == qpn::EG_GLOBAL
+        ? qpn::eg_lane_carve_global(bt, b, smem)
+        : qpn::eg_lane_carve(smem, bt.n, spread ? R : 1, rank);
     qpn::eg_lane_load(L, bt, b, threadIdx.x, blockDim.x);
     qpn::eg_lane_run<1>(L, bt.tau[b], bt.steps, bt.n, threadIdx.x,
                         blockDim.x);
     qpn::eg_lane_store(L, bt, b, threadIdx.x, blockDim.x);
+    // no block leaves while a peer may still write into its shared memory
+    if (spread) cg::this_cluster().sync();
 }
 
 constexpr int block_threads(int C) {
@@ -124,12 +155,11 @@ int generic_threads(int n) {
 
 int launch_shared(const qpn::EGBatch& bt, cudaStream_t stream) {
     const size_t bytes = qpn::eg_lane_bytes(bt.n);
+    auto kernel = eg_generic_kernel<qpn::EG_SHARED>;
     cudaError_t e = cudaFuncSetAttribute(
-        eg_generic_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
-    eg_generic_kernel<false>
-        <<<bt.B, generic_threads(bt.n), bytes, stream>>>(bt);
+    kernel<<<bt.B, generic_threads(bt.n), bytes, stream>>>(bt, 1);
     return cudaGetLastError();
 }
 
@@ -147,13 +177,22 @@ int launch(const qpn::EGBatch& bt, cudaStream_t stream) {
 int launch_global(const qpn::EGBatch& bt, cudaStream_t stream) {
     if (bt.B <= 0 || bt.n <= 0) return 0;
     const size_t bytes = qpn::eg_global_lane_bytes(bt.n);
+    auto kernel = eg_generic_kernel<qpn::EG_GLOBAL>;
     cudaError_t e = cudaFuncSetAttribute(
-        eg_generic_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
-    eg_generic_kernel<true>
-        <<<bt.B, generic_threads(bt.n), bytes, stream>>>(bt);
+    kernel<<<bt.B, generic_threads(bt.n), bytes, stream>>>(bt, 1);
     return cudaGetLastError();
+}
+
+int launch_cluster(const qpn::EGBatch& bt, int R, cudaStream_t stream) {
+    if (bt.n <= 0) return 0;
+    // the largest band checked at each cluster size
+    static size_t checked[qpn::kEgMaxRanks + 1] = {};
+    const int nb = R < 1 ? 0 : qpn::eg_band_height(bt.n, R);
+    return qpn::launch_cluster(eg_generic_kernel<qpn::EG_CLUSTER>, checked,
+                               bt.B, R, generic_threads(nb),
+                               qpn::eg_band_bytes(bt.n, nb), stream, bt, R);
 }
 
 }  // namespace
@@ -168,8 +207,17 @@ int qpn_eg_warmstart_global_f32(QPN_EG_PARAMS, void* stream) {
     return launch_global(QPN_EG_BATCH, (cudaStream_t)stream);
 }
 
+// ranks: the cluster's blocks a lane (qpn_eg_cluster_ranks)
+int qpn_eg_warmstart_cluster_f32(QPN_EG_PARAMS, int ranks, void* stream) {
+    return launch_cluster(QPN_EG_BATCH, ranks, (cudaStream_t)stream);
+}
+
 int qpn_eg_instance(int n, long long smem_optin) {
     return qpn::eg_instance(n, smem_optin);
+}
+
+int qpn_eg_cluster_ranks(int n, long long smem_optin) {
+    return qpn::eg_cluster_ranks(n, smem_optin);
 }
 
 // The shared memory a block can opt into on the current card, or minus a

@@ -1,12 +1,14 @@
 // Per-lane logic of the batched Lemke pivot loop for box AVIs
 //     M z + q  ⟂  l ≤ z ≤ u,
-// shared by the Hopper kernel (lemke_pivot.cu: one thread block per lane)
-// and a host instance built with g++ for the CPU tests
-// (lemke_lane_host.cpp: one "thread", tid 0 of 1).
+// shared by the Hopper kernel (lemke_pivot.cu: one thread block, or one
+// cluster of thread blocks, per lane) and a host instance built with g++
+// for the CPU tests (lemke_lane_host.cpp: one "thread", tid 0 of 1, for
+// each rank of the lane in turn).
 //
 // The functions take the thread index and count as arguments.  A pivot is
-// four phases between block barriers (QPN_SYNC: __syncthreads() in device
-// code, a no-op on the host):
+// four phases between barriers (QPN_SYNC: __syncthreads() in device code,
+// a no-op on the host; lane_sync_ranks: the cluster's barrier where the
+// lane is spread over ranks):
 //   A. basic values and the ratio test.  A row's sum is split over a group
 //      of G = kLemkeSplit = 4 neighbouring threads: G chunks of neighbouring
 //      columns, each summed in column order, joined by a butterfly
@@ -21,16 +23,37 @@
 //   S. for a pivot, the staging of the scaled pivot row and of the entering
 //      column, one element a thread, while thread 0 does the bookkeeping
 //      (basis exchange, complement rule);
-//   C. the rank-1 update as a 2-D loop: warps walk rows, lanes walk columns.
+//   C. the rank-1 update as a 2-D loop: warps walk rows, lanes walk columns;
+//      the pivot row's owner records the basis exchange.
 // A step that is no pivot (bound flip, ray, singular) ends after B.
 // Rows of the tableau are W | 1 elements apart (lane_stride): an odd stride
 // puts the rows that neighbouring threads read on different banks.
 //
 // The lane's working set is carved by lane_carve from any 16-byte aligned
 // buffer: the block's dynamic shared memory while lane_bytes(n) fits the
-// block's opt-in limit, else a lane of a device-memory workspace
+// block's opt-in limit, else the shared memory of a cluster of R blocks
+// while one rank's band fits it, else a lane of a device-memory workspace
 // (lane_instance picks; the barriers order global memory for the block as
-// they order shared memory).  The functions below do not know which.
+// they order shared memory).
+//
+// Ranks (the cluster instance; R = 1 elsewhere).  Rank k of R holds a band
+// of nb = ceil(n / R) tableau rows, k·nb onwards, with the per-row vectors
+// of that band (xB, d, theta, other, basis, leff, ueff); every rank holds
+// the column-length vectors (val, vlb, vub, the staged pivot row pr), the
+// tie list and the lane's scalars (LaneCtl), and makes the same decision
+// from the same data, so these stay equal on every rank.  A rank reads
+// another's band through lk_peer (distributed shared memory on the card).
+// Every rank is carved with the layout of a full band, so a field lies at
+// the same offset in each.  The barriers that order ranks are two a step:
+// after A, and after S (or after B where no pivot follows).  The property
+// that makes this correct, and makes the host's emulation (each phase run
+// for rank 0, 1, ..., R-1 in turn, between the same two points) give the
+// card's bits: between two of these barriers no rank reads what another
+// rank writes.  B and S read other ranks' theta, d, basis, tableau rows
+// and leff/ueff, and write only their own rank's scalars, val, pr, other
+// and tie list; C and A read and write their own band only.  So the basis
+// exchange is written in C, not in S, where a peer may still be deciding
+// from the basis.
 //
 // Semantics follow the JAX package's pivot loop lane for lane
 // (qpn_tpu/ops/lemke.py::_lemke_single, qpn_tpu/ops/lemke_pallas.py):
@@ -49,6 +72,10 @@
 
 #include <cmath>
 #include <cstddef>
+
+#if defined(__CUDACC__)
+#include <cooperative_groups.h>
+#endif
 
 #if defined(__CUDACC__)
 #define QPN_HD __host__ __device__ __forceinline__
@@ -160,34 +187,61 @@ QPN_HD int lk_append(int* list, int count, int r, bool flag, int lane) {
 
 // Scans of the rows in chunks of nl (row base + lane), called together by
 // the threads of the deciding warp (lane of nl; 0 of 1 on the host); every
-// thread gets the same answer.
+// thread gets the same answer.  A thread loads its rows of four chunks
+// before it looks at any, so that the loads' latencies (another rank's
+// shared memory, in the cluster instance) overlap.
+constexpr int kLemkeScanChunks = 4;
 
 // min of v[0:n] under `<`, from +inf: NaN entries are skipped.
 template <typename T>
 QPN_HD T lk_scan_min(const T* v, int n, int lane, int nl) {
+    constexpr int K = kLemkeScanChunks;
     T m = lk_inf<T>();
-    for (int r = lane; r < n; r += nl)
-        if (v[r] < m) m = v[r];
+    for (int base = 0; base < n; base += K * nl) {
+        T x[K];
+        QPN_UNROLL
+        for (int k = 0; k < K; ++k) {
+            const int r = base + k * nl + lane;
+            x[k] = r < n ? v[r] : lk_inf<T>();
+        }
+        QPN_UNROLL
+        for (int k = 0; k < K; ++k)
+            if (x[k] < m) m = x[k];
+    }
     return lk_reduce_min(m);
 }
 
-// The tie set of the ratio test: list[0:count] = the rows r with
-// theta[r] <= thr, ascending; *first_tagged = the first of them with
-// tag[r] == want, or n.  Returns count.
+// The tie set of the ratio test over the rows r0 + [0, rows) of the lane,
+// whose ratios and tags are theta[0:rows] and tag[0:rows]: the rows r0 + r
+// with theta[r] <= thr are appended to list[count:], ascending, and
+// *first_tagged, while it is still `none`, becomes the first of them with
+// tag[r] == want.  Returns the new count.  Called for the bands in row
+// order, it builds the lane's tie set.
 template <typename T>
-QPN_HD int lk_scan_ties(const T* theta, const int* tag, int n, T thr,
-                        int want, int* list, int* first_tagged, int lane,
-                        int nl) {
-    int count = 0, first = n;
-    for (int base = 0; base < n; base += nl) {
-        const int r = base + lane;
-        // both loads before either vote, so that their latencies overlap
-        const T th = r < n ? theta[r] : lk_inf<T>();
-        const int tg = r < n ? tag[r] : want - 1;
-        const bool tie = r < n && th <= thr;
-        const unsigned mt = lk_ballot(tie && tg == want);
-        if (mt != 0u && first == n) first = base + lk_lowest(mt);
-        count = lk_append(list, count, r, tie, lane);
+QPN_HD int lk_scan_ties(const T* theta, const int* tag, int rows, T thr,
+                        int want, int* list, int count, int r0, int none,
+                        int* first_tagged, int lane, int nl) {
+    constexpr int K = kLemkeScanChunks;
+    int first = *first_tagged;
+    for (int base = 0; base < rows; base += K * nl) {
+        // every load of the K chunks before any vote
+        T th[K];
+        int tg[K];
+        QPN_UNROLL
+        for (int k = 0; k < K; ++k) {
+            const int r = base + k * nl + lane;
+            th[k] = r < rows ? theta[r] : lk_inf<T>();
+            tg[k] = r < rows ? tag[r] : want - 1;
+        }
+        QPN_UNROLL
+        for (int k = 0; k < K; ++k) {
+            const int r = base + k * nl + lane;
+            const bool tie = r < rows && th[k] <= thr;
+            const unsigned mt = lk_ballot(tie && tg[k] == want);
+            if (mt != 0u && first == none)
+                first = r0 + base + k * nl + lk_lowest(mt);
+            count = lk_append(list, count, r0 + r, tie, lane);
+        }
     }
     *first_tagged = first;
     return count;
@@ -231,24 +285,30 @@ struct LaneCtl {
 #endif
 };
 
-// One lane's working set (shared or device memory on the card).
+// One lane's working set, or one rank's part of it (shared or device memory
+// on the card).
 template <typename T>
 struct Lane {
     int n, ld;   // ld: elements between tableau rows
-    T* tab;      // (n, ld), 3n+2 used
+    int R, rank; // ranks of the lane, and this one
+    int nb;      // rows a band: ceil(n / R)
+    int r0;      // this rank's first row, rank · nb
+    int rows;    // this rank's rows: nb, fewer in the last band
+    T* tab;      // (nb, ld), 3n+2 used: rows r0 + [0, rows)
     T* val;      // (3n+1) nonbasic values
     T* vlb;      // (3n+1) variable bounds
     T* vub;
-    T* leff;     // (n) synthetically boxed bounds
+    T* leff;     // (nb) synthetically boxed bounds of the band's rows
     T* ueff;
-    T* xB;       // (n) basic values
-    T* d;        // (n) entering column times direction
-    T* theta;    // (n) ratios
-    T* other;    // (n) staged entering column
+    T* xB;       // (nb) basic values
+    T* d;        // (nb) entering column times direction
+    T* theta;    // (nb) ratios
+    T* other;    // (nb) staged entering column
     T* pr;       // (3n+2) scaled pivot row
-    int* basis;  // (n)
+    int* basis;  // (nb)
     int* clist;  // (n) the tie candidates' rows, ascending
     LaneCtl<T>* ctl;
+    unsigned char* const* bases;  // host: each rank's buffer (R > 1)
 };
 
 QPN_HD size_t lk_align16(size_t x) { return (x + 15) & ~size_t(15); }
@@ -257,69 +317,165 @@ QPN_HD size_t lk_align16(size_t x) { return (x + 15) & ~size_t(15); }
 // column) fall on different banks.
 QPN_HD int lane_stride(int n) { return (3 * n + 2) | 1; }
 
+// Rows of each band of a lane of n spread over R ranks.
+QPN_HD int lane_band_height(int n, int R) { return (n + R - 1) / R; }
+
 template <typename T>
-QPN_HD size_t lane_floats(int n) {
+QPN_HD size_t lane_floats(int n, int nb) {
     const size_t W = 3 * (size_t)n + 2, NV = W - 1;
-    return (size_t)n * lane_stride(n) + 3 * NV + 6 * (size_t)n + W;
+    return (size_t)nb * lane_stride(n) + 3 * NV + 6 * (size_t)nb + W;
 }
 
-// Bytes of one lane's working set: f32 at n=38 is about 20 KB.
+// Bytes of one rank's part of a lane whose bands are nb rows high: a rank
+// of every instance is carved with this layout.
 template <typename T>
-QPN_HD size_t lane_bytes(int n) {
-    return lk_align16(sizeof(LaneCtl<T>)) + lk_align16(lane_floats<T>(n) * sizeof(T))
-         + 2 * lk_align16((size_t)n * sizeof(int));
+QPN_HD size_t lane_band_bytes(int n, int nb) {
+    return lk_align16(sizeof(LaneCtl<T>))
+         + lk_align16(lane_floats<T>(n, nb) * sizeof(T))
+         + lk_align16((size_t)nb * sizeof(int))
+         + lk_align16((size_t)n * sizeof(int));
 }
 
-// Carve a lane's working set out of a 16-byte aligned buffer.
+// Bytes of one lane's working set on one rank: f32 at n=38 is about 20 KB.
 template <typename T>
-QPN_HD Lane<T> lane_carve(unsigned char* base, int n) {
+QPN_HD size_t lane_bytes(int n) { return lane_band_bytes<T>(n, n); }
+
+// Carve rank `rank` of R of a lane's working set out of a 16-byte aligned
+// buffer (R = 1: the whole lane).  `bases` is the host's table of every
+// rank's buffer, read by lk_peer where R > 1; null on the card.
+template <typename T>
+QPN_HD Lane<T> lane_carve(unsigned char* base, int n, int R = 1,
+                          int rank = 0,
+                          unsigned char* const* bases = nullptr) {
     const size_t W = 3 * (size_t)n + 2, NV = W - 1;
     Lane<T> L;
     L.n = n;
     L.ld = lane_stride(n);
+    L.R = R;
+    L.rank = rank;
+    L.nb = lane_band_height(n, R);
+    L.r0 = rank * L.nb;
+    const int left = n - L.r0;
+    L.rows = left < 0 ? 0 : (left < L.nb ? left : L.nb);
+    L.bases = bases;
+    const size_t nb = (size_t)L.nb;
     L.ctl = reinterpret_cast<LaneCtl<T>*>(base);
     T* f = reinterpret_cast<T*>(base + lk_align16(sizeof(LaneCtl<T>)));
-    L.tab = f;       f += (size_t)n * L.ld;
+    L.tab = f;       f += nb * L.ld;
     L.val = f;       f += NV;
     L.vlb = f;       f += NV;
     L.vub = f;       f += NV;
-    L.leff = f;      f += n;
-    L.ueff = f;      f += n;
-    L.xB = f;        f += n;
-    L.d = f;         f += n;
-    L.theta = f;     f += n;
-    L.other = f;     f += n;
+    L.leff = f;      f += nb;
+    L.ueff = f;      f += nb;
+    L.xB = f;        f += nb;
+    L.d = f;         f += nb;
+    L.theta = f;     f += nb;
+    L.other = f;     f += nb;
     L.pr = f;
     unsigned char* rest = base + lk_align16(sizeof(LaneCtl<T>))
-                        + lk_align16(lane_floats<T>(n) * sizeof(T));
+                        + lk_align16(lane_floats<T>(n, L.nb) * sizeof(T));
     L.basis = reinterpret_cast<int*>(rest);
-    L.clist = reinterpret_cast<int*>(rest + lk_align16((size_t)n * sizeof(int)));
+    L.clist = reinterpret_cast<int*>(rest + lk_align16(nb * sizeof(int)));
     return L;
+}
+
+// A field of rank k's part of the lane, from the same field of this rank's:
+// in device code the cluster's distributed shared memory, on the host the
+// same offset in rank k's buffer.
+template <typename T, typename P>
+QPN_HD P* lk_peer(const Lane<T>& L, P* p, int k) {
+    if (L.R == 1 || k == L.rank) return p;
+#if defined(__CUDA_ARCH__)
+    return cooperative_groups::this_cluster().map_shared_rank(p, k);
+#else
+    const unsigned char* at = reinterpret_cast<const unsigned char*>(p);
+    return reinterpret_cast<P*>(L.bases[k] + (at - L.bases[L.rank]));
+#endif
+}
+
+// The rank that holds row r, and the rows of rank k's band.
+template <typename T>
+QPN_HD int lane_owner(const Lane<T>& L, int r) {
+    return L.R == 1 ? 0 : r / L.nb;
+}
+
+template <typename T>
+QPN_HD int lane_rows_of(const Lane<T>& L, int k) {
+    const int left = L.n - k * L.nb;
+    return left < 0 ? 0 : (left < L.nb ? left : L.nb);
+}
+
+// Row r's entry of a per-row vector, or row r of the tableau, on its owner.
+template <typename T, typename P>
+QPN_HD P lane_at(const Lane<T>& L, P* v, int r) {
+    const int k = lane_owner(L, r);
+    return lk_peer(L, v, k)[r - k * L.nb];
+}
+
+template <typename T>
+QPN_HD const T* lane_row(const Lane<T>& L, int r) {
+    const int k = lane_owner(L, r);
+    return lk_peer(L, L.tab, k) + (size_t)(r - k * L.nb) * L.ld;
+}
+
+// The barrier between phases that read across ranks: the cluster's where
+// the lane is spread over ranks, else the block's.
+template <typename T>
+QPN_HD void lane_sync_ranks(const Lane<T>& L) {
+#if defined(__CUDA_ARCH__)
+    if (L.R > 1) cooperative_groups::this_cluster().sync();
+    else __syncthreads();
+#endif
+    (void)L;
 }
 
 // Where a lane's working set lives on the card: LANE_SHARED, the block's
 // dynamic shared memory, while lane_bytes(n) fits the block's opt-in limit
 // `smem_optin` (232448 bytes on an H100: f32 up to n = 135, f64 up to
-// n = 94); else LANE_GLOBAL, lane_bytes(n) bytes of a device-memory
-// workspace a lane (a multiple of 16, so every lane stays 16-byte aligned).
-// A choice by shape alone, made before the launch.
-enum { LANE_SHARED = 0, LANE_GLOBAL = 1 };
+// n = 94); else LANE_CLUSTER, spread over the shared memory of a cluster
+// of lane_cluster_ranks(n) blocks while a band fits the limit at 8 ranks or
+// fewer (8: the portable cluster size); else LANE_GLOBAL, lane_bytes(n)
+// bytes of a device-memory workspace a lane (a multiple of 16, so every
+// lane stays 16-byte aligned).  A choice by shape alone, made before the
+// launch.
+enum { LANE_SHARED = 0, LANE_GLOBAL = 1, LANE_CLUSTER = 2 };
+constexpr int kLaneMaxRanks = 8;
 
-QPN_HD int lane_instance(int n, int itemsize, long long smem_optin) {
-    const size_t bytes = itemsize == 4 ? lane_bytes<float>(n)
-                                       : lane_bytes<double>(n);
-    return smem_optin >= 0 && bytes <= (size_t)smem_optin ? LANE_SHARED
-                                                          : LANE_GLOBAL;
+QPN_HD size_t lane_band_bytes_of(int n, int nb, int itemsize) {
+    return itemsize == 4 ? lane_band_bytes<float>(n, nb)
+                         : lane_band_bytes<double>(n, nb);
 }
 
+// The fewest ranks, 2 to kLaneMaxRanks, whose bands fit `smem_optin`; 0
+// where none does (or the limit is unknown: negative).
+QPN_HD int lane_cluster_ranks(int n, int itemsize, long long smem_optin) {
+    if (smem_optin < 0) return 0;
+    for (int R = 2; R <= kLaneMaxRanks; ++R)
+        if (lane_band_bytes_of(n, lane_band_height(n, R), itemsize)
+            <= (size_t)smem_optin)
+            return R;
+    return 0;
+}
+
+QPN_HD int lane_instance(int n, int itemsize, long long smem_optin) {
+    if (smem_optin < 0) return LANE_GLOBAL;
+    if (lane_band_bytes_of(n, n, itemsize) <= (size_t)smem_optin)
+        return LANE_SHARED;
+    return lane_cluster_ranks(n, itemsize, smem_optin) != 0 ? LANE_CLUSTER
+                                                            : LANE_GLOBAL;
+}
+
+// Lane b of the batch into this rank's part: its band's rows, and every
+// column-length vector.
 template <typename T>
 QPN_HD void lane_load(const Lane<T>& L, const LemkeBatch<T>& bt, size_t b,
                       int tid, int nthr) {
-    const int n = L.n, W = 3 * n + 2, NV = W - 1;
+    const int n = L.n, W = 3 * n + 2, NV = W - 1, rows = L.rows;
     const int lane = tid % QPN_WARP, wp = tid / QPN_WARP;
     const int nw = nthr / QPN_WARP;
-    const T* tb = bt.tab_in + b * (size_t)n * W;
-    for (int r = wp; r < n; r += nw)
+    const size_t row0 = b * (size_t)n + L.r0;
+    const T* tb = bt.tab_in + row0 * W;
+    for (int r = wp; r < rows; r += nw)
         for (int j = lane; j < W; j += QPN_WARP)
             L.tab[r * L.ld + j] = tb[r * W + j];
     for (int j = tid; j < NV; j += nthr) {
@@ -327,10 +483,10 @@ QPN_HD void lane_load(const Lane<T>& L, const LemkeBatch<T>& bt, size_t b,
         L.vlb[j] = bt.vlb[b * NV + j];
         L.vub[j] = bt.vub[b * NV + j];
     }
-    for (int r = tid; r < n; r += nthr) {
-        L.basis[r] = bt.basis_in[b * n + r];
-        L.leff[r] = bt.leff[b * n + r];
-        L.ueff[r] = bt.ueff[b * n + r];
+    for (int r = tid; r < rows; r += nthr) {
+        L.basis[r] = bt.basis_in[row0 + r];
+        L.leff[r] = bt.leff[row0 + r];
+        L.ueff[r] = bt.ueff[row0 + r];
     }
     QPN_SYNC();
     if (tid == 0) {
@@ -354,14 +510,18 @@ QPN_HD void lane_load(const Lane<T>& L, const LemkeBatch<T>& bt, size_t b,
     QPN_SYNC();
 }
 
+// This rank's band of the outputs; rank 0 writes the lane's values and
+// scalars, which every rank holds alike.
 template <typename T>
 QPN_HD void lane_store(const Lane<T>& L, const LemkeBatch<T>& bt, size_t b,
                        int tid, int nthr) {
     const int n = L.n, NV = 3 * n + 1;
-    for (int r = tid; r < n; r += nthr) {
-        bt.xB_out[b * n + r] = L.xB[r];
-        bt.basis_out[b * n + r] = L.basis[r];
+    const size_t row0 = b * (size_t)n + L.r0;
+    for (int r = tid; r < L.rows; r += nthr) {
+        bt.xB_out[row0 + r] = L.xB[r];
+        bt.basis_out[row0 + r] = L.basis[r];
     }
+    if (L.rank != 0) return;
     for (int j = tid; j < NV; j += nthr) bt.val_out[b * NV + j] = L.val[j];
     if (tid == 0) {
         bt.piv_out[b] = L.ctl->piv;
@@ -428,12 +588,12 @@ QPN_HD T lane_basic_value(const Lane<T>& L, int r) {
     return part[0];
 }
 
-// All rows' basic values into xB, groups of G threads on rows base + slot.
+// The band's basic values into xB, groups of G threads on rows base + slot.
 // On the host (nthr = 1) one thread walks every row with the loop above.
 template <typename T>
 QPN_HD void lane_basic_values(const Lane<T>& L, int tid, int nthr,
                               bool with_ratios, T piv_tol) {
-    const int n = L.n;
+    const int n = L.rows;
     const LaneCtl<T>* c = L.ctl;
     const int ent = c->ent;
     const T edir = c->edir;
@@ -480,16 +640,16 @@ QPN_HD void lane_advance(const Lane<T>& L, int max_pivots) {
     if (c->status == 0 && c->k < max_pivots) L.val[c->ent] = c->ev;
 }
 
-// Thread 0, after a pivot is decided: basis bookkeeping and the Lemke
-// complement rule.  Touches basis, val and ctl only.
+// Thread 0, after a pivot is decided: the values' bookkeeping and the
+// Lemke complement rule.  Writes val and ctl only; the basis exchange
+// itself (basis[jstar] = col) is lane_update's, after the ranks' barrier.
 template <typename T>
 QPN_HD void lane_commit(const Lane<T>& L) {
     const int n = L.n, T_ID = 3 * n;
     LaneCtl<T>* c = L.ctl;
     const int js = c->jstar, ent = c->ent;
-    const int ex = L.basis[js];
-    const T exv = L.d[js] > T(0) ? L.vlb[ex] : L.vub[ex];
-    L.basis[js] = ent;
+    const int ex = lane_at(L, L.basis, js);
+    const T exv = lane_at(L, L.d, js) > T(0) ? L.vlb[ex] : L.vub[ex];
     L.val[ex] = exv;
     L.val[ent] = T(0);
     c->piv += 1;
@@ -499,26 +659,28 @@ QPN_HD void lane_commit(const Lane<T>& L) {
     }
     const int i = ex % n;
     if (ex < n) {                            // z_i left at a bound
-        const bool at_l = lk_abs(exv - L.leff[i]) <= lk_abs(exv - L.ueff[i]);
+        const bool at_l = lk_abs(exv - lane_at(L, L.leff, i))
+                          <= lk_abs(exv - lane_at(L, L.ueff, i));
         c->ent = at_l ? n + i : 2 * n + i;
         c->edir = T(1);
         c->ev = T(0);
     } else if (ex < 2 * n) {                 // u_i left: z_i rises from l_i
         c->ent = i;
         c->edir = T(1);
-        c->ev = L.leff[i];
+        c->ev = lane_at(L, L.leff, i);
     } else {                                 // v_i left: z_i falls from u_i
         c->ent = i;
         c->edir = T(-1);
-        c->ev = L.ueff[i];
+        c->ev = lane_at(L, L.ueff, i);
     }
 }
 
 // Lexicographic key of candidate row r in pass kk.
 template <typename T>
 QPN_HD T lane_lex_key(const Lane<T>& L, int r, int kk, T piv_tol) {
-    const T dr = lk_abs(L.d[r]) > piv_tol ? L.d[r] : T(1);
-    return -L.tab[r * L.ld + L.n + kk] / dr;
+    const T d = lane_at(L, L.d, r);
+    const T dr = lk_abs(d) > piv_tol ? d : T(1);
+    return -lane_row(L, r)[L.n + kk] / dr;
 }
 
 // Lexicographic refinement of the ncand tie candidates in L.clist over the
@@ -588,7 +750,12 @@ QPN_HD void lane_decide(const Lane<T>& L, T tol, T piv_tol, int max_pivots,
     T pe = T(0);
 
     QPN_PROF_START();
-    const T tstar = lk_scan_min(L.theta, n, lane, nl);
+    T tstar = lk_inf<T>();
+    for (int k = 0; k < L.R; ++k) {
+        const T m = lk_scan_min(lk_peer(L, L.theta, k), lane_rows_of(L, k),
+                                lane, nl);
+        if (m < tstar) tstar = m;
+    }
     QPN_PROF(c, 4, lane == 0);
     const T theta_e = edir > T(0) ? L.vub[ent] - ev : ev - L.vlb[ent];
 
@@ -598,8 +765,13 @@ QPN_HD void lane_decide(const Lane<T>& L, T tol, T piv_tol, int max_pivots,
         flip = true;                         // bound flip: no basis change
     } else {
         const T thr = tstar + tol * (T(1) + lk_abs(tstar));
-        int ncand = lk_scan_ties(L.theta, L.basis, n, thr, T_ID, L.clist,
-                                 &js, lane, nl);
+        int ncand = 0;
+        js = n;
+        for (int k = 0; k < L.R; ++k)
+            ncand = lk_scan_ties(lk_peer(L, L.theta, k),
+                                 lk_peer(L, L.basis, k), lane_rows_of(L, k),
+                                 thr, T_ID, L.clist, ncand, k * L.nb, n, &js,
+                                 lane, nl);
         QPN_SYNCWARP();
         QPN_PROF(c, 5, lane == 0);
         if (js == n) {                       // else t exits on a tie
@@ -607,7 +779,7 @@ QPN_HD void lane_decide(const Lane<T>& L, T tol, T piv_tol, int max_pivots,
             js = ncand > 0 ? L.clist[0] : 0; // argmax convention: 0 if none
         }
         QPN_PROF(c, 6, lane == 0);
-        pe = L.tab[js * L.ld + ent];
+        pe = lane_row(L, js)[ent];
         if (lk_abs(pe) < piv_tol) status = LEMKE_SINGULAR;  // no pivot
         else act = ACT_PIVOT;
     }
@@ -637,9 +809,10 @@ QPN_HD void lane_decide(const Lane<T>& L, T tol, T piv_tol, int max_pivots,
 }
 
 // After a pivot is decided, by all the lane's threads: the scaled pivot row
-// (pr) and the entering column (other) are staged for the update, one
-// element a thread, while thread 0 does the bookkeeping.  Where the block
-// has more than one warp, the first warp stages nothing.
+// (pr, from its owner) and the band's entering column (other) are staged
+// for the update, one element a thread, while thread 0 does the
+// bookkeeping.  Where the block has more than one warp, the first warp
+// stages nothing.
 template <typename T>
 QPN_HD void lane_stage(const Lane<T>& L, int max_pivots, int tid, int nthr) {
     const int n = L.n, W = 3 * n + 2;
@@ -648,8 +821,8 @@ QPN_HD void lane_stage(const Lane<T>& L, int max_pivots, int tid, int nthr) {
     const T pe = c->pe;
     const int first = nthr > QPN_WARP ? QPN_WARP : 0;
     if (tid >= first) {
-        const T* prow = L.tab + js * L.ld;
-        for (int i = tid - first; i < W + n; i += nthr - first) {
+        const T* prow = lane_row(L, js);
+        for (int i = tid - first; i < W + L.rows; i += nthr - first) {
             if (i < W) L.pr[i] = prow[i] / pe;
             else L.other[i - W] = L.tab[(i - W) * L.ld + col];
         }
@@ -661,43 +834,46 @@ QPN_HD void lane_stage(const Lane<T>& L, int max_pivots, int tid, int nthr) {
 }
 
 // ---- phase C ---------------------------------------------------------------
-// The rank-1 update from the staged pivot row and entering column; warps
-// walk rows, lanes walk columns.  A thread keeps its column's pivot-row
-// entry in a register and takes four rows at a time, all loads before the
-// stores, so that the shared-memory latencies overlap.
+// The rank-1 update of the band from the staged pivot row and entering
+// column.  Each warp takes four of its rows at a time (rows wp, wp + nw,
+// ...), keeps their entries of the entering column in registers, and walks
+// the columns with its lanes, all four loads before the stores, so that
+// the shared-memory latencies overlap.  The pivot row's owner records the
+// basis exchange.
 template <typename T>
 QPN_HD void lane_update(const Lane<T>& L, int tid, int nthr) {
-    const int n = L.n, W = 3 * n + 2, ld = L.ld;
+    const int n = L.rows, W = 3 * L.n + 2, ld = L.ld;
     const int lane = tid % QPN_WARP, wp = tid / QPN_WARP;
     const int nw = nthr / QPN_WARP;
-    const int js = L.ctl->jstar;
-    T* tab = L.tab;
-    const T* other = L.other;
-    for (int j = lane; j < W; j += QPN_WARP) {
-        const T p = L.pr[j];
-        int r = wp;
-        for (; r + 3 * nw < n; r += 4 * nw) {
-            T* e0 = tab + r * ld + j;
-            T* e1 = e0 + nw * ld;
-            T* e2 = e1 + nw * ld;
-            T* e3 = e2 + nw * ld;
-            const T o0 = other[r], o1 = other[r + nw];
-            const T o2 = other[r + 2 * nw], o3 = other[r + 3 * nw];
-            const T v0 = *e0, v1 = *e1, v2 = *e2, v3 = *e3;
-            *e0 = r == js ? p : v0 - o0 * p;
-            *e1 = r + nw == js ? p : v1 - o1 * p;
-            *e2 = r + 2 * nw == js ? p : v2 - o2 * p;
-            *e3 = r + 3 * nw == js ? p : v3 - o3 * p;
+    const int js = L.ctl->jstar - L.r0;     // out of [0, rows) off the band
+    if (tid == 0 && js >= 0 && js < n) L.basis[js] = L.ctl->col;
+    for (int r = wp; r < n; r += 4 * nw) {
+        bool on[4];
+        T o[4];
+        T* e[4];
+        QPN_UNROLL
+        for (int k = 0; k < 4; ++k) {
+            const int rk = r + k * nw;
+            on[k] = rk < n;                  // alike across the warp
+            o[k] = on[k] ? L.other[rk] : T(0);
+            e[k] = L.tab + (size_t)(on[k] ? rk : r) * ld;
         }
-        for (; r < n; r += nw) {
-            T* e = tab + r * ld + j;
-            *e = r == js ? p : *e - other[r] * p;
+        for (int j = lane; j < W; j += QPN_WARP) {
+            const T p = L.pr[j];
+            T v[4];
+            QPN_UNROLL
+            for (int k = 0; k < 4; ++k) v[k] = on[k] ? e[k][j] : T(0);
+            QPN_UNROLL
+            for (int k = 0; k < 4; ++k)
+                if (on[k]) e[k][j] = r + k * nw == js ? p : v[k] - o[k] * p;
         }
     }
 }
 
-// The pivot loop of one lane; every thread of the lane calls it.  nthr is a
-// multiple of QPN_WARP (so of kLemkeSplit too).
+// The pivot loop of one rank of a lane on the card; every thread of the
+// rank calls it.  nthr is a multiple of QPN_WARP (so of kLemkeSplit too).
+// The host runs the same phases between the same barriers for each rank
+// in turn (lemke_lane_host.cpp).
 template <typename T>
 QPN_HD void lane_run(const Lane<T>& L, int tid, int nthr, T tol, T piv_tol,
                      int max_pivots) {
@@ -705,16 +881,18 @@ QPN_HD void lane_run(const Lane<T>& L, int tid, int nthr, T tol, T piv_tol,
     QPN_PROF_START();
     while (c->status == 0 && c->k < max_pivots) {
         lane_basic_values(L, tid, nthr, true, piv_tol);
-        QPN_SYNC();
+        lane_sync_ranks(L);                  // B reads every band's ratios
         QPN_PROF(c, 0, tid == 0);
         if (tid < QPN_WARP)
             lane_decide(L, tol, piv_tol, max_pivots, tid, QPN_WARP);
         QPN_SYNC();
         QPN_PROF(c, 1, tid == 0);
-        if (c->act == ACT_PIVOT) {
-            lane_stage(L, max_pivots, tid, nthr);
-            QPN_SYNC();
-            QPN_PROF(c, 2, tid == 0);
+        const bool pivot = c->act == ACT_PIVOT;
+        if (pivot) lane_stage(L, max_pivots, tid, nthr);
+        // C and the next A overwrite what peers read in B and S
+        if (pivot || L.R > 1) lane_sync_ranks(L);
+        QPN_PROF(c, 2, tid == 0 && pivot);
+        if (pivot) {
             lane_update(L, tid, nthr);
             QPN_SYNC();
             QPN_PROF(c, 3, tid == 0);

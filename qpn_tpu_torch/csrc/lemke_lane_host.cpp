@@ -1,8 +1,13 @@
 // Host instance of the Lemke pivot kernel's lane code (lemke_lane.cuh),
 // built with plain g++ and loaded with ctypes by the CPU tests: each lane
-// runs the same step functions as a thread block on the card, as thread 0
-// of 1 with no-op barriers, on a lane carved by the same lane_carve as both
-// of the card's instances.  Not on any production path.
+// runs the same step functions as the card's blocks, as thread 0 of 1 with
+// no-op barriers, on a lane carved by the same lane_carve as every
+// instance on the card.  A lane of R ranks (the cluster instance) is R
+// buffers carved as the cluster's blocks are; each phase runs for rank 0,
+// 1, ..., R-1 in turn between the points where the card's ranks meet at
+// the cluster's barrier.  That gives the card's bits because between two
+// such points no rank reads what another writes (lemke_lane.cuh).  Not on
+// any production path.
 
 #include <vector>
 
@@ -10,16 +15,46 @@
 
 namespace {
 
+// The pivot loop of lemke_lane.cuh::lane_run for the R ranks of one lane.
 template <typename T>
-void run_lanes(const qpn::LemkeBatch<T>& bt) {
-    // double storage keeps the working set 8-byte aligned
-    std::vector<double> buf(qpn::lane_bytes<T>(bt.n) / sizeof(double) + 2);
-    unsigned char* base = reinterpret_cast<unsigned char*>(buf.data());
+void run_ranks(const std::vector<qpn::Lane<T>>& L, T tol, T piv_tol,
+               int max_pivots) {
+    const qpn::LaneCtl<T>* c = L[0].ctl;     // every rank's scalars alike
+    while (c->status == 0 && c->k < max_pivots) {
+        for (const auto& r : L) qpn::lane_basic_values(r, 0, 1, true, piv_tol);
+        // the ranks' barrier
+        for (const auto& r : L) {
+            qpn::lane_decide(r, tol, piv_tol, max_pivots, 0, 1);
+            if (r.ctl->act == qpn::ACT_PIVOT) qpn::lane_stage(r, max_pivots, 0, 1);
+        }
+        // the ranks' barrier
+        for (const auto& r : L)
+            if (r.ctl->act == qpn::ACT_PIVOT) qpn::lane_update(r, 0, 1);
+    }
+    for (const auto& r : L) {
+        qpn::lane_basic_values(r, 0, 1, false, piv_tol);
+        if (r.ctl->status == 0) r.ctl->status = qpn::LEMKE_MAX;
+    }
+}
+
+template <typename T>
+void run_lanes(const qpn::LemkeBatch<T>& bt, int R) {
+    const size_t bytes = qpn::lane_band_bytes<T>(
+        bt.n, qpn::lane_band_height(bt.n, R));
+    // double storage keeps each rank's buffer 8-byte aligned
+    const size_t words = bytes / sizeof(double) + 2;
+    std::vector<double> buf(words * R);
+    std::vector<unsigned char*> bases(R);
+    for (int k = 0; k < R; ++k)
+        bases[k] = reinterpret_cast<unsigned char*>(buf.data() + k * words);
+    std::vector<qpn::Lane<T>> L(R);
     for (size_t b = 0; b < (size_t)bt.B; ++b) {
-        const qpn::Lane<T> L = qpn::lane_carve<T>(base, bt.n);
-        qpn::lane_load(L, bt, b, 0, 1);
-        qpn::lane_run(L, 0, 1, bt.tol, bt.piv_tol, bt.max_pivots);
-        qpn::lane_store(L, bt, b, 0, 1);
+        for (int k = 0; k < R; ++k) {
+            L[k] = qpn::lane_carve<T>(bases[k], bt.n, R, k, bases.data());
+            qpn::lane_load(L[k], bt, b, 0, 1);
+        }
+        run_ranks(L, bt.tol, bt.piv_tol, bt.max_pivots);
+        for (int k = 0; k < R; ++k) qpn::lane_store(L[k], bt, b, 0, 1);
     }
 }
 
@@ -27,12 +62,14 @@ void run_lanes(const qpn::LemkeBatch<T>& bt) {
 
 extern "C" {
 
-void qpn_lemke_pivot_host_f32(QPN_LEMKE_PARAMS(float)) {
-    run_lanes(QPN_LEMKE_BATCH(float));
+// ranks: the lane spread over that many ranks (1: one block's lane, as
+// the shared and global instances run it).
+void qpn_lemke_pivot_host_f32(QPN_LEMKE_PARAMS(float), int ranks) {
+    run_lanes(QPN_LEMKE_BATCH(float), ranks);
 }
 
-void qpn_lemke_pivot_host_f64(QPN_LEMKE_PARAMS(double)) {
-    run_lanes(QPN_LEMKE_BATCH(double));
+void qpn_lemke_pivot_host_f64(QPN_LEMKE_PARAMS(double), int ranks) {
+    run_lanes(QPN_LEMKE_BATCH(double), ranks);
 }
 
 // The decision's scans (host bodies), for the tests that hold them against
@@ -47,8 +84,9 @@ float qpn_lk_scan_min_f32(const float* v, int n) {
 
 int qpn_lk_scan_ties_f64(const double* theta, const int* tag, int n,
                          double thr, int want, int* list, int* first_tagged) {
-    return qpn::lk_scan_ties(theta, tag, n, thr, want, list, first_tagged, 0,
-                             1);
+    *first_tagged = n;
+    return qpn::lk_scan_ties(theta, tag, n, thr, want, list, 0, 0, n,
+                             first_tagged, 0, 1);
 }
 
 int qpn_lemke_lane_stride(int n) { return qpn::lane_stride(n); }
@@ -60,8 +98,18 @@ int qpn_lemke_lane_instance(int n, int itemsize, long long smem_optin) {
 }
 
 long long qpn_lemke_lane_bytes(int n, int itemsize) {
-    return itemsize == 4 ? (long long)qpn::lane_bytes<float>(n)
-                         : (long long)qpn::lane_bytes<double>(n);
+    return (long long)qpn::lane_band_bytes_of(n, n, itemsize);
+}
+
+// The ranks of the cluster instance for a lane of n (0: it takes none),
+// and the bytes of one rank's part when the lane is spread over R ranks.
+int qpn_lemke_cluster_ranks(int n, int itemsize, long long smem_optin) {
+    return qpn::lane_cluster_ranks(n, itemsize, smem_optin);
+}
+
+long long qpn_lemke_band_bytes(int n, int itemsize, int ranks) {
+    return (long long)qpn::lane_band_bytes_of(
+        n, qpn::lane_band_height(n, ranks), itemsize);
 }
 
 }  // extern "C"

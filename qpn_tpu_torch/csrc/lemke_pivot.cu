@@ -30,58 +30,96 @@
 // conflict between a warp's rows, and loads batched ahead of the stores
 // that may alias them.
 //
-// Two instances of that design, picked by the wrapper from the shape alone
-// (lemke_lane.cuh::lane_instance against the card's opt-in limit): the
-// shared instance above, and for lanes that do not fit (f32 n >= 136, f64
-// n >= 95 on an H100) the global instance, the same block and phases on a
-// lane carved from a device-memory workspace that the wrapper allocates
-// (lane_bytes(n) a lane; f32 at n=190 about 0.44 MB).  Its tableau is read
-// and written through L1 and L2 every pivot, so it is bound by memory
-// traffic where the shared instance is bound by latency; it is the first
-// design for such lanes, not a tuned one.
+// Three instances of that design, picked by the wrapper from the shape
+// alone (lemke_lane.cuh::lane_instance against the card's opt-in limit):
+//   * shared: the lane in one block's shared memory, bound by the latency
+//     of the chain of phases (above);
+//   * cluster: for lanes that do not fit one block (f32 n >= 136, f64
+//     n >= 95 on an H100), the lane spread over a cluster of R = 2-8 blocks
+//     on neighbouring SMs (lane_cluster_ranks: the fewest whose bands fit
+//     the limit; f32 n=190 on 2, f64 n=152 on 3).  Rank k holds a band of
+//     the tableau's rows and their vectors, every rank the column-length
+//     vectors; the bands stay on chip for the whole path, and the phases
+//     read across ranks through distributed shared memory with two cluster
+//     barriers a pivot (lemke_lane.cuh).  Each rank decides alike from the
+//     same data, so no decision is sent between ranks.  What bounds it: the
+//     same chain as the shared instance's, with the decision's scans
+//     reading other SMs' shared memory and the cluster barriers, and at
+//     most one cluster on each pair of SMs (one band fills an SM's shared
+//     memory).  Launched with cudaLaunchKernelEx and a cluster dimension;
+//     the first launch at each size checks that such a cluster fits the
+//     card (cudaOccupancyMaxActiveClusters) and returns CUDA's error where
+//     it does not: there is no fallback to another instance;
+//   * global: past 8 ranks (f32 n above about 370, f64 above about 265),
+//     the same block and phases on a lane carved from a device-memory
+//     workspace that the wrapper allocates (lane_bytes(n) a lane).  Its
+//     tableau is read and written through L1 and L2 every pivot, so it is
+//     bound by memory traffic.  The wrapper's private launcher also runs it
+//     at cluster sizes, to hold the two against each other on the card.
 //
 // Templated on float (the hot f32 tier) and double (the straggler re-pivot).
 // Built with nvcc -O3 -fmad=false, no fast math (utils/cuda_build.py).
 //
-// C interface (ctypes): qpn_lemke_pivot_f32 / _f64 (the shared instance)
-// and qpn_lemke_pivot_global_f32 / _f64 (the global instance, given its
-// workspace) return 0 or a cudaError_t; qpn_lemke_lane_instance is the pure
-// choice, qpn_lemke_smem_optin the current card's limit.
+// C interface (ctypes): qpn_lemke_pivot_f32 / _f64 (the shared instance),
+// qpn_lemke_pivot_cluster_f32 / _f64 (given its ranks) and
+// qpn_lemke_pivot_global_f32 / _f64 (given its workspace) return 0 or a
+// cudaError_t; qpn_lemke_lane_instance and qpn_lemke_cluster_ranks are the
+// pure choice, qpn_lemke_smem_optin the current card's limit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cluster_launch.cuh"
 #include "lemke_lane.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;   // a multiple of 32 and of qpn::kLemkeSplit
 
-// One block a lane; kGlobal: the lane's working set is lane b of the
-// device-memory workspace, else the block's dynamic shared memory.
-template <typename T, bool kGlobal>
-__global__ void __launch_bounds__(kThreads)
-lemke_pivot_kernel(qpn::LemkeBatch<T> bt, unsigned char* workspace) {
+// Threads a block of the cluster instance, whose bands are larger than any
+// lane of the shared instance: more warps hide more of the shared-memory
+// latency of phases A and C (512 measured faster than 256 and 1024 on an
+// H100).
+constexpr int kClusterThreads = 512;
+
+template <int kInstance>
+__host__ __device__ constexpr int block_threads() {
+    return kInstance == qpn::LANE_CLUSTER ? kClusterThreads : kThreads;
+}
+
+// One block a lane (LANE_SHARED: the block's dynamic shared memory;
+// LANE_GLOBAL: lane b of the device-memory workspace), or one cluster of R
+// blocks a lane (LANE_CLUSTER: rank k's band in block k's shared memory).
+template <typename T, int kInstance>
+__global__ void __launch_bounds__(block_threads<kInstance>())
+lemke_pivot_kernel(qpn::LemkeBatch<T> bt, unsigned char* workspace, int R) {
     extern __shared__ __align__(16) unsigned char smem[];
-    const size_t b = blockIdx.x;
-    unsigned char* base =
-        kGlobal ? workspace + b * qpn::lane_bytes<T>(bt.n) : smem;
-    const qpn::Lane<T> L = qpn::lane_carve<T>(base, bt.n);
-    qpn::lane_load(L, bt, b, threadIdx.x, kThreads);
-    qpn::lane_run(L, threadIdx.x, kThreads, bt.tol, bt.piv_tol,
-                  bt.max_pivots);
-    qpn::lane_store(L, bt, b, threadIdx.x, kThreads);
+    const bool spread = kInstance == qpn::LANE_CLUSTER;
+    const int rank = spread ? (int)cg::this_cluster().block_rank() : 0;
+    const size_t b = spread ? blockIdx.x / R : blockIdx.x;
+    unsigned char* base = kInstance == qpn::LANE_GLOBAL
+        ? workspace + b * qpn::lane_bytes<T>(bt.n) : smem;
+    const qpn::Lane<T> L =
+        qpn::lane_carve<T>(base, bt.n, spread ? R : 1, rank);
+    constexpr int nthr = block_threads<kInstance>();
+    qpn::lane_load(L, bt, b, threadIdx.x, nthr);
+    qpn::lane_run(L, threadIdx.x, nthr, bt.tol, bt.piv_tol, bt.max_pivots);
+    qpn::lane_store(L, bt, b, threadIdx.x, nthr);
+    // no block leaves while a peer may still read its shared memory
+    if (spread) cg::this_cluster().sync();
 }
 
 template <typename T>
 int launch_shared(const qpn::LemkeBatch<T>& bt, cudaStream_t stream) {
     if (bt.B <= 0) return 0;
     const size_t bytes = qpn::lane_bytes<T>(bt.n);
+    auto kernel = lemke_pivot_kernel<T, qpn::LANE_SHARED>;
     cudaError_t e = cudaFuncSetAttribute(
-        lemke_pivot_kernel<T, false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
-    lemke_pivot_kernel<T, false><<<bt.B, kThreads, bytes, stream>>>(bt,
-                                                                    nullptr);
+    kernel<<<bt.B, kThreads, bytes, stream>>>(bt, nullptr, 1);
     return cudaGetLastError();
 }
 
@@ -90,9 +128,20 @@ int launch_global(const qpn::LemkeBatch<T>& bt, void* workspace,
                   cudaStream_t stream) {
     if (bt.B <= 0) return 0;
     if (workspace == nullptr) return cudaErrorInvalidValue;
-    lemke_pivot_kernel<T, true><<<bt.B, kThreads, 0, stream>>>(
-        bt, static_cast<unsigned char*>(workspace));
+    lemke_pivot_kernel<T, qpn::LANE_GLOBAL><<<bt.B, kThreads, 0, stream>>>(
+        bt, static_cast<unsigned char*>(workspace), 1);
     return cudaGetLastError();
+}
+
+template <typename T>
+int launch_cluster(const qpn::LemkeBatch<T>& bt, int R, cudaStream_t stream) {
+    // the largest band checked at each cluster size
+    static size_t checked[qpn::kLaneMaxRanks + 1] = {};
+    const size_t bytes = R < 1 ? 0 : qpn::lane_band_bytes<T>(
+        bt.n, qpn::lane_band_height(bt.n, R));
+    return qpn::launch_cluster(lemke_pivot_kernel<T, qpn::LANE_CLUSTER>,
+                               checked, bt.B, R, kClusterThreads, bytes,
+                               stream, bt, (unsigned char*)nullptr, R);
 }
 
 }  // namespace
@@ -105,6 +154,18 @@ int qpn_lemke_pivot_f32(QPN_LEMKE_PARAMS(float), void* stream) {
 
 int qpn_lemke_pivot_f64(QPN_LEMKE_PARAMS(double), void* stream) {
     return launch_shared(QPN_LEMKE_BATCH(double), (cudaStream_t)stream);
+}
+
+// ranks: the cluster's blocks a lane (qpn_lemke_cluster_ranks)
+int qpn_lemke_pivot_cluster_f32(QPN_LEMKE_PARAMS(float), int ranks,
+                                void* stream) {
+    return launch_cluster(QPN_LEMKE_BATCH(float), ranks, (cudaStream_t)stream);
+}
+
+int qpn_lemke_pivot_cluster_f64(QPN_LEMKE_PARAMS(double), int ranks,
+                                void* stream) {
+    return launch_cluster(QPN_LEMKE_BATCH(double), ranks,
+                          (cudaStream_t)stream);
 }
 
 // workspace: B * qpn_lemke_lane_bytes(n, itemsize) bytes of device memory
@@ -121,8 +182,16 @@ int qpn_lemke_pivot_global_f64(QPN_LEMKE_PARAMS(double), void* workspace,
 }
 
 long long qpn_lemke_lane_bytes(int n, int itemsize) {
-    return itemsize == 4 ? (long long)qpn::lane_bytes<float>(n)
-                         : (long long)qpn::lane_bytes<double>(n);
+    return (long long)qpn::lane_band_bytes_of(n, n, itemsize);
+}
+
+int qpn_lemke_cluster_ranks(int n, int itemsize, long long smem_optin) {
+    return qpn::lane_cluster_ranks(n, itemsize, smem_optin);
+}
+
+long long qpn_lemke_band_bytes(int n, int itemsize, int ranks) {
+    return (long long)qpn::lane_band_bytes_of(
+        n, qpn::lane_band_height(n, ranks), itemsize);
 }
 
 int qpn_lemke_lane_instance(int n, int itemsize, long long smem_optin) {

@@ -11,11 +11,16 @@ first use (``utils/cuda_build.py``) and launched on the current stream.
 Before the launch the wrapper picks the instance from n alone
 (``csrc/eg_lane.cuh::eg_instance`` against the card's shared-memory opt-in
 limit): M in registers (n <= 128) or in shared memory (up to n = 238 on an
-H100), counted in ``METRICS.launches["eg_warmstart"]``; or M read in place
-from device memory, counted in ``METRICS.launches["eg_warmstart_global"]``.
+H100), counted in ``METRICS.launches["eg_warmstart"]``; M spread over the
+shared memory of a cluster of 2-8 blocks (``eg_cluster_ranks``), counted in
+``METRICS.launches["eg_warmstart_cluster"]``; or, past 8 blocks, M read in
+place from device memory, counted in
+``METRICS.launches["eg_warmstart_global"]``.  A launch the card refuses
+raises ``RuntimeError`` with CUDA's message; no other instance is tried.
 
 :func:`eg_steps_host` runs the same lane code built with g++ on CPU
-tensors — the CPU tests' window on the kernel's logic.
+tensors — the CPU tests' window on the kernel's logic — with the lane
+spread over the ranks the card's launcher would give it.
 """
 
 from __future__ import annotations
@@ -31,7 +36,11 @@ from ..utils.metrics import METRICS
 
 KERNEL = "eg_warmstart"
 KERNEL_GLOBAL = "eg_warmstart_global"
-EG_REGISTER, EG_SHARED, EG_GLOBAL = 0, 1, 2    # csrc/eg_lane.cuh::eg_instance
+KERNEL_CLUSTER = "eg_warmstart_cluster"
+# csrc/eg_lane.cuh::eg_instance
+EG_REGISTER, EG_SHARED, EG_GLOBAL, EG_CLUSTER = 0, 1, 2, 3
+_COUNTED = {EG_REGISTER: KERNEL, EG_SHARED: KERNEL, EG_GLOBAL: KERNEL_GLOBAL,
+            EG_CLUSTER: KERNEL_CLUSTER}
 _PARAMS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
 _CUDA_LIB: Optional[ctypes.CDLL] = None
 _HOST_LIB: Optional[ctypes.CDLL] = None
@@ -40,10 +49,14 @@ _HOST_LIB: Optional[ctypes.CDLL] = None
 def _cuda_lib() -> ctypes.CDLL:
     global _CUDA_LIB
     if _CUDA_LIB is None:
-        lib = load_cuda_library(KERNEL, ["eg_warmstart.cu"], ["eg_lane.cuh"])
+        lib = load_cuda_library(KERNEL, ["eg_warmstart.cu"],
+                                ["eg_lane.cuh", "cluster_launch.cuh"])
         for fn in (lib.qpn_eg_warmstart_f32, lib.qpn_eg_warmstart_global_f32):
             fn.restype = ctypes.c_int
             fn.argtypes = _PARAMS + [ctypes.c_void_p]
+        lib.qpn_eg_warmstart_cluster_f32.restype = ctypes.c_int
+        lib.qpn_eg_warmstart_cluster_f32.argtypes = _PARAMS + [
+            ctypes.c_int, ctypes.c_void_p]
         _instance_function(lib)
         lib.qpn_eg_smem_optin.restype = ctypes.c_longlong
         lib.qpn_eg_smem_optin.argtypes = []
@@ -59,7 +72,8 @@ def _host_lib() -> ctypes.CDLL:
         lib = load_host_library("eg_lane_host", ["eg_lane_host.cpp"],
                                 ["eg_lane.cuh"])
         lib.qpn_eg_warmstart_host_f32.restype = None
-        lib.qpn_eg_warmstart_host_f32.argtypes = _PARAMS + [ctypes.c_longlong]
+        lib.qpn_eg_warmstart_host_f32.argtypes = _PARAMS + [
+            ctypes.c_longlong, ctypes.c_int]
         lib.qpn_eg_pick_chunk.restype = ctypes.c_int
         lib.qpn_eg_pick_chunk.argtypes = [ctypes.c_int]
         _instance_function(lib)
@@ -68,8 +82,18 @@ def _host_lib() -> ctypes.CDLL:
 
 
 def _instance_function(lib: ctypes.CDLL) -> None:
-    lib.qpn_eg_instance.restype = ctypes.c_int
-    lib.qpn_eg_instance.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    for fn in (lib.qpn_eg_instance, lib.qpn_eg_cluster_ranks):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_longlong]
+
+
+def _ranks(lib: ctypes.CDLL, n: int, optin: int) -> tuple[int, int]:
+    """(instance, ranks) that ``lib``'s pure choice gives rows of ``n``
+    under ``optin``: ranks 1 but for the cluster instance."""
+    instance = lib.qpn_eg_instance(n, optin)
+    if instance != EG_CLUSTER:
+        return instance, 1
+    return instance, lib.qpn_eg_cluster_ranks(n, optin)
 
 
 def card_optin(device: torch.device) -> int:
@@ -77,6 +101,12 @@ def card_optin(device: torch.device) -> int:
     the kernel library reads it (the limit the instance is picked by)."""
     lib = _cuda_lib()
     return smem_optin(lib.qpn_eg_smem_optin, device)
+
+
+def card_instance(n: int, device: torch.device) -> tuple[int, int]:
+    """(instance, ranks) that the launcher picks for rows of ``n`` on the
+    CUDA ``device``."""
+    return _ranks(_cuda_lib(), int(n), card_optin(device))
 
 
 def build() -> None:
@@ -121,41 +151,73 @@ def eg_warmstart_cuda(M, q, l, u, z0, tau, steps: int) -> torch.Tensor:
     (one launch).  M (B,n,n); q/l/u/z0 (B,n); tau (B,); all f32 on one CUDA
     device.  The instance is picked from n: the register kernel up to
     n = 128, beyond that the generic kernel with M in shared memory while it
-    fits, else with M read from device memory."""
+    fits, then spread over a cluster's shared memory, else with M read from
+    device memory."""
     if M.device.type != "cuda":
         raise ValueError("eg_warmstart_cuda takes CUDA tensors; CPU tensors "
                          "go to eg.eg_steps_torch")
     _check(M, q, l, u, z0, tau, steps)
+    instance, ranks = card_instance(M.shape[1], M.device)
+    return _run(M, q, l, u, z0, tau, steps, instance, ranks)
+
+
+def _launch(M, q, l, u, z0, tau, steps: int, *, instance: int,
+            ranks: int = 1) -> torch.Tensor:
+    """One launch of the given instance (EG_CLUSTER over ``ranks`` blocks
+    a lane; EG_REGISTER and EG_SHARED: the kernel the launcher picks from
+    n), counted under its name.  :func:`eg_warmstart_cuda` picks the
+    instance from the shape; ``chip_smoke.py`` and the GPU tests call this
+    to run the global instance at cluster sizes, and a cluster size the
+    card refuses."""
+    if M.device.type != "cuda":
+        raise ValueError("the eg kernel takes CUDA tensors")
+    _check(M, q, l, u, z0, tau, steps)
+    return _run(M, q, l, u, z0, tau, steps, instance, ranks)
+
+
+def _run(M, q, l, u, z0, tau, steps: int, instance: int,
+         ranks: int) -> torch.Tensor:
+    """The launch of both entry points, on inputs they have checked."""
     out = torch.empty_like(z0)
     B, n, _ = M.shape
     if B == 0 or n == 0:
         return out
     lib = _cuda_lib()
+    args = _args(M, q, l, u, z0, tau, out, steps)
     stream = torch.cuda.current_stream(M.device).cuda_stream
     with torch.cuda.device(M.device):
-        instance = lib.qpn_eg_instance(n, card_optin(M.device))
-        fn = (lib.qpn_eg_warmstart_global_f32 if instance == EG_GLOBAL
-              else lib.qpn_eg_warmstart_f32)
-        rc = fn(*_args(M, q, l, u, z0, tau, out, steps), stream)
+        if instance == EG_GLOBAL:
+            rc = lib.qpn_eg_warmstart_global_f32(*args, stream)
+        elif instance == EG_CLUSTER:
+            rc = lib.qpn_eg_warmstart_cluster_f32(*args, int(ranks), stream)
+        elif instance in (EG_REGISTER, EG_SHARED):
+            rc = lib.qpn_eg_warmstart_f32(*args, stream)
+        else:
+            raise ValueError(f"eg kernel: no instance {instance}")
     if rc != 0:
         raise RuntimeError("eg kernel launch failed: "
                            + lib.qpn_eg_error_string(rc).decode())
-    METRICS.launched(KERNEL_GLOBAL if instance == EG_GLOBAL else KERNEL)
+    METRICS.launched(_COUNTED[instance])
     return out
 
 
 def eg_steps_host(M, q, l, u, z0, tau, steps: int,
-                  optin: int = HOPPER_SMEM_OPTIN) -> torch.Tensor:
+                  optin: int = HOPPER_SMEM_OPTIN,
+                  ranks: Optional[int] = None) -> torch.Tensor:
     """The kernel's lane code built for the host, on CPU tensors: every sum
     in the order of, and the lane carved as by, the kernel that the launcher
     picks for this n under the opt-in limit ``optin`` (an H100's by
-    default)."""
+    default), spread over the ranks it would give the lane; ``ranks``
+    spreads it over that many instead (1: one block's lane)."""
     if M.device.type != "cpu":
         raise ValueError("eg_steps_host takes CPU tensors")
     _check(M, q, l, u, z0, tau, steps)
+    if ranks is not None and ranks < 1:
+        raise ValueError(f"eg_steps_host: ranks={ranks} < 1")
     out = torch.empty_like(z0)
     _host_lib().qpn_eg_warmstart_host_f32(
-        *_args(M, q, l, u, z0, tau, out, steps), int(optin))
+        *_args(M, q, l, u, z0, tau, out, steps), int(optin),
+        0 if ranks is None else int(ranks))
     return out
 
 
@@ -167,6 +229,13 @@ def host_pick_chunk(n: int) -> int:
 
 def host_instance(n: int, optin: int) -> int:
     """The instance the launcher picks for rows of ``n`` columns under the
-    opt-in limit ``optin`` in bytes (EG_REGISTER, EG_SHARED or EG_GLOBAL),
-    from the kernel's header built for the host."""
+    opt-in limit ``optin`` in bytes (EG_REGISTER, EG_SHARED, EG_CLUSTER or
+    EG_GLOBAL), from the kernel's header built for the host."""
     return _host_lib().qpn_eg_instance(int(n), int(optin))
+
+
+def host_cluster_ranks(n: int, optin: int) -> int:
+    """The blocks of the cluster instance's lane for rows of ``n`` under the
+    opt-in limit ``optin`` (0: no cluster of at most 8 holds it), from the
+    kernel's header built for the host."""
+    return _host_lib().qpn_eg_cluster_ranks(int(n), int(optin))

@@ -8,16 +8,20 @@ exactly like the plain PyTorch loop ``lemke.lemke_pivot_torch`` it is held
 against.  It takes CUDA tensors only and raises on anything the kernel does
 not take; there is no fallback to the plain loop.  The kernel is built with
 nvcc on first use (``utils/cuda_build.py``) and launched on the current
-stream.  Before the launch the wrapper picks one of the kernel's two
+stream.  Before the launch the wrapper picks one of the kernel's three
 instances from the shape alone (``csrc/lemke_lane.cuh::lane_instance``
 against the card's shared-memory opt-in limit): the lane in the block's
-shared memory, counted in ``METRICS.launches["lemke_pivot"]``, or, for a
-lane that does not fit (f32 n >= 136, f64 n >= 95 on an H100), the lane in a
+shared memory, counted in ``METRICS.launches["lemke_pivot"]``; for a lane
+that does not fit (f32 n >= 136, f64 n >= 95 on an H100), the lane spread
+over a cluster of 2-8 blocks (``lane_cluster_ranks``), counted in
+``METRICS.launches["lemke_pivot_cluster"]``; past 8 blocks, the lane in a
 device-memory workspace that the wrapper allocates, counted in
-``METRICS.launches["lemke_pivot_global"]``.
+``METRICS.launches["lemke_pivot_global"]``.  A launch the card refuses
+raises ``RuntimeError`` with CUDA's message; no other instance is tried.
 
 :func:`lemke_pivot_host` runs the same lane code built with g++ on CPU
-tensors — the CPU tests' window on the kernel's logic.
+tensors — the CPU tests' window on the kernel's logic — with the lane
+spread over the ranks the card's launcher would give it.
 """
 
 from __future__ import annotations
@@ -27,14 +31,18 @@ from typing import Optional
 
 import torch
 
-from ..utils.cuda_build import (load_cuda_library, load_host_library,
-                                smem_optin)
+from ..utils.cuda_build import (HOPPER_SMEM_OPTIN, load_cuda_library,
+                                load_host_library, smem_optin)
 from ..utils.metrics import METRICS
 from .lemke import LemkeInit, PivotResult
 
 KERNEL = "lemke_pivot"
 KERNEL_GLOBAL = "lemke_pivot_global"
-LANE_SHARED, LANE_GLOBAL = 0, 1     # csrc/lemke_lane.cuh::lane_instance
+KERNEL_CLUSTER = "lemke_pivot_cluster"
+# csrc/lemke_lane.cuh::lane_instance
+LANE_SHARED, LANE_GLOBAL, LANE_CLUSTER = 0, 1, 2
+_COUNTED = {LANE_SHARED: KERNEL, LANE_GLOBAL: KERNEL_GLOBAL,
+            LANE_CLUSTER: KERNEL_CLUSTER}
 _PARAMS = [ctypes.c_void_p] * 16 + [ctypes.c_int, ctypes.c_int,
                                     ctypes.c_double, ctypes.c_double,
                                     ctypes.c_int]
@@ -45,7 +53,8 @@ _HOST_LIB: Optional[ctypes.CDLL] = None
 def _cuda_lib() -> ctypes.CDLL:
     global _CUDA_LIB
     if _CUDA_LIB is None:
-        lib = load_cuda_library(KERNEL, ["lemke_pivot.cu"], ["lemke_lane.cuh"])
+        lib = load_cuda_library(KERNEL, ["lemke_pivot.cu"],
+                                ["lemke_lane.cuh", "cluster_launch.cuh"])
         for fn in (lib.qpn_lemke_pivot_f32, lib.qpn_lemke_pivot_f64):
             fn.restype = ctypes.c_int
             fn.argtypes = _PARAMS + [ctypes.c_void_p]
@@ -53,6 +62,10 @@ def _cuda_lib() -> ctypes.CDLL:
                    lib.qpn_lemke_pivot_global_f64):
             fn.restype = ctypes.c_int
             fn.argtypes = _PARAMS + [ctypes.c_void_p] * 2
+        for fn in (lib.qpn_lemke_pivot_cluster_f32,
+                   lib.qpn_lemke_pivot_cluster_f64):
+            fn.restype = ctypes.c_int
+            fn.argtypes = _PARAMS + [ctypes.c_int, ctypes.c_void_p]
         _shape_functions(lib)
         lib.qpn_lemke_smem_optin.restype = ctypes.c_longlong
         lib.qpn_lemke_smem_optin.argtypes = []
@@ -69,7 +82,7 @@ def _host_lib() -> ctypes.CDLL:
                                 ["lemke_lane.cuh"])
         for fn in (lib.qpn_lemke_pivot_host_f32, lib.qpn_lemke_pivot_host_f64):
             fn.restype = None
-            fn.argtypes = _PARAMS
+            fn.argtypes = _PARAMS + [ctypes.c_int]
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for fn, res, args in (
                 (lib.qpn_lk_scan_min_f64, ctypes.c_double, [vp, ci]),
@@ -89,16 +102,26 @@ def _shape_functions(lib: ctypes.CDLL) -> None:
     export."""
     lib.qpn_lemke_lane_bytes.restype = ctypes.c_longlong
     lib.qpn_lemke_lane_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.qpn_lemke_lane_instance.restype = ctypes.c_int
-    lib.qpn_lemke_lane_instance.argtypes = [ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_longlong]
+    for fn in (lib.qpn_lemke_lane_instance, lib.qpn_lemke_cluster_ranks):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
+    lib.qpn_lemke_band_bytes.restype = ctypes.c_longlong
+    lib.qpn_lemke_band_bytes.argtypes = [ctypes.c_int] * 3
 
 
 def host_lane_instance(n: int, itemsize: int, optin: int) -> int:
-    """The instance the launcher picks for a lane of ``n`` (LANE_SHARED or
-    LANE_GLOBAL) under the opt-in limit ``optin`` in bytes, from the
-    kernel's header built for the host."""
+    """The instance the launcher picks for a lane of ``n`` (LANE_SHARED,
+    LANE_CLUSTER or LANE_GLOBAL) under the opt-in limit ``optin`` in bytes,
+    from the kernel's header built for the host."""
     return _host_lib().qpn_lemke_lane_instance(int(n), int(itemsize),
+                                               int(optin))
+
+
+def host_cluster_ranks(n: int, itemsize: int, optin: int) -> int:
+    """The blocks of the cluster instance's lane of ``n`` under the opt-in
+    limit ``optin`` (0: no cluster of at most 8 holds it), from the
+    kernel's header built for the host."""
+    return _host_lib().qpn_lemke_cluster_ranks(int(n), int(itemsize),
                                                int(optin))
 
 
@@ -107,11 +130,35 @@ def host_lane_bytes(n: int, itemsize: int) -> int:
     return _host_lib().qpn_lemke_lane_bytes(int(n), int(itemsize))
 
 
+def host_band_bytes(n: int, itemsize: int, ranks: int) -> int:
+    """Bytes of one rank's part of a lane of ``n`` spread over ``ranks``
+    blocks, from the kernel's header."""
+    return _host_lib().qpn_lemke_band_bytes(int(n), int(itemsize),
+                                            int(ranks))
+
+
+def _ranks(lib: ctypes.CDLL, n: int, itemsize: int, optin: int
+           ) -> tuple[int, int]:
+    """(instance, ranks) that ``lib``'s pure choice gives a lane of ``n``
+    under ``optin``: ranks 1 but for the cluster instance."""
+    instance = lib.qpn_lemke_lane_instance(n, itemsize, optin)
+    if instance != LANE_CLUSTER:
+        return instance, 1
+    return instance, lib.qpn_lemke_cluster_ranks(n, itemsize, optin)
+
+
 def card_optin(device: torch.device) -> int:
     """The shared memory a block can opt into on the CUDA ``device``, as
     the kernel library reads it (the limit the instance is picked by)."""
     lib = _cuda_lib()
     return smem_optin(lib.qpn_lemke_smem_optin, device)
+
+
+def card_instance(n: int, itemsize: int, device: torch.device
+                  ) -> tuple[int, int]:
+    """(instance, ranks) that the launcher picks for a lane of ``n`` on the
+    CUDA ``device``."""
+    return _ranks(_cuda_lib(), int(n), int(itemsize), card_optin(device))
 
 
 def host_scans() -> ctypes.CDLL:
@@ -184,6 +231,27 @@ def lemke_pivot_cuda(init: LemkeInit, *, tol, piv_tol, max_pivots
         raise ValueError("lemke_pivot_cuda takes CUDA tensors; CPU tensors "
                          "go to lemke.lemke_pivot_torch")
     _check(init)
+    n, itemsize = init.T.shape[1], init.T.element_size()
+    instance, ranks = card_instance(n, itemsize, init.T.device)
+    return _run(init, tol, piv_tol, max_pivots, instance, ranks)
+
+
+def _launch(init: LemkeInit, *, tol, piv_tol, max_pivots, instance: int,
+            ranks: int = 1) -> PivotResult:
+    """One launch of the given instance (LANE_CLUSTER over ``ranks``
+    blocks a lane), counted under its name.  :func:`lemke_pivot_cuda`
+    picks the instance from the shape; ``chip_smoke.py`` and the GPU tests
+    call this to run the global instance at cluster sizes, and a cluster
+    size the card refuses."""
+    if init.T.device.type != "cuda":
+        raise ValueError("the lemke pivot kernel takes CUDA tensors")
+    _check(init)
+    return _run(init, tol, piv_tol, max_pivots, instance, ranks)
+
+
+def _run(init: LemkeInit, tol, piv_tol, max_pivots, instance: int,
+         ranks: int) -> PivotResult:
+    """The launch of both entry points, on inputs they have checked."""
     out = _outputs(init)
     B, n, _ = init.T.shape
     if B == 0:
@@ -195,34 +263,47 @@ def lemke_pivot_cuda(init: LemkeInit, *, tol, piv_tol, max_pivots
     args = _args(init, out, tol, piv_tol, max_pivots)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        instance = lib.qpn_lemke_lane_instance(n, itemsize,
-                                               card_optin(device))
         if instance == LANE_GLOBAL:
             workspace = torch.empty(B * lib.qpn_lemke_lane_bytes(n, itemsize),
                                     dtype=torch.uint8, device=device)
             fn = (lib.qpn_lemke_pivot_global_f32 if f32
                   else lib.qpn_lemke_pivot_global_f64)
             rc = fn(*args, workspace.data_ptr(), stream)
-        else:
+        elif instance == LANE_CLUSTER:
+            fn = (lib.qpn_lemke_pivot_cluster_f32 if f32
+                  else lib.qpn_lemke_pivot_cluster_f64)
+            rc = fn(*args, int(ranks), stream)
+        elif instance == LANE_SHARED:
             fn = lib.qpn_lemke_pivot_f32 if f32 else lib.qpn_lemke_pivot_f64
             rc = fn(*args, stream)
+        else:
+            raise ValueError(f"lemke pivot kernel: no instance {instance}")
     if rc != 0:
         raise RuntimeError("lemke pivot kernel launch failed: "
                            + lib.qpn_cuda_error_string(rc).decode())
-    METRICS.launched(KERNEL_GLOBAL if instance == LANE_GLOBAL else KERNEL)
+    METRICS.launched(_COUNTED[instance])
     return out
 
 
-def lemke_pivot_host(init: LemkeInit, *, tol, piv_tol, max_pivots
-                     ) -> PivotResult:
+def lemke_pivot_host(init: LemkeInit, *, tol, piv_tol, max_pivots,
+                     optin: int = HOPPER_SMEM_OPTIN,
+                     ranks: Optional[int] = None) -> PivotResult:
     """The kernel's lane code built for the host, on CPU tensors, every sum
-    in the kernel's order."""
+    in the kernel's order: the lane spread over ``ranks`` ranks (each phase
+    run for one rank after another), by default the ranks of the instance
+    the launcher picks under the opt-in limit ``optin`` (an H100's by
+    default; 1 unless that is the cluster instance)."""
     if init.T.device.type != "cpu":
         raise ValueError("lemke_pivot_host takes CPU tensors")
     _check(init)
-    out = _outputs(init)
     lib = _host_lib()
+    n, itemsize = init.T.shape[1], init.T.element_size()
+    if ranks is None:
+        ranks = _ranks(lib, n, itemsize, int(optin))[1]
+    if ranks < 1:
+        raise ValueError(f"lemke_pivot_host: ranks={ranks} < 1")
+    out = _outputs(init)
     fn = (lib.qpn_lemke_pivot_host_f32 if init.T.dtype == torch.float32
           else lib.qpn_lemke_pivot_host_f64)
-    fn(*_args(init, out, tol, piv_tol, max_pivots))
+    fn(*_args(init, out, tol, piv_tol, max_pivots), int(ranks))
     return out

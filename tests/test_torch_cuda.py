@@ -113,10 +113,11 @@ def test_main_path_goes_through_the_kernel(cuda_device):
 def test_kernel_takes_a_lane_too_large_for_shared_memory(cuda_device, dtype,
                                                          kw):
     """robust_avoid lanes of n=152 (T=4, num_obj=2: 0.47 MB of working set
-    in f64, 0.29 MB in f32) run in the kernel's global instance: one launch
+    in f64, 0.29 MB in f32) run in the kernel's cluster instance: one launch
     counted under its own name, the plain loop's status and pivot counts,
-    and the bits of the host instance."""
-    from qpn_tpu_torch.ops.lemke_cuda import KERNEL_GLOBAL, lemke_pivot_host
+    and the bits of the host emulation of its ranks."""
+    from qpn_tpu_torch.ops.lemke_cuda import (KERNEL_CLUSTER, KERNEL_GLOBAL,
+                                              card_optin, lemke_pivot_host)
     b = scenario_batch_gavis(num_scenarios=8, T=4, num_obj=2,
                              num_poly_faces=4, seed=0)
     t = batch_from_numpy(b, cuda_device)
@@ -126,16 +127,84 @@ def test_kernel_takes_a_lane_too_large_for_shared_memory(cuda_device, dtype,
     METRICS.reset()
     rk = lemke_pivot_cuda(init, max_pivots=1024, **kw)
     torch.cuda.synchronize()
-    assert METRICS.launches[KERNEL_GLOBAL] == 1
+    assert METRICS.launches[KERNEL_CLUSTER] == 1
     assert METRICS.launches[KERNEL] == 0
+    assert METRICS.launches[KERNEL_GLOBAL] == 0
     rp = lemke.lemke_pivot_torch(init, max_pivots=1024, **kw)
     assert torch.equal(rk.status, rp.status)
     assert torch.equal(rk.piv, rp.piv)
     assert (rk.status == lemke.LEMKE_SUCCESS).all()
     rh = lemke_pivot_host(lemke.LemkeInit(*(a.cpu() for a in init)),
-                          max_pivots=1024, **kw)
+                          max_pivots=1024, optin=card_optin(cuda_device),
+                          **kw)
     for name in ("status", "piv", "basis", "val", "xB"):
         assert torch.equal(getattr(rk, name).cpu(), getattr(rh, name)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,dtype,kw,lanes", [
+    (4, torch.float32, HOT, 256), (5, torch.float32, HOT, 256),
+    (4, torch.float64, F64, 16)], ids=["f32_n152", "f32_n190", "f64_n152"])
+def test_cluster_instance_against_plain_loop_host_and_global(
+        cuda_device, T, dtype, kw, lanes):
+    """K1's cluster instance on phase 20's lanes: the plain loop's status
+    and pivot counts, the bits of the host emulation of its ranks on 8
+    lanes, and the bits of the global instance (the private launcher) on
+    all of them."""
+    from qpn_tpu_torch.ops import lemke_cuda
+    b = scenario_batch_gavis(num_scenarios=lanes, T=T, num_obj=2,
+                             num_poly_faces=4, seed=0)
+    t = batch_from_numpy(b, cuda_device)
+    init = lemke.lemke_setup(*(t[k].to(dtype) for k in
+                               ("M", "q", "l", "u", "z0")), t["mask"],
+                             tol=kw["tol"])
+    n = init.T.shape[1]
+    instance, ranks = lemke_cuda.card_instance(n, init.T.element_size(),
+                                               cuda_device)
+    assert instance == lemke_cuda.LANE_CLUSTER and ranks >= 2
+    rk = lemke_pivot_cuda(init, max_pivots=1024, **kw)
+    rg = lemke_cuda._launch(init, instance=lemke_cuda.LANE_GLOBAL,
+                            max_pivots=1024, **kw)
+    torch.cuda.synchronize()
+    rp = lemke.lemke_pivot_torch(init, max_pivots=1024, **kw)
+    assert torch.equal(rk.status, rp.status)
+    assert torch.equal(rk.piv, rp.piv)
+    for name in rk._fields:
+        assert torch.equal(getattr(rk, name), getattr(rg, name)), name
+    rh = lemke_cuda.lemke_pivot_host(
+        lemke.LemkeInit(*(a[:8].cpu() for a in init)), max_pivots=1024,
+        ranks=ranks, **kw)
+    for name in rk._fields:
+        assert torch.equal(getattr(rk, name)[:8].cpu(),
+                           getattr(rh, name)), name
+
+
+@pytest.mark.gpu
+def test_a_refused_cluster_launch_raises(cuda_device):
+    """A cluster of 16 blocks is past the portable size the kernels do not
+    opt out of: the card refuses the launch and both wrappers raise with
+    CUDA's message, without running another instance."""
+    from qpn_tpu_torch.ops import lemke_cuda
+    t = _data(cuda_device, S=4)
+    init = lemke.lemke_setup(*(t[k].float() for k in
+                               ("M", "q", "l", "u", "z0")), t["mask"],
+                             tol=HOT["tol"])
+    METRICS.reset()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        lemke_cuda._launch(init, instance=lemke_cuda.LANE_CLUSTER, ranks=16,
+                           max_pivots=64, **HOT)
+    p = _eg_random(cuda_device, 304, B=2)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        eg_cuda._launch(p.M, p.q, p.l, p.u, p.z0, p.tau, 10,
+                        instance=eg_cuda.EG_CLUSTER, ranks=16)
+    torch.cuda.synchronize()
+    assert sum(METRICS.launches.values()) == 0
+    # the refusal leaves no error behind for the next launches to report
+    lemke_pivot_cuda(init, max_pivots=64, **HOT)
+    eg_cuda.eg_warmstart_cuda(p.M, p.q, p.l, p.u, p.z0, p.tau, 10)
+    torch.cuda.synchronize()
+    assert METRICS.launches[KERNEL] == 1
+    assert METRICS.launches[eg_cuda.KERNEL_CLUSTER] == 1
 
 
 @pytest.mark.gpu
@@ -254,21 +323,26 @@ def test_eg_kernel_pins_masked_variables(cuda_device):
 @pytest.mark.parametrize("n", [239, 304])
 def test_eg_kernel_takes_a_lane_too_large_for_shared_memory(cuda_device, n):
     """Past shared memory (n = 239: M of 233 KB with its odd stride) the
-    kernel reads M in place: one launch counted under the global instance's
-    name, the plain loop within 1e-5 of the lane scale after 300 steps, the
-    host instance's bits."""
+    kernel spreads M over a cluster's blocks: one launch counted under the
+    cluster instance's name, the plain loop within 1e-5 of the lane scale
+    after 300 steps, the bits of the host emulation of its ranks and of the
+    global instance (the private launcher)."""
     p = _eg_random(cuda_device, n, B=4, seed=n)
     ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
     METRICS.reset()
     zk = eg_cuda.eg_warmstart_cuda(*ins, 300)
     torch.cuda.synchronize()
-    assert METRICS.launches[eg_cuda.KERNEL_GLOBAL] == 1
+    assert METRICS.launches[eg_cuda.KERNEL_CLUSTER] == 1
     assert METRICS.launches[eg_cuda.KERNEL] == 0
+    assert METRICS.launches[eg_cuda.KERNEL_GLOBAL] == 0
     zp = eg.eg_steps_torch(*ins, 300)
     scale = 1.0 + float(zp.abs().max())
     assert float((zk - zp).abs().max()) <= 1e-5 * scale
-    zh = eg_cuda.eg_steps_host(*(a.cpu() for a in ins), 300)
+    zh = eg_cuda.eg_steps_host(*(a.cpu() for a in ins), 300,
+                               optin=eg_cuda.card_optin(cuda_device))
     assert torch.equal(zk.cpu(), zh)
+    zg = eg_cuda._launch(*ins, 300, instance=eg_cuda.EG_GLOBAL)
+    assert torch.equal(zk, zg)
 
 
 @pytest.mark.gpu

@@ -5,9 +5,12 @@ Each kernel has an instance whose working set lives in a block's shared
 memory, and one for lanes that do not fit the block's opt-in limit (232448
 bytes on an H100), whose large array stays in device memory: K1's tableau
 (``csrc/lemke_lane.cuh``), K2's M (``csrc/eg_lane.cuh``), K3's A
-(``csrc/screen_lane.cuh``).  The choice is a pure function of the shape and
-the limit, built here with g++ from the kernels' headers; the tests pin its
-boundaries.  The g++ host instances run the lane code of the instance the
+(``csrc/screen_lane.cuh``).  Between the two, K1 and K2 spread a lane over
+the shared memory of a cluster of 2-8 blocks (``lane_cluster_ranks``,
+``eg_cluster_ranks``: the fewest ranks whose bands fit); past 8 ranks the
+device-memory instance takes the lane.  The choice is a pure function of
+the shape and the limit, built here with g++ from the kernels' headers; the
+tests pin its boundaries.  The g++ host instances run the lane code of the instance the
 launcher picks, on a lane carved as that instance carves it; at the new
 sizes they are held to the plain PyTorch versions with each file's
 contract:
@@ -55,9 +58,12 @@ def _cpu_device(monkeypatch):
 
 @pytest.mark.parametrize("itemsize,n,want", [
     (4, 38, lemke_cuda.LANE_SHARED), (4, 135, lemke_cuda.LANE_SHARED),
-    (4, 136, lemke_cuda.LANE_GLOBAL), (8, 38, lemke_cuda.LANE_SHARED),
-    (8, 94, lemke_cuda.LANE_SHARED), (8, 95, lemke_cuda.LANE_GLOBAL)],
-    ids=["f32_38", "f32_135", "f32_136", "f64_38", "f64_94", "f64_95"])
+    (4, 136, lemke_cuda.LANE_CLUSTER), (8, 38, lemke_cuda.LANE_SHARED),
+    (8, 94, lemke_cuda.LANE_SHARED), (8, 95, lemke_cuda.LANE_CLUSTER),
+    (4, 374, lemke_cuda.LANE_CLUSTER), (4, 375, lemke_cuda.LANE_GLOBAL),
+    (8, 257, lemke_cuda.LANE_CLUSTER), (8, 258, lemke_cuda.LANE_GLOBAL)],
+    ids=["f32_38", "f32_135", "f32_136", "f64_38", "f64_94", "f64_95",
+         "f32_374", "f32_375", "f64_257", "f64_258"])
 def test_k1_instance_at_its_boundary(itemsize, n, want):
     assert lemke_cuda.host_lane_instance(n, itemsize,
                                          HOPPER_SMEM_OPTIN) == want
@@ -67,12 +73,42 @@ def test_k1_instance_at_its_boundary(itemsize, n, want):
     assert lemke_cuda.host_lane_bytes(n, itemsize) % 16 == 0
 
 
+# The cluster's ranks at their boundaries: the first n that needs R ranks
+# and the last that fits them; 0 past 8 ranks.
+@pytest.mark.parametrize("itemsize,n,ranks", [
+    (4, 136, 2), (4, 190, 2), (4, 191, 3), (4, 232, 3), (4, 233, 4),
+    (4, 350, 7), (4, 351, 8), (4, 374, 8), (4, 375, 0),
+    (8, 95, 2), (8, 133, 2), (8, 134, 3), (8, 152, 3), (8, 244, 7),
+    (8, 245, 8), (8, 257, 8), (8, 258, 0)])
+def test_k1_cluster_ranks_at_their_boundaries(itemsize, n, ranks):
+    assert lemke_cuda.host_cluster_ranks(n, itemsize,
+                                         HOPPER_SMEM_OPTIN) == ranks
+    if ranks:
+        assert lemke_cuda.host_band_bytes(n, itemsize,
+                                          ranks) <= HOPPER_SMEM_OPTIN
+    if ranks != 2:
+        fewer = 8 if ranks == 0 else ranks - 1
+        assert lemke_cuda.host_band_bytes(n, itemsize,
+                                          fewer) > HOPPER_SMEM_OPTIN
+    # one rank's part of a lane is the whole lane at R = 1
+    assert lemke_cuda.host_band_bytes(n, itemsize, 1) == \
+        lemke_cuda.host_lane_bytes(n, itemsize)
+
+
 @pytest.mark.parametrize("n,want", [
     (38, eg_cuda.EG_REGISTER), (128, eg_cuda.EG_REGISTER),
     (129, eg_cuda.EG_SHARED), (238, eg_cuda.EG_SHARED),
-    (239, eg_cuda.EG_GLOBAL), (304, eg_cuda.EG_GLOBAL)])
+    (239, eg_cuda.EG_CLUSTER), (304, eg_cuda.EG_CLUSTER),
+    (671, eg_cuda.EG_CLUSTER), (672, eg_cuda.EG_GLOBAL)])
 def test_k2_instance_at_its_boundary(n, want):
     assert eg_cuda.host_instance(n, HOPPER_SMEM_OPTIN) == want
+
+
+@pytest.mark.parametrize("n,ranks", [
+    (239, 2), (304, 2), (336, 2), (337, 3), (411, 3), (412, 4), (627, 7),
+    (628, 8), (671, 8), (672, 0)])
+def test_k2_cluster_ranks_at_their_boundaries(n, ranks):
+    assert eg_cuda.host_cluster_ranks(n, HOPPER_SMEM_OPTIN) == ranks
 
 
 @pytest.mark.parametrize("m,n,want", [
@@ -139,10 +175,12 @@ def _box_avi(n, seed, B=4):
 @pytest.mark.parametrize("steps", [0, 1, 300])
 @pytest.mark.parametrize("n", [239, 304])
 def test_k2_global_instance_matches_plain_loop(n, steps):
+    """M read in place, as the global instance reads it (a limit of 0
+    bytes picks it; at an H100's these n take the cluster instance)."""
     p = _box_avi(n, seed=n)
     ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
-    assert eg_cuda.host_instance(n, HOPPER_SMEM_OPTIN) == eg_cuda.EG_GLOBAL
-    zh = eg_cuda.eg_steps_host(*ins, steps)
+    assert eg_cuda.host_instance(n, 0) == eg_cuda.EG_GLOBAL
+    zh = eg_cuda.eg_steps_host(*ins, steps, optin=0)
     zp = eg.eg_steps_torch(*ins, steps)
     if steps == 0:
         assert torch.equal(zh, p.z0)
@@ -151,11 +189,18 @@ def test_k2_global_instance_matches_plain_loop(n, steps):
 
 
 def test_k2_global_and_shared_carvings_give_the_same_bits():
+    """M read in place (a limit of 0 bytes), copied to one block (a limit
+    every lane fits) and spread over a cluster's ranks (an H100's limit):
+    the same bits."""
     p = _box_avi(304, seed=3, B=2)
     ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
+    assert eg_cuda.host_instance(304, 0) == eg_cuda.EG_GLOBAL
     assert eg_cuda.host_instance(304, BIG_OPTIN) == eg_cuda.EG_SHARED
-    assert torch.equal(eg_cuda.eg_steps_host(*ins, 50),
-                       eg_cuda.eg_steps_host(*ins, 50, optin=BIG_OPTIN))
+    assert eg_cuda.host_instance(304, HOPPER_SMEM_OPTIN) == \
+        eg_cuda.EG_CLUSTER
+    z = eg_cuda.eg_steps_host(*ins, 50, optin=0)
+    assert torch.equal(eg_cuda.eg_steps_host(*ins, 50, optin=BIG_OPTIN), z)
+    assert torch.equal(eg_cuda.eg_steps_host(*ins, 50), z)
 
 
 # --- K3: A read in place ------------------------------------------------------

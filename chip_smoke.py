@@ -145,12 +145,25 @@ Phases, one line each, with their seconds; any failure exits non-zero:
    for bit, both timed (median of 7 launches between CUDA events; K2 of
    3), the ratio printed; (g) phase 9's forced stragglers at n=304, whose
    f64 re-pivot lanes are past K1's cluster reach: ``lemke_escalate`` in
-   K1's global instance, then that instance against the plain loop on the
-   16 lanes (f64 at n=304, as in (b)); (h) the generic route at T=18,
-   num_obj=2 (n=684, S=4), past K2's cluster reach: its EG pre-pass in
-   K2's global instance and no other, every lane certified, the numpy
-   re-audit, then that instance against the plain loop on the 4 lanes at
-   300 and 20000 steps, as in phase 7.
+   K1's global instance, at least one launch spread over R > 1 blocks a
+   lane (the ranks printed), then that instance against the plain loop on
+   the 16 lanes (f64 at n=304, as in (b)), and its A/B: the ranks the
+   wrapper picks for 16 lanes against R = 1 through the private launcher,
+   equal bit for bit and to the g++ emulation of those ranks on 4 lanes,
+   both timed (median of 3), the ratio printed; (h) the generic route at
+   T=18, num_obj=2 (n=684), past K2's cluster reach, on the ensemble's
+   whole batch (S=256): its EG pre-pass in K2's global instance and no
+   other, one block a lane (R = 1: the lanes fill the card) reading M from
+   its column-major copy, every lane certified, the numpy re-audit, its
+   bits at 300 steps against the g++ emulation of one block a lane on 4
+   lanes, then that instance against the plain loop on the 256 lanes at
+   300 and 20000 steps, as in phase 7, beside the floor of streaming M
+   from device memory every half-step; then the route on 4 of its lanes,
+   at least one launch spread over R > 1 blocks a lane (the ranks
+   printed), and its A/B at 20000 steps as (g)'s (the emulation at 300
+   steps); a spread grid too large to be resident at once raises for both
+   kernels with the cooperative launch's own refusal, and the next launch
+   runs.
 
 Then one JSON line for the kernels, a row for each instance (K1 and K2:
 shared or register, cluster, global; K3: warp or shared, global): launches
@@ -159,9 +172,11 @@ version's and the bound's milliseconds: the larger of the bytes each call
 must move over 3.35 TB/s and its operations over the rate of their type
 outside the tensor cores (f32 67 TFLOP/s; 34 for K1's global row, whose
 lanes are f64), counted from this run's shapes, steps and pivots.
-The global rows of K1 and K2 count their launches on (g) and (h) and take
-their error, times and bound from the comparisons at those shapes; the
-A/B's times are printed on its own lines.
+The global rows of K1 and K2 count their launches on (g) and on (h)'s
+whole batch and take their error, times and bound from the comparisons at
+those shapes, at the ranks the wrappers pick (K1 R = 8, K2 R = 1); the
+A/B's times, the spread and R = 1 on the few lanes among them, are printed
+on its own lines.
 Then the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The script needs no network and imports nothing of JAX.
@@ -276,12 +291,21 @@ HARD = dict(num_scenarios=32, T=8, num_obj=4, num_poly_faces=4, seed=2)
 # polyhedra for K3's (rows, dimension); the lanes held to the host bits.
 MIDSIZE = [(4, 2), (5, 2)]
 MIDSIZE_GENERIC = (8, 2)
-# the generic route past K2's cluster reach (S, T, num_obj; n = 684)
-LARGE_GENERIC = (4, 18, 2)
+# (h): the generic route past K2's cluster reach (S, T, num_obj; n = 684)
+# on the ensemble's whole batch, and on a few of its lanes, which K2's
+# global instance spreads over many SMs
+LARGE_GENERIC = (256, 18, 2)
+LARGE_GENERIC_FEW = 4
 DOMAIN_SCREEN_B, DOMAIN_SCREEN_M, DOMAIN_SCREEN_N = 4, 260, 240
 HOST_BIT_LANES = 8
 # Timed calls of phase 20 (the plain loops take 1-3 s a call there).
 DOMAIN_REPEATS = 3
+# (g)'s and (h)'s spread global lanes held to their g++ emulation
+SPREAD_HOST_LANES = 4
+# blocks a lane that no card holds at once for (g)'s and (h)'s lanes
+REFUSED_RANKS = 4096
+# cudaGetErrorString(cudaErrorCooperativeLaunchTooLarge)
+COOPERATIVE_REFUSAL = "too many blocks in cooperative launch"
 SHARED_Z_TOL = 1e-8   # shared route vs KKT path at T=2: one solution
 SHARED_RUNGS = ("shared_kkt_chip_admm_rung", "shared_kkt_admm_escalation",
                 "shared_kkt_generic_escalation")
@@ -1719,30 +1743,166 @@ def midsize_generic(device, say, card):
     forced_stragglers(data, batch, device, say, card, lanes=lanes,
                       kernel=lemke_cuda.KERNEL_GLOBAL)
     k1_global = METRICS.launches[lemke_cuda.KERNEL_GLOBAL]
+    spread_launches(k1_global, METRICS.counters[lemke_cuda.GLOBAL_RANKS],
+                    f"K1 f64 n={n} stragglers", say)
     if lemke_cuda.card_instance(n, 8, device)[0] != lemke_cuda.LANE_GLOBAL:
         fail(f"K1 f64 n={n} does not take the global instance")
     err, t_k, t_p, _, bnd = compare_engines(
         data, lanes, torch.float64, F64, lemke_cuda.lemke_pivot_cuda, device,
         DOMAIN_REPEATS)
-    say(f"{lemke_cuda.KERNEL_GLOBAL} f64 B={lanes} n={n}: status and pivots "
-        f"identical to the plain loop's, max |dz| {err:.3g}; kernel "
-        f"{t_k * 1e3:.4f} ms, plain {t_p * 1e3:.4f} ms (median of "
-        f"{DOMAIN_REPEATS}), bound {bnd[0]:.5f} ms by {bnd[1]} [{card}]")
+    _, ranks = lemke_cuda.card_instance(n, 8, device, lanes=lanes)
+    say(f"{lemke_cuda.KERNEL_GLOBAL} f64 B={lanes} n={n} on {ranks} blocks "
+        f"a lane: status and pivots identical to the plain loop's, max |dz| "
+        f"{err:.3g}; kernel {t_k * 1e3:.4f} ms, plain {t_p * 1e3:.4f} ms "
+        f"(median of {DOMAIN_REPEATS}), bound {bnd[0]:.5f} ms by {bnd[1]} "
+        f"[{card}]")
+    k1_spread_ab(data, lanes, device, say, card)
     return launches, eg_row, k1_global, (err, t_k, t_p, bnd)
 
 
-def large_generic(device, say, card):
-    """Phase 20 (h): the generic route past K2's cluster reach, where its
-    EG pre-pass takes the global instance; then that instance against the
-    plain loop on the same lanes.  Returns (its launches in the route,
-    compare_eg's (err, kernel s, plain s, bound))."""
+def spread_launches(launches, ranks_sum, label, say):
+    """Fail unless at least one of a global instance's ``launches`` in a
+    path ran at R > 1 (its ranks, summed over the launches, exceed their
+    count)."""
+    if not launches >= 1 or not ranks_sum > launches:
+        fail(f"{label}: {launches} launch(es) of the global instance over "
+             f"{ranks_sum:g} blocks a lane in all: none at R > 1")
+    say(f"{label}: {launches} launch(es) of the global instance, "
+        f"{ranks_sum / launches:g} blocks a lane on average")
+
+
+def k1_spread_ab(data, lanes, device, say, card):
+    """(g)'s A/B: K1's global instance at the ranks the wrapper picks for
+    ``lanes`` f64 lanes against R = 1 through the private launcher, equal
+    bit for bit and to the g++ emulation of those ranks on
+    SPREAD_HOST_LANES lanes, both timed (median of DOMAIN_REPEATS launches
+    between CUDA events)."""
+    import torch
+    from qpn_tpu_torch.ops import lemke, lemke_cuda
+    M, q, l, u = (data[k][:lanes] for k in ("M", "q", "l", "u"))
+    init = lemke.lemke_setup(*(a.double() for a in (M, q, l, u)),
+                             torch.zeros_like(q, dtype=torch.float64),
+                             data["mask"][:lanes], tol=F64["tol"])
+    n = q.shape[1]
+    _, ranks = lemke_cuda.card_instance(n, 8, device, lanes=lanes)
+
+    def one():
+        return lemke_cuda._launch(init, instance=lemke_cuda.LANE_GLOBAL,
+                                  ranks=1, **F64)
+
+    rs = lemke_cuda.lemke_pivot_cuda(init, **F64)
+    r1 = one()
+    torch.cuda.synchronize(device)
+    for name, a, b in zip(rs._fields, rs, r1):
+        if not torch.equal(a, b):
+            fail(f"K1 spread A/B n={n}: {name} at {ranks} blocks a lane "
+                 f"differs from R = 1's on {int((a != b).sum())} entries")
+    k = SPREAD_HOST_LANES
+    rh = lemke_cuda.lemke_pivot_host(
+        lemke.LemkeInit(*(a[:k].cpu() for a in init)), ranks=ranks,
+        optin=lemke_cuda.card_optin(device), **F64)
+    host_bits(f"K1 global f64 n={n} at {ranks} ranks",
+              [t[:k] for t in (rs.status, rs.piv, rs.basis, rs.val, rs.xB)],
+              [rh.status, rh.piv, rh.basis, rh.val, rh.xB])
+    t_1 = device_timed(one, device, DOMAIN_REPEATS)
+    t_s = device_timed(lambda: lemke_cuda.lemke_pivot_cuda(init, **F64),
+                       device, DOMAIN_REPEATS)
+    say(f"K1 spread A/B f64 B={lanes} n={n}: the global instance at {ranks} "
+        f"blocks a lane (picked) equal to R = 1 (private launcher) bit for "
+        f"bit, and to the g++ emulation of {ranks} ranks on {k} lanes; "
+        f"R = 1 {t_1 * 1e3:.4f} ms, spread {t_s * 1e3:.4f} ms (median of "
+        f"{DOMAIN_REPEATS}), R = 1 / spread {t_1 / t_s:.2f} [{card}]")
+
+
+def k2_spread_ab(data, device, say, card):
+    """(h)'s A/B: K2's global instance at the ranks the wrapper picks
+    against R = 1 through the private launcher at EG_STEPS steps, equal bit
+    for bit, both timed (median of DOMAIN_REPEATS); the picked ranks
+    against the g++ emulation at 300 steps on SPREAD_HOST_LANES lanes; a
+    grid too large to be resident raises for both kernels, and the next
+    launches run."""
+    import torch
+    from qpn_tpu_torch.ops import eg, eg_cuda, lemke_cuda
+    from qpn_tpu_torch.utils.metrics import METRICS
+    p = eg.eg_prepare(*(data[k] for k in KEYS))
+    ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
+    B, n = p.q.shape
+    _, ranks = eg_cuda.card_instance(n, device, lanes=B)
+    k = SPREAD_HOST_LANES
+    zk = eg_cuda.eg_warmstart_cuda(*(a[:k] for a in ins), 300)
+    _, ranks_k = eg_cuda.card_instance(n, device, lanes=k)
+    zh = eg_cuda.eg_steps_host(*(a[:k].cpu() for a in ins), 300,
+                               optin=eg_cuda.card_optin(device),
+                               ranks=ranks_k)
+    host_bits(f"K2 global n={n} at {ranks_k} ranks", [zk], [zh])
+
+    def one():
+        return eg_cuda._launch(*ins, EG_STEPS, instance=eg_cuda.EG_GLOBAL,
+                               ranks=1)
+
+    zs = eg_cuda.eg_warmstart_cuda(*ins, EG_STEPS)
+    z1 = one()
+    torch.cuda.synchronize(device)
+    if not torch.equal(zs, z1):
+        fail(f"K2 spread A/B n={n}: z at {ranks} blocks a lane differs from "
+             f"R = 1's on {int((zs != z1).sum())} entries")
+    t_1 = device_timed(one, device, DOMAIN_REPEATS)
+    t_s = device_timed(lambda: eg_cuda.eg_warmstart_cuda(*ins, EG_STEPS),
+                       device, DOMAIN_REPEATS)
+    say(f"K2 spread A/B B={B} n={n} steps={EG_STEPS}: the global instance at "
+        f"{ranks} blocks a lane (picked) equal to R = 1 (private launcher) "
+        f"bit for bit, and at 300 steps to the g++ emulation of {ranks_k} "
+        f"ranks on {k} lanes; R = 1 {t_1 * 1e3:.4f} ms, spread "
+        f"{t_s * 1e3:.4f} ms (median of {DOMAIN_REPEATS}), R = 1 / spread "
+        f"{t_1 / t_s:.2f} [{card}]")
+    # a refused cooperative launch raises, and nothing else runs instead
+    from qpn_tpu_torch.ops import lemke
+    init = lemke.lemke_setup(*(data[key][:2].float() for key in
+                               ("M", "q", "l", "u", "z0")),
+                             data["mask"][:2], tol=HOT["tol"])
+    METRICS.reset()
+    messages = {}
+    for name, refused in (
+            ("K1", lambda: lemke_cuda._launch(
+                init, instance=lemke_cuda.LANE_GLOBAL, ranks=REFUSED_RANKS,
+                **HOT)),
+            ("K2", lambda: eg_cuda._launch(
+                *(a[:2] for a in ins), 10, instance=eg_cuda.EG_GLOBAL,
+                ranks=REFUSED_RANKS))):
+        try:
+            refused()
+        except RuntimeError as e:
+            messages[name] = str(e)
+        else:
+            fail(f"{name}: a spread global grid of 2 x {REFUSED_RANKS} "
+                 "blocks was not refused")
+        if COOPERATIVE_REFUSAL not in messages[name]:
+            fail(f"{name}: the launch of 2 x {REFUSED_RANKS} blocks raised "
+                 f"for another reason than a refused cooperative launch: "
+                 f"{messages[name]}")
+    torch.cuda.synchronize(device)
+    if sum(METRICS.launches.values()) != 0:
+        fail(f"refused launches counted {dict(METRICS.launches)}")
+    eg_cuda.eg_warmstart_cuda(*(a[:2] for a in ins), 10)
+    lemke_cuda.lemke_pivot_cuda(init, **HOT)
+    torch.cuda.synchronize(device)
+    say(f"refused cooperative launches at {REFUSED_RANKS} blocks a lane: "
+        f"K1 raised ({messages['K1']}), K2 raised ({messages['K2']}); the "
+        f"next launches ran ({dict(METRICS.launches)})")
+
+
+def generic_route(lanes, device, say, card):
+    """The generic route of (h) on ``lanes`` lanes of LARGE_GENERIC's model,
+    past K2's cluster reach, where its EG pre-pass takes the global
+    instance; every lane certified and audited in numpy.  Returns (the
+    global instance's launches, their ranks summed, the batch's tensors)."""
     import numpy as np
     import torch
     from qpn_tpu_torch.models.robust_avoid import scenario_batch_gavis
     from qpn_tpu_torch.ops import eg_cuda
     from qpn_tpu_torch.ops.avi import batch_from_numpy, solve_avi_batch_adaptive
     from qpn_tpu_torch.utils.metrics import METRICS
-    lanes, T, num_obj = LARGE_GENERIC
+    _, T, num_obj = LARGE_GENERIC
     batch = scenario_batch_gavis(num_scenarios=lanes, T=T, num_obj=num_obj,
                                  num_poly_faces=FACES, seed=SEED)
     data = batch_from_numpy(batch)
@@ -1754,6 +1914,7 @@ def large_generic(device, say, card):
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
     launches = METRICS.launches[eg_cuda.KERNEL_GLOBAL]
+    ranks = METRICS.counters[eg_cuda.GLOBAL_RANKS]
     others = (METRICS.launches[eg_cuda.KERNEL]
               + METRICS.launches[eg_cuda.KERNEL_CLUSTER])
     if launches < 1 or others != 0:
@@ -1770,13 +1931,52 @@ def large_generic(device, say, card):
     say(f"large generic solve_avi_batch_adaptive S={B} T={T} "
         f"num_obj={num_obj} n={n}: conv {conv}, max resid "
         f"{resid.max():.3g}, {launches} launch(es) of "
-        f"{eg_cuda.KERNEL_GLOBAL}, EG accepted on "
-        f"{int(METRICS.counters['eg_accepted_lanes'])}/{B} lanes; "
+        f"{eg_cuda.KERNEL_GLOBAL} over {ranks / launches:g} blocks a lane, "
+        f"EG accepted on {int(METRICS.counters['eg_accepted_lanes'])}/{B} "
+        f"lanes, {int(METRICS.counters['escalated_lanes'])} escalated; "
         f"{wall:.3f} s the first call [{card}]")
-    if eg_cuda.card_instance(n, device)[0] != eg_cuda.EG_GLOBAL:
-        fail(f"K2 n={n} does not take the global instance")
-    return launches, compare_eg(data, device, say, card,
-                                repeats=DOMAIN_REPEATS)
+    return launches, ranks, data
+
+
+def large_generic(device, say, card):
+    """Phase 20 (h): the generic route past K2's cluster reach on the
+    ensemble's whole batch, where the lanes fill the card and K2's global
+    instance runs one block a lane (R = 1) from the column-major copy of M;
+    its bits against the g++ emulation on a few lanes, and that instance
+    against the plain loop on the same lanes, beside the streaming floor.  Then the route on a few lanes, which the instance
+    spreads over many SMs, and its A/B.  Returns (its launches in the
+    whole batch's route, compare_eg's (err, kernel s, plain s, bound))."""
+    from qpn_tpu_torch.ops import eg, eg_cuda
+    S = LARGE_GENERIC[0]
+    launches, ranks, data = generic_route(S, device, say, card)
+    B, n = data["q"].shape
+    if eg_cuda.card_instance(n, device, lanes=B) != (eg_cuda.EG_GLOBAL, 1) \
+            or ranks != launches:
+        fail(f"K2 n={n} on {B} lanes: not the global instance at R = 1 "
+             f"({ranks:g} blocks a lane over {launches} launch(es))")
+    p = eg.eg_prepare(*(data[k] for k in KEYS))
+    ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
+    k = SPREAD_HOST_LANES
+    zk = eg_cuda.eg_warmstart_cuda(*ins, 300)
+    zh = eg_cuda.eg_steps_host(*(a[:k].cpu() for a in ins), 300,
+                               optin=eg_cuda.card_optin(device), ranks=1)
+    host_bits(f"K2 global n={n} on {B} lanes at R = 1", [zk[:k]], [zh])
+    say(f"K2 global n={n} on {B} lanes at R = 1: z after 300 steps equal to "
+        f"the g++ host emulation's of one block a lane bit for bit on {k} "
+        f"lanes")
+    row = compare_eg(data, device, say, card, repeats=DOMAIN_REPEATS)
+    from qpn_tpu_torch.utils.flops import H100_HBM_BYTES_S
+    floor = 4.0 * B * n * n * 2 * EG_STEPS / H100_HBM_BYTES_S
+    say(f"K2 global B={B} n={n} at R = 1: {row[1] * 1e3:.4f} ms against a "
+        f"floor of {floor * 1e3:.4f} ms for streaming M from device memory "
+        f"every half-step ({B * n * n * 4:.4g} bytes, {2 * EG_STEPS} "
+        f"half-steps, at {H100_HBM_BYTES_S:.4g} B/s) [{card}]")
+    few, ranks, data = generic_route(LARGE_GENERIC_FEW, device, say, card)
+    spread_launches(few, ranks,
+                    f"K2 generic route n={n} on {LARGE_GENERIC_FEW} lanes",
+                    say)
+    k2_spread_ab(data, device, say, card)
+    return launches, row
 
 
 def midsize_screen(device, say, card):

@@ -19,21 +19,26 @@
 //   * eg_row_sum: a loop over the same partition and the same butterfly,
 //     for the host instance.  The generic kernels' partition is (1, n): one
 //     chunk, plain column order (eg_row), whether the lane's M sits in one
-//     block's shared memory, is spread over a cluster's, or stays in device
-//     memory (eg_instance picks).
+//     block's shared memory, is spread over a cluster's or over blocks on
+//     any SMs, or stays in device memory (eg_instance picks).
 // Floating-point addition commutes, so every thread of a group ends the
 // butterfly with the same bits, and the loop reproduces them.
 //
-// Ranks (the cluster instance; R = 1 elsewhere).  Rank k of R holds a band
-// of nb = ceil(n / R) rows of M, k·nb onwards, with their q, l and u, and
-// a copy of the whole z and z½.  A half-step computes the band's rows of
-// the new vector from this rank's copy of the old one and writes each new
-// entry into every rank's copy (eg_put: distributed shared memory on the
-// card); one barrier of the ranks follows.  Between two barriers no rank
-// reads what another writes: the first half-step reads z and writes z½,
-// the second reads z½ and the band's own rows of z, writes z, and each row
-// of z is written by its band's rank only.  So the host's emulation, each
-// half-step run for rank 0, 1, ..., R-1 in turn, gives the card's bits.
+// Ranks (the cluster instance and the spread global one; R = 1 elsewhere).
+// Rank k of R holds a band of nb = ceil(n / R) rows of M, k·nb onwards,
+// with their q, l and u, and a copy of the whole z and z½.  A half-step
+// computes the band's rows of the new vector from this rank's copy of the
+// old one and writes each new entry into every rank's copy (eg_put:
+// distributed shared memory in a cluster), or, in the global instance, into
+// the lane's copy of that vector in device memory, which each rank copies
+// into its own after the barrier (eg_gather); one barrier of the ranks
+// follows the writes.  Between two barriers no rank reads what another
+// writes: the first half-step reads z and writes z½, the second reads z½
+// and the band's own rows of z, writes z, and each row of z is written by
+// its band's rank only; the device-memory pair is read in the gather after
+// one barrier and written again only after the next.  So the host's
+// emulation, each half-step run for rank 0, 1, ..., R-1 in turn, gives the
+// card's bits.
 //
 // The projection is min(max(x, l), u) with NaN passing through, like
 // torch.clamp and jnp.clip: a lane that diverges to NaN stays NaN, and the
@@ -52,6 +57,8 @@
 #if defined(__CUDACC__)
 #include <cooperative_groups.h>
 #endif
+
+#include "lane_barrier.cuh"
 
 namespace qpn {
 
@@ -132,22 +139,30 @@ QPN_EG_HD float eg_row_sum(const float* Mi, const float* x, int n, int C) {
 // all of it sits in shared memory, the rows of M ld = n | 1 floats apart (an
 // odd stride puts the rows that neighbouring threads read on different
 // banks); in the cluster instance each rank's part does.  In the global
-// instance, for lanes whose M fits no cluster, M stays where the batch
-// holds it in device memory (ld = n) and is read every half-step; q, l, u,
-// z and z½ sit in shared memory.  The sums read M through `M` either way.
+// instance, for lanes whose M fits no cluster, a rank's band of M sits in
+// its shared memory where it fits (eg_global_band_fits), else in the lane's
+// column-major copy in device memory, which eg_lane_load writes and every
+// half-step reads (ld = 1, cs = n: the entries of a column that
+// neighbouring threads read lie side by side); q, l, u, z and z½ sit in
+// shared memory.  The sums read entry (i, j) of the band at
+// M[i · ld + j · cs] either way.
 struct EGLane {
     int n, ld;
+    int cs;          // floats between two columns of M: 1, or n (column-major)
     int R, rank;     // ranks of the lane, and this one
     int nb, r0;      // rows a band, ceil(n / R); this rank's first row
     int rows;        // this rank's rows: nb, fewer in the last band
     const float* M;  // (nb, ld): rows r0 + [0, rows)
     float* Ms;       // the shared copy of M that eg_lane_load fills, or null
+    float* Mt;       // the column-major copy that eg_lane_load fills, or null
     float* q;        // (nb) the band's rows
     float* l;
     float* u;
     float* z;        // (n) the whole vector
     float* zh;       // (n) z½
-    float* const* bases;  // host: each rank's buffer (R > 1)
+    float* const* bases;  // host: each rank's buffer (cluster, R > 1)
+    float* xg;       // the lane's z and z½ in device memory (global, R > 1)
+    unsigned* bar;   // the lane's barrier in device memory (global, R > 1)
 };
 
 QPN_EG_HD int eg_ld(int n) { return n | 1; }
@@ -195,6 +210,8 @@ QPN_EG_HD void eg_set_ranks(EGLane& L, int n, int R, int rank,
     const int left = n - L.r0;
     L.rows = left < 0 ? 0 : (left < L.nb ? left : L.nb);
     L.bases = bases;
+    L.xg = nullptr;
+    L.bar = nullptr;
 }
 
 // Rank `rank` of R of a lane, carved from a buffer of eg_band_bytes (R = 1:
@@ -205,20 +222,48 @@ QPN_EG_HD EGLane eg_lane_carve(float* base, int n, int R = 1, int rank = 0,
     EGLane L;
     eg_set_ranks(L, n, R, rank, bases);
     L.ld = eg_ld(n);
+    L.cs = 1;
     L.Ms = base;
+    L.Mt = nullptr;
     L.M = base;
     eg_carve_vectors(L, base + eg_align4((size_t)L.nb * L.ld));
     return L;
 }
 
-// Lane b of the batch in the global instance: M read in place.
+// Floats of a lane's z and z½ in device memory (global instance, R > 1).
+QPN_EG_HD size_t eg_exchange_floats(int n) {
+    return 2 * eg_align4((size_t)n);
+}
+
+// Rank `rank` of R of lane b of the batch in the global instance, carved
+// from `base` (its shared memory): its band of M copied there (`copy`,
+// eg_lane_carve's layout) or else into `mt`, the lane's column-major copy
+// (n · n floats of device memory: entry (i, j) of M at mt[j · n + i]),
+// which it reads every half-step.  Where R > 1 the ranks write the new
+// entries into `xg` (the lane's pair, eg_exchange_floats) and meet at
+// `bar`.
 QPN_EG_HD EGLane eg_lane_carve_global(const EGBatch& bt, size_t b,
-                                      float* base) {
+                                      float* base, int R = 1, int rank = 0,
+                                      bool copy = false,
+                                      float* xg = nullptr,
+                                      unsigned* bar = nullptr,
+                                      float* mt = nullptr) {
+    if (copy) {
+        EGLane L = eg_lane_carve(base, bt.n, R, rank);
+        L.xg = xg;
+        L.bar = bar;
+        return L;
+    }
+    (void)b;
     EGLane L;
-    eg_set_ranks(L, bt.n, 1, 0, nullptr);
-    L.ld = bt.n;
+    eg_set_ranks(L, bt.n, R, rank, nullptr);
+    L.ld = 1;
+    L.cs = bt.n;
     L.Ms = nullptr;
-    L.M = bt.M + b * (size_t)bt.n * bt.n;
+    L.Mt = mt + L.r0;
+    L.M = L.Mt;
+    L.xg = xg;
+    L.bar = bar;
     eg_carve_vectors(L, base);
     return L;
 }
@@ -250,21 +295,55 @@ QPN_EG_HD int eg_instance(int n, long long smem_optin) {
     return eg_cluster_ranks(n, smem_optin) != 0 ? EG_CLUSTER : EG_GLOBAL;
 }
 
-// The barrier of the lane's ranks: the cluster's where the lane is spread,
-// else the block's.
+// Whether a rank of the global instance's lane at R ranks holds its band
+// of M in shared memory: R > 1 and the band fits `smem_optin`.  At R = 1
+// the lane reads M from its column-major copy in device memory.
+QPN_EG_HD bool eg_global_band_fits(int n, int R, long long smem_optin) {
+    return R > 1 && smem_optin >= 0
+        && eg_band_bytes(n, eg_band_height(n, R)) <= (size_t)smem_optin;
+}
+
+// The global instance's ranks for a batch of B lanes of n on a card that
+// holds `resident` blocks of it at once (eg_warmstart.cu queries them at
+// the opt-in limit of shared memory a block: one an SM): the fewest ranks
+// whose bands fit `smem_optin` where B lanes of them fit the card, else as
+// many as fit the card, resident / B (their bands read from the
+// column-major copy), at most n.  R = 1, one block a lane reading M from
+// that copy, where B alone fills the card (B · 2 blocks do not fit) or the
+// limit is unknown.
+QPN_EG_HD int eg_global_ranks(int n, int B, long long resident,
+                              long long smem_optin) {
+    if (B < 1 || resident < 2LL * B || smem_optin < 0 || n < 2) return 1;
+    long long most = resident / B;
+    if (most > n) most = n;
+    for (int R = 2; R <= most; ++R)
+        if (eg_global_band_fits(n, R, smem_optin)) return R;
+    return (int)most;
+}
+
+// The barrier of the lane's ranks: the lane's barrier in device memory
+// where they are spread over any SMs, the cluster's where they are a
+// cluster, else the block's.
 QPN_EG_HD void eg_sync_ranks(const EGLane& L) {
+    if (L.bar != nullptr) {
+        lane_barrier(L.bar, L.R);
+        return;
+    }
 #if defined(__CUDA_ARCH__)
     if (L.R > 1) cooperative_groups::this_cluster().sync();
     else __syncthreads();
 #endif
-    (void)L;
 }
 
 // v into entry r of the vector `x` (a field of this rank's part) of every
-// rank.
+// rank: in the global instance, into the lane's copy in device memory.
 QPN_EG_HD void eg_put(const EGLane& L, float* x, int r, float v) {
     if (L.R == 1) {
         x[r] = v;
+        return;
+    }
+    if (L.xg != nullptr) {
+        L.xg[(x - L.z) + r] = v;
         return;
     }
     for (int k = 0; k < L.R; ++k) {
@@ -287,6 +366,13 @@ QPN_EG_HD void eg_lane_load(const EGLane& L, const EGBatch& bt, size_t b,
     if (L.Ms != nullptr)
         for (int k = tid; k < L.rows * n; k += nthr)
             L.Ms[(k / n) * L.ld + k % n] = Mb[k];
+    // the column-major copy: neighbouring threads write neighbouring
+    // entries of a column (their reads of M's rows meet in the L1)
+    if (L.Mt != nullptr)
+        for (int k = tid; k < L.rows * n; k += nthr) {
+            const int j = k / L.rows, i = k - j * L.rows;
+            L.Mt[(size_t)j * n + i] = Mb[(size_t)i * n + j];
+        }
     for (int i = tid; i < L.rows; i += nthr) {
         L.q[i] = bt.q[row0 + i];
         L.l[i] = bt.l[row0 + i];
@@ -296,6 +382,49 @@ QPN_EG_HD void eg_lane_load(const EGLane& L, const EGBatch& bt, size_t b,
     eg_sync_ranks(L);
 }
 
+// Columns of M whose loads a thread of the column-major read has in flight
+// at once on the card.
+constexpr int kEgColumnStage = 32;
+
+// (M x)_i for the row at Mi of the column-major copy, L.cs floats between
+// two entries: the products and the sum of eg_row's plain column order.
+// On the card the neighbouring threads' loads of one column meet in one
+// 128-byte line, and each thread loads kEgColumnStage entries before it
+// sums them, so that enough bytes are in flight to stream M at the card's
+// memory rate.
+QPN_EG_HD float eg_row_column_major(const EGLane& L, const float* Mi,
+                                    const float* x) {
+    const size_t cs = (size_t)L.cs;
+    float acc = 0.0f;
+    int j = 0;
+#ifdef __CUDA_ARCH__
+    for (; j + kEgColumnStage <= L.n; j += kEgColumnStage) {
+        const float* c = Mi + j * cs;
+        float m[kEgColumnStage];
+#pragma unroll
+        for (int k = 0; k < kEgColumnStage; ++k) m[k] = c[k * cs];
+#pragma unroll
+        for (int k = 0; k < kEgColumnStage; k += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(x + j + k);
+            acc += m[k] * v.x;
+            acc += m[k + 1] * v.y;
+            acc += m[k + 2] * v.z;
+            acc += m[k + 3] * v.w;
+        }
+    }
+    for (; j + 4 <= L.n; j += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(x + j);
+        const float* c = Mi + j * cs;
+        acc += c[0] * v.x;
+        acc += c[cs] * v.y;
+        acc += c[2 * cs] * v.z;
+        acc += c[3 * cs] * v.w;
+    }
+#endif
+    for (; j < L.n; ++j) acc += Mi[j * cs] * x[j];
+    return acc;
+}
+
 // (M x)_i + q_i for row i of the band.  G = 1 is one chunk: the plain
 // column order.  On the card x (z or z½, 16-byte aligned) is read four
 // entries a load, a quarter of the loads that every warp makes of it; the
@@ -303,6 +432,7 @@ QPN_EG_HD void eg_lane_load(const EGLane& L, const EGBatch& bt, size_t b,
 template <int G>
 QPN_EG_HD float eg_row(const EGLane& L, const float* x, int i, int C) {
     const float* Mi = L.M + (size_t)i * L.ld;
+    if (G == 1 && L.cs != 1) return eg_row_column_major(L, Mi, x) + L.q[i];
     if (G == 1) {
         float acc = 0.0f;
         int j = 0;
@@ -333,17 +463,40 @@ QPN_EG_HD void eg_half_step(const EGLane& L, const float* x, float* y,
     }
 }
 
+// After the ranks' barrier, in the global instance: the lane's copy of
+// the vector `x` (z or z½ of this rank's part) from device memory into
+// this rank's, 16 bytes a load that bypasses the L1 (a peer wrote it).
+QPN_EG_HD void eg_gather(const EGLane& L, float* x, int tid, int nthr) {
+    if (L.xg == nullptr) return;
+    const float* src = L.xg + (x - L.z);
+    const int quads = (int)(eg_align4((size_t)L.n) / 4);
+    for (int i = tid; i < quads; i += nthr) {
+#if defined(__CUDA_ARCH__)
+        reinterpret_cast<float4*>(x)[i] =
+            __ldcg(reinterpret_cast<const float4*>(src) + i);
+#else
+        for (int k = 0; k < 4; ++k) x[4 * i + k] = src[4 * i + k];
+#endif
+    }
+#if defined(__CUDA_ARCH__)
+    __syncthreads();
+#endif
+}
+
 // The steps of one rank of a lane on the card: z½ from z, then z from z½,
-// a barrier of the ranks after each.  The host runs the same half-steps
-// for each rank in turn (eg_lane_host.cpp).
+// a barrier of the ranks after each (and the gather of the new vector in
+// the global instance).  The host runs the same half-steps for each rank
+// in turn (eg_lane_host.cpp).
 template <int G>
 QPN_EG_HD void eg_lane_run(const EGLane& L, float tau, int steps, int C,
                            int tid, int nthr) {
     for (int s = 0; s < steps; ++s) {
         eg_half_step<G>(L, L.z, L.zh, tau, C, tid, nthr);
         eg_sync_ranks(L);
+        eg_gather(L, L.zh, tid, nthr);
         eg_half_step<G>(L, L.zh, L.z, tau, C, tid, nthr);
         eg_sync_ranks(L);
+        eg_gather(L, L.z, tid, nthr);
     }
 }
 

@@ -2,11 +2,14 @@
 // built with plain g++ and loaded with ctypes by the CPU tests: each lane
 // runs the step loop as thread 0 of 1 with no-op barriers, every row summed
 // by the loop that walks the partition of the kernel that takes this n, on
-// a lane carved as that kernel carves it.  A lane of R ranks (the cluster
-// instance) is R buffers carved as the cluster's blocks are, each
-// half-step run for rank 0, 1, ..., R-1 in turn: between two of the
-// card's barriers no rank reads what another writes (eg_lane.cuh), so
-// that gives the card's bits.  Not on any production path.
+// a lane carved as that kernel carves it.  A lane of R ranks is R buffers
+// carved as the cluster's blocks are, or as the global instance's blocks
+// are (each band in its buffer where it fits the limit, else in the lane's
+// column-major copy, and the lane's z and z½ in one more buffer, gathered
+// by every rank after each barrier), each half-step run for rank 0, 1,
+// ..., R-1 in turn: between two of the card's barriers no rank reads what
+// another writes (eg_lane.cuh), so that gives the card's bits.  Not on any
+// production path.
 
 #include <vector>
 
@@ -18,32 +21,43 @@ extern "C" {
 // limit `smem_optin` (eg_instance): the register kernel's partition
 // (kEgGroup, chunk), else the generic kernel's one chunk of n columns with
 // M copied (shared instance), spread over the cluster's ranks (cluster
-// instance) or read in place (global instance).  ranks > 0 spreads the lane
-// over that many ranks whatever the limit picks (1: one block's lane).
+// instance) or, in the global instance, spread over the ranks that
+// eg_global_ranks picks for B lanes on a card that holds `resident` of its
+// blocks at once.  ranks > 0 spreads the lane over that many ranks
+// whatever the limit picks (1: one block's lane).
 void qpn_eg_warmstart_host_f32(QPN_EG_PARAMS, long long smem_optin,
-                               int ranks) {
+                               int ranks, long long resident) {
     const qpn::EGBatch bt = QPN_EG_BATCH;
     const int instance = qpn::eg_instance(bt.n, smem_optin);
+    const bool global = instance == qpn::EG_GLOBAL;
     const int chunk = qpn::eg_pick_chunk(bt.n);
     const int G = instance == qpn::EG_REGISTER ? qpn::kEgGroup : 1;
     const int C = G == 1 ? bt.n : chunk;
     int R = ranks;
     if (R <= 0)
-        R = instance == qpn::EG_CLUSTER ? qpn::eg_cluster_ranks(bt.n,
-                                                                smem_optin)
-                                        : 1;
-    const bool in_place = R == 1 && instance == qpn::EG_GLOBAL;
+        R = instance == qpn::EG_CLUSTER
+            ? qpn::eg_cluster_ranks(bt.n, smem_optin)
+            : global ? qpn::eg_global_ranks(bt.n, bt.B, resident, smem_optin)
+                     : 1;
+    const bool copy = !global || qpn::eg_global_band_fits(bt.n, R, smem_optin);
     const size_t words =
         qpn::eg_band_bytes(bt.n, qpn::eg_band_height(bt.n, R)) / sizeof(float);
     std::vector<float> buf(words * R);
+    std::vector<float> xg(global && R > 1 ? qpn::eg_exchange_floats(bt.n) : 0);
+    std::vector<float> mt(global && !copy ? (size_t)bt.n * bt.n : 0);
+    unsigned bar[2] = {0, 0};
     std::vector<float*> bases(R);
     for (int k = 0; k < R; ++k) bases[k] = buf.data() + k * words;
     std::vector<qpn::EGLane> L(R);
     for (size_t b = 0; b < (size_t)bt.B; ++b) {
         for (int k = 0; k < R; ++k) {
-            L[k] = in_place ? qpn::eg_lane_carve_global(bt, b, bases[k])
-                            : qpn::eg_lane_carve(bases[k], bt.n, R, k,
-                                                 bases.data());
+            L[k] = global ? qpn::eg_lane_carve_global(
+                                bt, b, bases[k], R, k, copy,
+                                R > 1 ? xg.data() : nullptr,
+                                R > 1 ? bar : nullptr,
+                                copy ? nullptr : mt.data())
+                          : qpn::eg_lane_carve(bases[k], bt.n, R, k,
+                                               bases.data());
             qpn::eg_lane_load(L[k], bt, b, 0, 1);
         }
         const float tau = bt.tau[b];
@@ -53,10 +67,12 @@ void qpn_eg_warmstart_host_f32(QPN_EG_PARAMS, long long smem_optin,
                 else qpn::eg_half_step<qpn::kEgGroup>(r, r.z, r.zh, tau, C, 0, 1);
             }
             // the ranks' barrier
+            for (const auto& r : L) qpn::eg_gather(r, r.zh, 0, 1);
             for (const auto& r : L) {
                 if (G == 1) qpn::eg_half_step<1>(r, r.zh, r.z, tau, C, 0, 1);
                 else qpn::eg_half_step<qpn::kEgGroup>(r, r.zh, r.z, tau, C, 0, 1);
             }
+            for (const auto& r : L) qpn::eg_gather(r, r.z, 0, 1);
         }
         for (const auto& r : L) qpn::eg_lane_store(r, bt, b, 0, 1);
     }
@@ -70,6 +86,21 @@ int qpn_eg_instance(int n, long long smem_optin) {
 
 int qpn_eg_cluster_ranks(int n, long long smem_optin) {
     return qpn::eg_cluster_ranks(n, smem_optin);
+}
+
+int qpn_eg_global_ranks(int n, int B, long long resident,
+                        long long smem_optin) {
+    return qpn::eg_global_ranks(n, B, resident, smem_optin);
+}
+
+int qpn_eg_global_band_fits(int n, int ranks, long long smem_optin) {
+    return qpn::eg_global_band_fits(n, ranks, smem_optin);
+}
+
+// Bytes of one rank's part of a lane of n spread over R ranks with its band
+// of M in shared memory.
+long long qpn_eg_band_bytes(int n, int ranks) {
+    return (long long)qpn::eg_band_bytes(n, qpn::eg_band_height(n, ranks));
 }
 
 }  // extern "C"

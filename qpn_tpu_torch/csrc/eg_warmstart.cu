@@ -42,13 +42,31 @@
 //     launch at each size checks that such a cluster fits the card
 //     (cudaOccupancyMaxActiveClusters) and returns CUDA's error where it
 //     does not: there is no fallback to another instance;
-//   * global: past 8 ranks, M read in place from device memory every
-//     half-step with z, z½, q, l and u in shared memory: bound by the
-//     bytes of M it streams, n² floats a half-step a lane, through L1 and
-//     L2.  The wrapper's private launcher also runs it at cluster sizes,
-//     to hold the two against each other on the card.
-// Every row sums in plain column order in all three, so they give the same
-// bits.
+//   * global: past 8 ranks.  Where B lanes leave SMs idle, a lane is
+//     spread over R blocks on any SMs (eg_global_ranks): rank k keeps its
+//     band of M's rows in its own shared memory where the band fits (n=684
+//     from R = 9), else in the lane's column-major copy in device memory;
+//     each half-step writes the band's new entries into the lane's z or z½
+//     in device memory, the ranks meet at the lane's barrier there
+//     (lane_barrier.cuh), and each copies the whole vector into its shared
+//     memory before the next row sums.  Launched cooperatively
+//     (cluster_launch.cuh::launch_cooperative): a grid that cannot be
+//     resident at once is refused with CUDA's error, and nothing else is
+//     tried.  Bound by the chain of n dependent adds a row, plus the
+//     barrier and the gather a half-step.  At R = 1 (B fills the card) it
+//     is one block a lane, a plain launch, with z, z½, q, l and u in shared
+//     memory and M read every half-step from the lane's column-major copy,
+//     which the block writes at its start: a thread sums a row in column
+//     order, so the threads of a warp read neighbouring entries of one
+//     column, one 128-byte line a load (M's rows in place would be 32
+//     lines a load).  Bound by the bytes of M it streams, n² floats a
+//     half-step a lane, from device memory where the batch's M passes the
+//     L2.  The
+//     wrapper's private launcher also runs it at cluster sizes, and at
+//     R = 1 where the pick spreads it, to hold the instances against each
+//     other on the card.
+// Every row sums in plain column order in all of them, so they give the
+// same bits.
 //
 // The order of every sum is defined in eg_lane.cuh, where a loop walks the
 // same partition for the host instance.  Built with nvcc -O3 -fmad=false,
@@ -56,16 +74,18 @@
 // separately, as in the plain PyTorch version.
 //
 // C interface (ctypes): qpn_eg_warmstart_f32 (the register kernel or the
-// shared instance, picked from n), qpn_eg_warmstart_cluster_f32 (given its
-// ranks) and qpn_eg_warmstart_global_f32 return 0 or a cudaError_t;
-// qpn_eg_instance and qpn_eg_cluster_ranks are the pure choice,
-// qpn_eg_smem_optin the current card's limit.
+// shared instance, picked from n), qpn_eg_warmstart_cluster_f32 and
+// qpn_eg_warmstart_global_f32 (given their ranks) return 0 or a
+// cudaError_t; qpn_eg_instance, qpn_eg_cluster_ranks and
+// qpn_eg_global_ranks are the pure choice, qpn_eg_smem_optin and
+// qpn_eg_global_resident what it takes from the current card.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "cluster_launch.cuh"
 #include "eg_lane.cuh"
+#include "lane_barrier.cuh"
 
 namespace {
 
@@ -74,25 +94,53 @@ namespace cg = cooperative_groups;
 constexpr int kGenericMaxThreads = 256;
 constexpr int G = qpn::kEgGroup;
 
-// EG_SHARED: M copied to the block's shared memory; EG_GLOBAL: M read in
-// place from device memory; EG_CLUSTER: one cluster of R blocks a lane,
-// rank k's band of M in block k's shared memory.
+// The steps of rank `rank` of lane b, every thread of the block.
 template <int kInstance>
-__global__ void __launch_bounds__(kGenericMaxThreads)
-eg_generic_kernel(qpn::EGBatch bt, int R) {
-    extern __shared__ __align__(16) float smem[];
-    const bool spread = kInstance == qpn::EG_CLUSTER;
-    const int rank = spread ? (int)cg::this_cluster().block_rank() : 0;
-    const size_t b = spread ? blockIdx.x / R : blockIdx.x;
+__device__ __forceinline__ void run_rank(const qpn::EGBatch& bt, float* smem,
+                                         int R, int rank, size_t b, int copy,
+                                         float* xg, unsigned* bars,
+                                         float* mt) {
+    const bool spread = R > 1;
     const qpn::EGLane L = kInstance == qpn::EG_GLOBAL
-        ? qpn::eg_lane_carve_global(bt, b, smem)
-        : qpn::eg_lane_carve(smem, bt.n, spread ? R : 1, rank);
+        ? qpn::eg_lane_carve_global(
+              bt, b, smem, R, rank, copy != 0,
+              spread ? xg + b * qpn::eg_exchange_floats(bt.n) : nullptr,
+              spread ? bars + 2 * b : nullptr,
+              copy ? nullptr : mt + b * (size_t)bt.n * bt.n)
+        : qpn::eg_lane_carve(smem, bt.n, R, rank);
     qpn::eg_lane_load(L, bt, b, threadIdx.x, blockDim.x);
     qpn::eg_lane_run<1>(L, bt.tau[b], bt.steps, bt.n, threadIdx.x,
                         blockDim.x);
     qpn::eg_lane_store(L, bt, b, threadIdx.x, blockDim.x);
+}
+
+// EG_SHARED: M copied to the block's shared memory; EG_CLUSTER: one
+// cluster of R blocks a lane, rank k's band of M in block k's shared
+// memory; EG_GLOBAL: R blocks a lane on any SMs, rank k's band of M in its
+// shared memory (`copy`) or in the lane's column-major copy at mt + b · n²,
+// the lane's z and z½ at xg + b · eg_exchange_floats(n) and its barrier at
+// bars + 2b (R > 1).
+template <int kInstance>
+__global__ void __launch_bounds__(kGenericMaxThreads)
+eg_generic_kernel(qpn::EGBatch bt, int R, int copy, float* xg,
+                  unsigned* bars, float* mt) {
+    extern __shared__ __align__(16) float smem[];
+    const bool cluster = kInstance == qpn::EG_CLUSTER;
+    if (kInstance == qpn::EG_SHARED
+        || (kInstance == qpn::EG_GLOBAL && R == 1)) {
+        // one block a lane: R = 1 known to the compiler (the global
+        // instance's launch at R = 1 takes this path, the code it had
+        // before it spread)
+        run_rank<kInstance>(bt, smem, 1, 0, blockIdx.x, 0, nullptr, nullptr,
+                            mt);
+        return;
+    }
+    const int rank = cluster ? (int)cg::this_cluster().block_rank()
+                             : (int)(blockIdx.x % R);
+    run_rank<kInstance>(bt, smem, R, rank, blockIdx.x / R, copy, xg, bars,
+                        mt);
     // no block leaves while a peer may still write into its shared memory
-    if (spread) cg::this_cluster().sync();
+    if (cluster) cg::this_cluster().sync();
 }
 
 constexpr int block_threads(int C) {
@@ -159,7 +207,8 @@ int launch_shared(const qpn::EGBatch& bt, cudaStream_t stream) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
-    kernel<<<bt.B, generic_threads(bt.n), bytes, stream>>>(bt, 1);
+    kernel<<<bt.B, generic_threads(bt.n), bytes, stream>>>(bt, 1, 0, nullptr,
+                                                           nullptr, nullptr);
     return cudaGetLastError();
 }
 
@@ -174,15 +223,42 @@ int launch(const qpn::EGBatch& bt, cudaStream_t stream) {
     return launch_shared(bt, stream);
 }
 
-int launch_global(const qpn::EGBatch& bt, cudaStream_t stream) {
+// Floats a lane of the column-major copy of M that the global instance at
+// R ranks reads on the current card: n · n where the bands are read in
+// place (R = 1, or a band past the opt-in limit), else 0.
+size_t global_copy_floats(int n, int R) {
+    return qpn::eg_global_band_fits(n, R, qpn::smem_optin())
+        ? 0 : (size_t)n * n;
+}
+
+// R = 1: a plain launch, one block a lane, M read from its column-major
+// copy at mt; R > 1: the cooperative launch of B · R blocks, whose
+// barriers (2 words a lane) the caller has zeroed, each band in shared
+// memory where it fits the card's limit, else in the copy at mt.
+int launch_global(const qpn::EGBatch& bt, int R, float* xg, unsigned* bars,
+                  float* mt, cudaStream_t stream) {
     if (bt.B <= 0 || bt.n <= 0) return 0;
-    const size_t bytes = qpn::eg_global_lane_bytes(bt.n);
+    if (R < 1 || (R > 1 && (xg == nullptr || bars == nullptr)))
+        return cudaErrorInvalidValue;
+    const bool copy = global_copy_floats(bt.n, R) == 0;
+    if (!copy && mt == nullptr) return cudaErrorInvalidValue;
     auto kernel = eg_generic_kernel<qpn::EG_GLOBAL>;
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return e;
-    kernel<<<bt.B, generic_threads(bt.n), bytes, stream>>>(bt, 1);
-    return cudaGetLastError();
+    if (R == 1) {
+        const size_t bytes = qpn::eg_global_lane_bytes(bt.n);
+        cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        if (e != cudaSuccess) return e;
+        kernel<<<bt.B, generic_threads(bt.n), bytes, stream>>>(
+            bt, 1, 0, nullptr, nullptr, mt);
+        return cudaGetLastError();
+    }
+    const int nb = qpn::eg_band_height(bt.n, R);
+    const size_t bytes =
+        copy ? qpn::eg_band_bytes(bt.n, nb)
+             : qpn::eg_vector_floats(bt.n, nb) * sizeof(float);
+    return qpn::launch_cooperative(kernel, bt.B, R, generic_threads(nb),
+                                   bytes, stream, bt, R, (int)copy, xg, bars,
+                                   mt);
 }
 
 int launch_cluster(const qpn::EGBatch& bt, int R, cudaStream_t stream) {
@@ -192,7 +268,9 @@ int launch_cluster(const qpn::EGBatch& bt, int R, cudaStream_t stream) {
     const int nb = R < 1 ? 0 : qpn::eg_band_height(bt.n, R);
     return qpn::launch_cluster(eg_generic_kernel<qpn::EG_CLUSTER>, checked,
                                bt.B, R, generic_threads(nb),
-                               qpn::eg_band_bytes(bt.n, nb), stream, bt, R);
+                               qpn::eg_band_bytes(bt.n, nb), stream, bt, R, 0,
+                               (float*)nullptr, (unsigned*)nullptr,
+                               (float*)nullptr);
 }
 
 }  // namespace
@@ -203,8 +281,20 @@ int qpn_eg_warmstart_f32(QPN_EG_PARAMS, void* stream) {
     return launch(QPN_EG_BATCH, (cudaStream_t)stream);
 }
 
-int qpn_eg_warmstart_global_f32(QPN_EG_PARAMS, void* stream) {
-    return launch_global(QPN_EG_BATCH, (cudaStream_t)stream);
+// ranks: the lane's blocks (qpn_eg_global_ranks); exchange: B *
+// qpn_eg_exchange_floats(n) floats of device memory and bars: 2 * B
+// zeroed unsigned ints where ranks > 1; colmajor: B *
+// qpn_eg_global_copy_floats(n, ranks) floats of device memory where that
+// is not 0
+int qpn_eg_warmstart_global_f32(QPN_EG_PARAMS, int ranks, void* exchange,
+                                void* bars, void* colmajor, void* stream) {
+    return launch_global(QPN_EG_BATCH, ranks, static_cast<float*>(exchange),
+                         static_cast<unsigned*>(bars),
+                         static_cast<float*>(colmajor), (cudaStream_t)stream);
+}
+
+long long qpn_eg_global_copy_floats(int n, int ranks) {
+    return (long long)global_copy_floats(n, ranks);
 }
 
 // ranks: the cluster's blocks a lane (qpn_eg_cluster_ranks)
@@ -220,15 +310,27 @@ int qpn_eg_cluster_ranks(int n, long long smem_optin) {
     return qpn::eg_cluster_ranks(n, smem_optin);
 }
 
+int qpn_eg_global_ranks(int n, int B, long long resident,
+                        long long smem_optin) {
+    return qpn::eg_global_ranks(n, B, resident, smem_optin);
+}
+
+long long qpn_eg_exchange_floats(int n) {
+    return (long long)qpn::eg_exchange_floats(n);
+}
+
 // The shared memory a block can opt into on the current card, or minus a
 // cudaError_t.
-long long qpn_eg_smem_optin(void) {
-    int dev = 0, optin = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-        e = cudaDeviceGetAttribute(
-            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    return e == cudaSuccess ? (long long)optin : -(long long)e;
+long long qpn_eg_smem_optin(void) { return qpn::smem_optin(); }
+
+// The blocks of the global instance the current card holds at once, each
+// with the opt-in limit of shared memory (one an SM), or minus a
+// cudaError_t.
+long long qpn_eg_global_resident(void) {
+    const long long optin = qpn::smem_optin();
+    if (optin < 0) return optin;
+    return qpn::resident_blocks(eg_generic_kernel<qpn::EG_GLOBAL>,
+                                kGenericMaxThreads, (size_t)optin);
 }
 
 const char* qpn_eg_error_string(int code) {

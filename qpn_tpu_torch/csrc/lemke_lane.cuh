@@ -1,14 +1,14 @@
 // Per-lane logic of the batched Lemke pivot loop for box AVIs
 //     M z + q  ⟂  l ≤ z ≤ u,
-// shared by the Hopper kernel (lemke_pivot.cu: one thread block, or one
-// cluster of thread blocks, per lane) and a host instance built with g++
-// for the CPU tests (lemke_lane_host.cpp: one "thread", tid 0 of 1, for
-// each rank of the lane in turn).
+// shared by the Hopper kernel (lemke_pivot.cu: one thread block, or R
+// blocks, per lane) and a host instance built with g++ for the CPU tests
+// (lemke_lane_host.cpp: one "thread", tid 0 of 1, for each rank of the lane
+// in turn).
 //
 // The functions take the thread index and count as arguments.  A pivot is
 // four phases between barriers (QPN_SYNC: __syncthreads() in device code,
-// a no-op on the host; lane_sync_ranks: the cluster's barrier where the
-// lane is spread over ranks):
+// a no-op on the host; lane_sync_ranks: the cluster's barrier, or the
+// lane's barrier in device memory, where the lane is spread over ranks):
 //   A. basic values and the ratio test.  A row's sum is split over a group
 //      of G = kLemkeSplit = 4 neighbouring threads: G chunks of neighbouring
 //      columns, each summed in column order, joined by a butterfly
@@ -32,19 +32,26 @@
 // The lane's working set is carved by lane_carve from any 16-byte aligned
 // buffer: the block's dynamic shared memory while lane_bytes(n) fits the
 // block's opt-in limit, else the shared memory of a cluster of R blocks
-// while one rank's band fits it, else a lane of a device-memory workspace
+// while one rank's band fits it, else a device-memory workspace
 // (lane_instance picks; the barriers order global memory for the block as
-// they order shared memory).
+// they order shared memory).  The global instance spreads a lane over R
+// blocks on any SMs where the batch leaves SMs idle (lane_global_ranks):
+// rank k's band sits in the workspace at a fixed stride from rank 0's
+// (lane_carve_spread), its own part in the block's shared memory, and the
+// ranks meet at the lane's barrier in device memory (lane_barrier.cuh); at
+// R = 1 the whole lane is one block's part of the workspace (lane_carve).
 //
-// Ranks (the cluster instance; R = 1 elsewhere).  Rank k of R holds a band
+// Ranks (the cluster instance and the spread global one; R = 1 elsewhere).
+// Rank k of R holds a band
 // of nb = ceil(n / R) tableau rows, k·nb onwards, with the per-row vectors
 // of that band (xB, d, theta, other, basis, leff, ueff); every rank holds
 // the column-length vectors (val, vlb, vub, the staged pivot row pr), the
 // tie list and the lane's scalars (LaneCtl), and makes the same decision
 // from the same data, so these stay equal on every rank.  A rank reads
-// another's band through lk_peer (distributed shared memory on the card).
-// Every rank is carved with the layout of a full band, so a field lies at
-// the same offset in each.  The barriers that order ranks are two a step:
+// another's band through lk_peer (distributed shared memory in a cluster,
+// the band's stride in the spread global instance).  Every rank is carved
+// with the layout of a full band, so a field lies at the same offset in
+// each.  The barriers that order ranks are two a step:
 // after A, and after S (or after B where no pivot follows).  The property
 // that makes this correct, and makes the host's emulation (each phase run
 // for rank 0, 1, ..., R-1 in turn, between the same two points) give the
@@ -72,6 +79,8 @@
 
 #include <cmath>
 #include <cstddef>
+
+#include "lane_barrier.cuh"
 
 #if defined(__CUDACC__)
 #include <cooperative_groups.h>
@@ -308,7 +317,9 @@ struct Lane {
     int* basis;  // (nb)
     int* clist;  // (n) the tie candidates' rows, ascending
     LaneCtl<T>* ctl;
-    unsigned char* const* bases;  // host: each rank's buffer (R > 1)
+    unsigned char* const* bases;  // host: each rank's buffer (cluster, R > 1)
+    size_t stride;  // bytes from a band to the next rank's (spread global)
+    unsigned* bar;  // the lane's barrier in device memory (spread global)
 };
 
 QPN_HD size_t lk_align16(size_t x) { return (x + 15) & ~size_t(15); }
@@ -343,6 +354,8 @@ QPN_HD size_t lane_bytes(int n) { return lane_band_bytes<T>(n, n); }
 // Carve rank `rank` of R of a lane's working set out of a 16-byte aligned
 // buffer (R = 1: the whole lane).  `bases` is the host's table of every
 // rank's buffer, read by lk_peer where R > 1; null on the card.
+// (The rank fields are set in each carving, not by a shared helper: nvcc
+// allotted the cluster instance 64 registers and spilled with one.)
 template <typename T>
 QPN_HD Lane<T> lane_carve(unsigned char* base, int n, int R = 1,
                           int rank = 0,
@@ -358,6 +371,8 @@ QPN_HD Lane<T> lane_carve(unsigned char* base, int n, int R = 1,
     const int left = n - L.r0;
     L.rows = left < 0 ? 0 : (left < L.nb ? left : L.nb);
     L.bases = bases;
+    L.stride = 0;
+    L.bar = nullptr;
     const size_t nb = (size_t)L.nb;
     L.ctl = reinterpret_cast<LaneCtl<T>*>(base);
     T* f = reinterpret_cast<T*>(base + lk_align16(sizeof(LaneCtl<T>)));
@@ -379,12 +394,77 @@ QPN_HD Lane<T> lane_carve(unsigned char* base, int n, int R = 1,
     return L;
 }
 
+// The spread global instance's parts of a rank.  Its band in device
+// memory: the band's tableau rows and per-row vectors, the fields other
+// ranks read.  Its own part in the block's shared memory: the scalars, the
+// column-length vectors, the staged pivot row and the tie list, which every
+// rank holds alike and no peer reads.
+template <typename T>
+QPN_HD size_t lane_spread_band_bytes(int n, int nb) {
+    return lk_align16(((size_t)nb * lane_stride(n) + 6 * (size_t)nb)
+                      * sizeof(T))
+         + lk_align16((size_t)nb * sizeof(int));
+}
+
+template <typename T>
+QPN_HD size_t lane_spread_own_bytes(int n) {
+    const size_t W = 3 * (size_t)n + 2, NV = W - 1;
+    return lk_align16(sizeof(LaneCtl<T>))
+         + lk_align16((3 * NV + W) * sizeof(T))
+         + lk_align16((size_t)n * sizeof(int));
+}
+
+// Rank `rank` of a lane spread over R ranks on any SMs: its own part at
+// `own`, its band at `band`, the next rank's band lane_spread_band_bytes
+// further on; the ranks meet at `bar`.
+template <typename T>
+QPN_HD Lane<T> lane_carve_spread(unsigned char* own, unsigned char* band,
+                                 int n, int R, int rank, unsigned* bar) {
+    const size_t W = 3 * (size_t)n + 2, NV = W - 1;
+    Lane<T> L;
+    L.n = n;
+    L.ld = lane_stride(n);
+    L.R = R;
+    L.rank = rank;
+    L.nb = lane_band_height(n, R);
+    L.r0 = rank * L.nb;
+    const int left = n - L.r0;
+    L.rows = left < 0 ? 0 : (left < L.nb ? left : L.nb);
+    L.bases = nullptr;
+    L.stride = lane_spread_band_bytes<T>(n, L.nb);
+    L.bar = bar;
+    const size_t nb = (size_t)L.nb;
+    L.ctl = reinterpret_cast<LaneCtl<T>*>(own);
+    T* f = reinterpret_cast<T*>(own + lk_align16(sizeof(LaneCtl<T>)));
+    L.val = f;       f += NV;
+    L.vlb = f;       f += NV;
+    L.vub = f;       f += NV;
+    L.pr = f;
+    L.clist = reinterpret_cast<int*>(own + lk_align16(sizeof(LaneCtl<T>))
+                                     + lk_align16((3 * NV + W) * sizeof(T)));
+    T* g = reinterpret_cast<T*>(band);
+    L.tab = g;       g += nb * L.ld;
+    L.leff = g;      g += nb;
+    L.ueff = g;      g += nb;
+    L.xB = g;        g += nb;
+    L.d = g;         g += nb;
+    L.theta = g;     g += nb;
+    L.other = g;
+    L.basis = reinterpret_cast<int*>(
+        band + lk_align16((nb * L.ld + 6 * nb) * sizeof(T)));
+    return L;
+}
+
 // A field of rank k's part of the lane, from the same field of this rank's:
-// in device code the cluster's distributed shared memory, on the host the
-// same offset in rank k's buffer.
+// in the spread global instance the field of rank k's band, (k − rank)
+// strides away; in a cluster, in device code its distributed shared memory,
+// on the host the same offset in rank k's buffer.
 template <typename T, typename P>
 QPN_HD P* lk_peer(const Lane<T>& L, P* p, int k) {
     if (L.R == 1 || k == L.rank) return p;
+    if (L.stride != 0)
+        return (P*)((const unsigned char*)p
+                    + (long long)(k - L.rank) * (long long)L.stride);
 #if defined(__CUDA_ARCH__)
     return cooperative_groups::this_cluster().map_shared_rank(p, k);
 #else
@@ -418,15 +498,19 @@ QPN_HD const T* lane_row(const Lane<T>& L, int r) {
     return lk_peer(L, L.tab, k) + (size_t)(r - k * L.nb) * L.ld;
 }
 
-// The barrier between phases that read across ranks: the cluster's where
-// the lane is spread over ranks, else the block's.
+// The barrier between phases that read across ranks: the lane's barrier in
+// device memory where its ranks are spread over any SMs, the cluster's
+// where they are a cluster, else the block's.
 template <typename T>
 QPN_HD void lane_sync_ranks(const Lane<T>& L) {
+    if (L.bar != nullptr) {
+        lane_barrier(L.bar, L.R);
+        return;
+    }
 #if defined(__CUDA_ARCH__)
     if (L.R > 1) cooperative_groups::this_cluster().sync();
     else __syncthreads();
 #endif
-    (void)L;
 }
 
 // Where a lane's working set lives on the card: LANE_SHARED, the block's
@@ -463,6 +547,40 @@ QPN_HD int lane_instance(int n, int itemsize, long long smem_optin) {
         return LANE_SHARED;
     return lane_cluster_ranks(n, itemsize, smem_optin) != 0 ? LANE_CLUSTER
                                                             : LANE_GLOBAL;
+}
+
+// The global instance's ranks for a batch of B lanes of n on a card that
+// holds `resident` blocks of it at once (lemke_pivot.cu queries them at the
+// opt-in limit of shared memory a block: one an SM).  Each lane takes an
+// equal share of the card, resident / B blocks, at most kLaneMaxGlobalRanks
+// (the decision scans every rank's band in turn, so more ranks lengthen
+// it) and at most n.  R = 1, the lane whole in one block's part of the
+// workspace, where B alone fills the card (B · 2 blocks do not fit), where
+// a rank's own part does not fit the limit, or where the limit is unknown.
+constexpr int kLaneMaxGlobalRanks = 8;
+
+QPN_HD size_t lane_spread_own_bytes_of(int n, int itemsize) {
+    return itemsize == 4 ? lane_spread_own_bytes<float>(n)
+                         : lane_spread_own_bytes<double>(n);
+}
+
+QPN_HD int lane_global_ranks(int n, int itemsize, int B, long long resident,
+                             long long smem_optin) {
+    if (B < 1 || resident < 2LL * B || smem_optin < 0) return 1;
+    if (lane_spread_own_bytes_of(n, itemsize) > (size_t)smem_optin) return 1;
+    long long R = resident / B;
+    if (R > kLaneMaxGlobalRanks) R = kLaneMaxGlobalRanks;
+    if (R > n) R = n;
+    return R < 2 ? 1 : (int)R;
+}
+
+// Bytes of the global instance's workspace a lane at R ranks: the whole
+// lane at R = 1, else R bands.
+QPN_HD size_t lane_global_lane_bytes(int n, int itemsize, int R) {
+    if (R <= 1) return lane_band_bytes_of(n, n, itemsize);
+    const int nb = lane_band_height(n, R);
+    return (size_t)R * (itemsize == 4 ? lane_spread_band_bytes<float>(n, nb)
+                                      : lane_spread_band_bytes<double>(n, nb));
 }
 
 // Lane b of the batch into this rank's part: its band's rows, and every

@@ -2,12 +2,13 @@
 // built with plain g++ and loaded with ctypes by the CPU tests: each lane
 // runs the same step functions as the card's blocks, as thread 0 of 1 with
 // no-op barriers, on a lane carved by the same lane_carve as every
-// instance on the card.  A lane of R ranks (the cluster instance) is R
-// buffers carved as the cluster's blocks are; each phase runs for rank 0,
-// 1, ..., R-1 in turn between the points where the card's ranks meet at
-// the cluster's barrier.  That gives the card's bits because between two
-// such points no rank reads what another writes (lemke_lane.cuh).  Not on
-// any production path.
+// instance on the card.  A lane of R ranks is R buffers carved as the
+// cluster's blocks are, or, for the spread global instance, R bands at
+// their stride in one workspace and R own parts, carved as its blocks are
+// (lane_carve_spread); each phase runs for rank 0, 1, ..., R-1 in turn
+// between the points where the card's ranks meet at their barrier.  That
+// gives the card's bits because between two such points no rank reads what
+// another writes (lemke_lane.cuh).  Not on any production path.
 
 #include <vector>
 
@@ -38,19 +39,32 @@ void run_ranks(const std::vector<qpn::Lane<T>>& L, T tol, T piv_tol,
 }
 
 template <typename T>
-void run_lanes(const qpn::LemkeBatch<T>& bt, int R) {
-    const size_t bytes = qpn::lane_band_bytes<T>(
-        bt.n, qpn::lane_band_height(bt.n, R));
-    // double storage keeps each rank's buffer 8-byte aligned
+void run_lanes(const qpn::LemkeBatch<T>& bt, int R, bool spread) {
+    const int nb = qpn::lane_band_height(bt.n, R);
+    // cluster: rank k's buffer; spread global: rank k's own part, and the
+    // lane's bands in `bands`, one stride apart
+    const size_t bytes = spread ? qpn::lane_spread_own_bytes<T>(bt.n)
+                                : qpn::lane_band_bytes<T>(bt.n, nb);
+    // double storage keeps each buffer 8-byte aligned
     const size_t words = bytes / sizeof(double) + 2;
     std::vector<double> buf(words * R);
+    std::vector<double> bands(
+        spread ? R * qpn::lane_spread_band_bytes<T>(bt.n, nb) / sizeof(double)
+               : 0);
     std::vector<unsigned char*> bases(R);
     for (int k = 0; k < R; ++k)
         bases[k] = reinterpret_cast<unsigned char*>(buf.data() + k * words);
+    unsigned char* band0 = reinterpret_cast<unsigned char*>(bands.data());
     std::vector<qpn::Lane<T>> L(R);
     for (size_t b = 0; b < (size_t)bt.B; ++b) {
         for (int k = 0; k < R; ++k) {
-            L[k] = qpn::lane_carve<T>(bases[k], bt.n, R, k, bases.data());
+            L[k] = spread ? qpn::lane_carve_spread<T>(
+                                bases[k],
+                                band0 + k * qpn::lane_spread_band_bytes<T>(
+                                                bt.n, nb),
+                                bt.n, R, k, nullptr)
+                          : qpn::lane_carve<T>(bases[k], bt.n, R, k,
+                                               bases.data());
             qpn::lane_load(L[k], bt, b, 0, 1);
         }
         run_ranks(L, bt.tol, bt.piv_tol, bt.max_pivots);
@@ -63,13 +77,16 @@ void run_lanes(const qpn::LemkeBatch<T>& bt, int R) {
 extern "C" {
 
 // ranks: the lane spread over that many ranks (1: one block's lane, as
-// the shared and global instances run it).
-void qpn_lemke_pivot_host_f32(QPN_LEMKE_PARAMS(float), int ranks) {
-    run_lanes(QPN_LEMKE_BATCH(float), ranks);
+// the shared instance and the global one at R = 1 run it); spread: carved
+// as the global instance spreads it (else as a cluster).
+void qpn_lemke_pivot_host_f32(QPN_LEMKE_PARAMS(float), int ranks,
+                              int spread) {
+    run_lanes(QPN_LEMKE_BATCH(float), ranks, spread != 0 && ranks > 1);
 }
 
-void qpn_lemke_pivot_host_f64(QPN_LEMKE_PARAMS(double), int ranks) {
-    run_lanes(QPN_LEMKE_BATCH(double), ranks);
+void qpn_lemke_pivot_host_f64(QPN_LEMKE_PARAMS(double), int ranks,
+                              int spread) {
+    run_lanes(QPN_LEMKE_BATCH(double), ranks, spread != 0 && ranks > 1);
 }
 
 // The decision's scans (host bodies), for the tests that hold them against
@@ -110,6 +127,21 @@ int qpn_lemke_cluster_ranks(int n, int itemsize, long long smem_optin) {
 long long qpn_lemke_band_bytes(int n, int itemsize, int ranks) {
     return (long long)qpn::lane_band_bytes_of(
         n, qpn::lane_band_height(n, ranks), itemsize);
+}
+
+// The global instance's ranks for B lanes on a card that holds `resident`
+// of its blocks at once, and its workspace a lane at R ranks.
+int qpn_lemke_global_ranks(int n, int itemsize, int B, long long resident,
+                           long long smem_optin) {
+    return qpn::lane_global_ranks(n, itemsize, B, resident, smem_optin);
+}
+
+long long qpn_lemke_global_lane_bytes(int n, int itemsize, int ranks) {
+    return (long long)qpn::lane_global_lane_bytes(n, itemsize, ranks);
+}
+
+long long qpn_lemke_spread_own_bytes(int n, int itemsize) {
+    return (long long)qpn::lane_spread_own_bytes_of(n, itemsize);
 }
 
 }  // extern "C"

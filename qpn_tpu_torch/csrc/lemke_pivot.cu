@@ -50,26 +50,42 @@
 //     the first launch at each size checks that such a cluster fits the
 //     card (cudaOccupancyMaxActiveClusters) and returns CUDA's error where
 //     it does not: there is no fallback to another instance;
-//   * global: past 8 ranks (f32 n above about 370, f64 above about 265),
-//     the same block and phases on a lane carved from a device-memory
-//     workspace that the wrapper allocates (lane_bytes(n) a lane).  Its
-//     tableau is read and written through L1 and L2 every pivot, so it is
-//     bound by memory traffic.  The wrapper's private launcher also runs it
-//     at cluster sizes, to hold the two against each other on the card.
+//   * global (lemke_pivot_global_kernel): past 8 ranks (f32 n above about
+//     370, f64 above about 265), the same phases on a lane carved from a
+//     device-memory workspace that the wrapper allocates.  Its tableau is read and written through L1
+//     and L2 every pivot, so it is bound by the bandwidth one SM has to
+//     them.  Where the batch leaves SMs idle (the f64 re-pivot of a few
+//     stragglers), the lane is spread over R blocks on any SMs
+//     (lane_global_ranks: the card's resident blocks shared among the
+//     lanes, at most 8): rank k's band of the tableau sits in the workspace
+//     at a fixed stride from its peers', its own part (scalars, the
+//     column-length vectors, the staged row, the tie list) in its shared
+//     memory, and the ranks meet at the lane's barrier in device memory
+//     (lane_barrier.cuh), two a pivot as in the cluster.  So R SMs stream
+//     the lane's tableau where one did.  Launched cooperatively
+//     (cluster_launch.cuh::launch_cooperative): a grid that cannot be
+//     resident at once is refused with CUDA's error, never run to a
+//     deadlock, and nothing else is tried.  At R = 1 (B fills the card) it
+//     is one block a lane with the whole lane in the workspace
+//     (lane_bytes(n) a lane), a plain launch.  The wrapper's private
+//     launcher also runs it at cluster sizes, and at R = 1 where the pick
+//     spreads it, to hold the instances against each other on the card.
 //
 // Templated on float (the hot f32 tier) and double (the straggler re-pivot).
 // Built with nvcc -O3 -fmad=false, no fast math (utils/cuda_build.py).
 //
 // C interface (ctypes): qpn_lemke_pivot_f32 / _f64 (the shared instance),
 // qpn_lemke_pivot_cluster_f32 / _f64 (given its ranks) and
-// qpn_lemke_pivot_global_f32 / _f64 (given its workspace) return 0 or a
-// cudaError_t; qpn_lemke_lane_instance and qpn_lemke_cluster_ranks are the
-// pure choice, qpn_lemke_smem_optin the current card's limit.
+// qpn_lemke_pivot_global_f32 / _f64 (given its ranks and workspace) return
+// 0 or a cudaError_t; qpn_lemke_lane_instance, qpn_lemke_cluster_ranks and
+// qpn_lemke_global_ranks are the pure choice, qpn_lemke_smem_optin and
+// qpn_lemke_global_resident what it takes from the current card.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "cluster_launch.cuh"
+#include "lane_barrier.cuh"
 #include "lemke_lane.cuh"
 
 namespace {
@@ -89,26 +105,59 @@ __host__ __device__ constexpr int block_threads() {
     return kInstance == qpn::LANE_CLUSTER ? kClusterThreads : kThreads;
 }
 
-// One block a lane (LANE_SHARED: the block's dynamic shared memory;
-// LANE_GLOBAL: lane b of the device-memory workspace), or one cluster of R
-// blocks a lane (LANE_CLUSTER: rank k's band in block k's shared memory).
+// One block a lane (LANE_SHARED: the block's dynamic shared memory), or
+// one cluster of R blocks a lane (LANE_CLUSTER: rank k's band in block k's
+// shared memory).
 template <typename T, int kInstance>
 __global__ void __launch_bounds__(block_threads<kInstance>())
-lemke_pivot_kernel(qpn::LemkeBatch<T> bt, unsigned char* workspace, int R) {
+lemke_pivot_kernel(qpn::LemkeBatch<T> bt, int R) {
     extern __shared__ __align__(16) unsigned char smem[];
     const bool spread = kInstance == qpn::LANE_CLUSTER;
     const int rank = spread ? (int)cg::this_cluster().block_rank() : 0;
     const size_t b = spread ? blockIdx.x / R : blockIdx.x;
-    unsigned char* base = kInstance == qpn::LANE_GLOBAL
-        ? workspace + b * qpn::lane_bytes<T>(bt.n) : smem;
     const qpn::Lane<T> L =
-        qpn::lane_carve<T>(base, bt.n, spread ? R : 1, rank);
+        qpn::lane_carve<T>(smem, bt.n, spread ? R : 1, rank);
     constexpr int nthr = block_threads<kInstance>();
     qpn::lane_load(L, bt, b, threadIdx.x, nthr);
     qpn::lane_run(L, threadIdx.x, nthr, bt.tol, bt.piv_tol, bt.max_pivots);
     qpn::lane_store(L, bt, b, threadIdx.x, nthr);
     // no block leaves while a peer may still read its shared memory
     if (spread) cg::this_cluster().sync();
+}
+
+// The global instance: R blocks a lane.  At R = 1, lane b whole in the
+// device-memory workspace; at R > 1, rank k of lane b on any SM, its band
+// at its stride in the workspace, its own part in shared memory, the
+// lane's barrier at bars + 2b.  One block an SM is all it asks for: at
+// most one block of it an SM runs when spread, and without the bound nvcc
+// traded registers for blocks an SM and spilled in the R = 1 path.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+lemke_pivot_global_kernel(qpn::LemkeBatch<T> bt, unsigned char* workspace,
+                          unsigned* bars, int R) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    if (R == 1) {
+        const size_t b = blockIdx.x;
+        const qpn::Lane<T> L = qpn::lane_carve<T>(
+            workspace + b * qpn::lane_bytes<T>(bt.n), bt.n);
+        qpn::lane_load(L, bt, b, threadIdx.x, kThreads);
+        qpn::lane_run(L, threadIdx.x, kThreads, bt.tol, bt.piv_tol,
+                      bt.max_pivots);
+        qpn::lane_store(L, bt, b, threadIdx.x, kThreads);
+        return;
+    }
+    const int rank = (int)(blockIdx.x % R);
+    const size_t b = blockIdx.x / R;
+    const qpn::Lane<T> L = qpn::lane_carve_spread<T>(
+        smem,
+        workspace + b * qpn::lane_global_lane_bytes(bt.n, sizeof(T), R)
+            + rank * qpn::lane_spread_band_bytes<T>(
+                  bt.n, qpn::lane_band_height(bt.n, R)),
+        bt.n, R, rank, bars + 2 * b);
+    qpn::lane_load(L, bt, b, threadIdx.x, kThreads);
+    qpn::lane_run(L, threadIdx.x, kThreads, bt.tol, bt.piv_tol,
+                  bt.max_pivots);
+    qpn::lane_store(L, bt, b, threadIdx.x, kThreads);
 }
 
 template <typename T>
@@ -119,18 +168,28 @@ int launch_shared(const qpn::LemkeBatch<T>& bt, cudaStream_t stream) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
-    kernel<<<bt.B, kThreads, bytes, stream>>>(bt, nullptr, 1);
+    kernel<<<bt.B, kThreads, bytes, stream>>>(bt, 1);
     return cudaGetLastError();
 }
 
+// R = 1: a plain launch, one block a lane; R > 1: the cooperative launch
+// of B · R blocks, whose barriers (2 words a lane) the caller has zeroed.
 template <typename T>
-int launch_global(const qpn::LemkeBatch<T>& bt, void* workspace,
-                  cudaStream_t stream) {
+int launch_global(const qpn::LemkeBatch<T>& bt, int R, void* workspace,
+                  void* bars, cudaStream_t stream) {
     if (bt.B <= 0) return 0;
-    if (workspace == nullptr) return cudaErrorInvalidValue;
-    lemke_pivot_kernel<T, qpn::LANE_GLOBAL><<<bt.B, kThreads, 0, stream>>>(
-        bt, static_cast<unsigned char*>(workspace), 1);
-    return cudaGetLastError();
+    if (workspace == nullptr || R < 1 || (R > 1 && bars == nullptr))
+        return cudaErrorInvalidValue;
+    auto kernel = lemke_pivot_global_kernel<T>;
+    unsigned char* ws = static_cast<unsigned char*>(workspace);
+    if (R == 1) {
+        kernel<<<bt.B, kThreads, 0, stream>>>(bt, ws, nullptr, 1);
+        return cudaGetLastError();
+    }
+    return qpn::launch_cooperative(kernel, bt.B, R, kThreads,
+                                   qpn::lane_spread_own_bytes<T>(bt.n),
+                                   stream, bt, ws,
+                                   static_cast<unsigned*>(bars), R);
 }
 
 template <typename T>
@@ -141,7 +200,7 @@ int launch_cluster(const qpn::LemkeBatch<T>& bt, int R, cudaStream_t stream) {
         bt.n, qpn::lane_band_height(bt.n, R));
     return qpn::launch_cluster(lemke_pivot_kernel<T, qpn::LANE_CLUSTER>,
                                checked, bt.B, R, kClusterThreads, bytes,
-                               stream, bt, (unsigned char*)nullptr, R);
+                               stream, bt, R);
 }
 
 }  // namespace
@@ -168,21 +227,45 @@ int qpn_lemke_pivot_cluster_f64(QPN_LEMKE_PARAMS(double), int ranks,
                           (cudaStream_t)stream);
 }
 
-// workspace: B * qpn_lemke_lane_bytes(n, itemsize) bytes of device memory
-int qpn_lemke_pivot_global_f32(QPN_LEMKE_PARAMS(float), void* workspace,
-                               void* stream) {
-    return launch_global(QPN_LEMKE_BATCH(float), workspace,
+// ranks: the lane's blocks (qpn_lemke_global_ranks); workspace: B *
+// qpn_lemke_global_lane_bytes(n, itemsize, ranks) bytes of device memory;
+// bars: 2 * B zeroed unsigned ints where ranks > 1
+int qpn_lemke_pivot_global_f32(QPN_LEMKE_PARAMS(float), int ranks,
+                               void* workspace, void* bars, void* stream) {
+    return launch_global(QPN_LEMKE_BATCH(float), ranks, workspace, bars,
                          (cudaStream_t)stream);
 }
 
-int qpn_lemke_pivot_global_f64(QPN_LEMKE_PARAMS(double), void* workspace,
-                               void* stream) {
-    return launch_global(QPN_LEMKE_BATCH(double), workspace,
+int qpn_lemke_pivot_global_f64(QPN_LEMKE_PARAMS(double), int ranks,
+                               void* workspace, void* bars, void* stream) {
+    return launch_global(QPN_LEMKE_BATCH(double), ranks, workspace, bars,
                          (cudaStream_t)stream);
 }
 
 long long qpn_lemke_lane_bytes(int n, int itemsize) {
     return (long long)qpn::lane_band_bytes_of(n, n, itemsize);
+}
+
+long long qpn_lemke_global_lane_bytes(int n, int itemsize, int ranks) {
+    return (long long)qpn::lane_global_lane_bytes(n, itemsize, ranks);
+}
+
+int qpn_lemke_global_ranks(int n, int itemsize, int B, long long resident,
+                           long long smem_optin) {
+    return qpn::lane_global_ranks(n, itemsize, B, resident, smem_optin);
+}
+
+// The blocks of the global instance the current card holds at once, each
+// with the opt-in limit of shared memory (one an SM), or minus a
+// cudaError_t.
+long long qpn_lemke_global_resident(int itemsize) {
+    const long long optin = qpn::smem_optin();
+    if (optin < 0) return optin;
+    return itemsize == 4
+        ? qpn::resident_blocks(lemke_pivot_global_kernel<float>, kThreads,
+                               (size_t)optin)
+        : qpn::resident_blocks(lemke_pivot_global_kernel<double>, kThreads,
+                               (size_t)optin);
 }
 
 int qpn_lemke_cluster_ranks(int n, int itemsize, long long smem_optin) {
@@ -200,14 +283,7 @@ int qpn_lemke_lane_instance(int n, int itemsize, long long smem_optin) {
 
 // The shared memory a block can opt into on the current card, or minus a
 // cudaError_t.
-long long qpn_lemke_smem_optin(void) {
-    int dev = 0, optin = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-        e = cudaDeviceGetAttribute(
-            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    return e == cudaSuccess ? (long long)optin : -(long long)e;
-}
+long long qpn_lemke_smem_optin(void) { return qpn::smem_optin(); }
 
 const char* qpn_cuda_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);

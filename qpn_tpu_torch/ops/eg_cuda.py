@@ -13,10 +13,16 @@ Before the launch the wrapper picks the instance from n alone
 limit): M in registers (n <= 128) or in shared memory (up to n = 238 on an
 H100), counted in ``METRICS.launches["eg_warmstart"]``; M spread over the
 shared memory of a cluster of 2-8 blocks (``eg_cluster_ranks``), counted in
-``METRICS.launches["eg_warmstart_cluster"]``; or, past 8 blocks, M read in
-place from device memory, counted in
-``METRICS.launches["eg_warmstart_global"]``.  A launch the card refuses
-raises ``RuntimeError`` with CUDA's message; no other instance is tried.
+``METRICS.launches["eg_warmstart_cluster"]``; or, past 8 blocks, the
+global instance, counted in ``METRICS.launches["eg_warmstart_global"]``:
+each lane spread over the ranks ``eg_global_ranks`` picks from the shape,
+the batch and the card's resident blocks (R blocks on any SMs, each band
+of M in its shared memory where it fits, meeting at a barrier in device
+memory; R = 1, where the batch fills the card, reads M every half-step from
+a column-major copy that the kernel writes at its start); the ranks
+of its launches are summed in ``METRICS.counters["eg_warmstart_global_ranks"]``.
+A launch the card refuses raises ``RuntimeError`` with CUDA's message; no
+other instance is tried.
 
 :func:`eg_steps_host` runs the same lane code built with g++ on CPU
 tensors — the CPU tests' window on the kernel's logic — with the lane
@@ -30,13 +36,16 @@ from typing import Optional
 
 import torch
 
-from ..utils.cuda_build import (HOPPER_SMEM_OPTIN, load_cuda_library,
+from ..utils.cuda_build import (HOPPER_RESIDENT_BLOCKS, HOPPER_SMEM_OPTIN,
+                                card_query, load_cuda_library,
                                 load_host_library, smem_optin)
 from ..utils.metrics import METRICS
 
 KERNEL = "eg_warmstart"
 KERNEL_GLOBAL = "eg_warmstart_global"
 KERNEL_CLUSTER = "eg_warmstart_cluster"
+GLOBAL_RANKS = "eg_warmstart_global_ranks"
+_HEADERS = ["eg_lane.cuh", "lane_barrier.cuh"]
 # csrc/eg_lane.cuh::eg_instance
 EG_REGISTER, EG_SHARED, EG_GLOBAL, EG_CLUSTER = 0, 1, 2, 3
 _COUNTED = {EG_REGISTER: KERNEL, EG_SHARED: KERNEL, EG_GLOBAL: KERNEL_GLOBAL,
@@ -50,16 +59,23 @@ def _cuda_lib() -> ctypes.CDLL:
     global _CUDA_LIB
     if _CUDA_LIB is None:
         lib = load_cuda_library(KERNEL, ["eg_warmstart.cu"],
-                                ["eg_lane.cuh", "cluster_launch.cuh"])
-        for fn in (lib.qpn_eg_warmstart_f32, lib.qpn_eg_warmstart_global_f32):
-            fn.restype = ctypes.c_int
-            fn.argtypes = _PARAMS + [ctypes.c_void_p]
+                                [*_HEADERS, "cluster_launch.cuh"])
+        lib.qpn_eg_warmstart_f32.restype = ctypes.c_int
+        lib.qpn_eg_warmstart_f32.argtypes = _PARAMS + [ctypes.c_void_p]
         lib.qpn_eg_warmstart_cluster_f32.restype = ctypes.c_int
         lib.qpn_eg_warmstart_cluster_f32.argtypes = _PARAMS + [
             ctypes.c_int, ctypes.c_void_p]
+        lib.qpn_eg_warmstart_global_f32.restype = ctypes.c_int
+        lib.qpn_eg_warmstart_global_f32.argtypes = _PARAMS + [
+            ctypes.c_int] + [ctypes.c_void_p] * 4
         _instance_function(lib)
-        lib.qpn_eg_smem_optin.restype = ctypes.c_longlong
-        lib.qpn_eg_smem_optin.argtypes = []
+        for fn in (lib.qpn_eg_smem_optin, lib.qpn_eg_global_resident):
+            fn.restype = ctypes.c_longlong
+            fn.argtypes = []
+        lib.qpn_eg_exchange_floats.restype = ctypes.c_longlong
+        lib.qpn_eg_exchange_floats.argtypes = [ctypes.c_int]
+        lib.qpn_eg_global_copy_floats.restype = ctypes.c_longlong
+        lib.qpn_eg_global_copy_floats.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.qpn_eg_error_string.restype = ctypes.c_char_p
         lib.qpn_eg_error_string.argtypes = [ctypes.c_int]
         _CUDA_LIB = lib
@@ -70,12 +86,17 @@ def _host_lib() -> ctypes.CDLL:
     global _HOST_LIB
     if _HOST_LIB is None:
         lib = load_host_library("eg_lane_host", ["eg_lane_host.cpp"],
-                                ["eg_lane.cuh"])
+                                _HEADERS)
         lib.qpn_eg_warmstart_host_f32.restype = None
         lib.qpn_eg_warmstart_host_f32.argtypes = _PARAMS + [
-            ctypes.c_longlong, ctypes.c_int]
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
         lib.qpn_eg_pick_chunk.restype = ctypes.c_int
         lib.qpn_eg_pick_chunk.argtypes = [ctypes.c_int]
+        lib.qpn_eg_global_band_fits.restype = ctypes.c_int
+        lib.qpn_eg_global_band_fits.argtypes = [ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_longlong]
+        lib.qpn_eg_band_bytes.restype = ctypes.c_longlong
+        lib.qpn_eg_band_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         _instance_function(lib)
         _HOST_LIB = lib
     return _HOST_LIB
@@ -85,15 +106,23 @@ def _instance_function(lib: ctypes.CDLL) -> None:
     for fn in (lib.qpn_eg_instance, lib.qpn_eg_cluster_ranks):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    lib.qpn_eg_global_ranks.restype = ctypes.c_int
+    lib.qpn_eg_global_ranks.argtypes = [ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_longlong, ctypes.c_longlong]
 
 
-def _ranks(lib: ctypes.CDLL, n: int, optin: int) -> tuple[int, int]:
-    """(instance, ranks) that ``lib``'s pure choice gives rows of ``n``
-    under ``optin``: ranks 1 but for the cluster instance."""
+def _ranks(lib: ctypes.CDLL, n: int, optin: int, lanes: int,
+           resident) -> tuple[int, int]:
+    """(instance, ranks) that ``lib``'s pure choice gives ``lanes`` lanes
+    of rows of ``n`` under ``optin`` on a card that holds ``resident()``
+    blocks of the global instance (asked only for it): ranks 1 for the
+    register and shared instances."""
     instance = lib.qpn_eg_instance(n, optin)
-    if instance != EG_CLUSTER:
-        return instance, 1
-    return instance, lib.qpn_eg_cluster_ranks(n, optin)
+    if instance == EG_CLUSTER:
+        return instance, lib.qpn_eg_cluster_ranks(n, optin)
+    if instance == EG_GLOBAL:
+        return instance, lib.qpn_eg_global_ranks(n, lanes, resident(), optin)
+    return instance, 1
 
 
 def card_optin(device: torch.device) -> int:
@@ -103,10 +132,20 @@ def card_optin(device: torch.device) -> int:
     return smem_optin(lib.qpn_eg_smem_optin, device)
 
 
-def card_instance(n: int, device: torch.device) -> tuple[int, int]:
-    """(instance, ranks) that the launcher picks for rows of ``n`` on the
-    CUDA ``device``."""
-    return _ranks(_cuda_lib(), int(n), card_optin(device))
+def card_resident(device: torch.device) -> int:
+    """Blocks of the global instance that the CUDA ``device`` holds at
+    once, each with the opt-in limit of shared memory (one an SM)."""
+    lib = _cuda_lib()
+    return card_query("eg_global_resident", lib.qpn_eg_global_resident,
+                      device)
+
+
+def card_instance(n: int, device: torch.device, lanes: int = 1
+                  ) -> tuple[int, int]:
+    """(instance, ranks) that the launcher picks for ``lanes`` lanes of
+    rows of ``n`` on the CUDA ``device``."""
+    return _ranks(_cuda_lib(), int(n), card_optin(device), int(lanes),
+                  lambda: card_resident(device))
 
 
 def build() -> None:
@@ -157,18 +196,19 @@ def eg_warmstart_cuda(M, q, l, u, z0, tau, steps: int) -> torch.Tensor:
         raise ValueError("eg_warmstart_cuda takes CUDA tensors; CPU tensors "
                          "go to eg.eg_steps_torch")
     _check(M, q, l, u, z0, tau, steps)
-    instance, ranks = card_instance(M.shape[1], M.device)
+    B, n, _ = M.shape
+    instance, ranks = card_instance(n, M.device, lanes=B)
     return _run(M, q, l, u, z0, tau, steps, instance, ranks)
 
 
 def _launch(M, q, l, u, z0, tau, steps: int, *, instance: int,
             ranks: int = 1) -> torch.Tensor:
-    """One launch of the given instance (EG_CLUSTER over ``ranks`` blocks
-    a lane; EG_REGISTER and EG_SHARED: the kernel the launcher picks from
-    n), counted under its name.  :func:`eg_warmstart_cuda` picks the
-    instance from the shape; ``chip_smoke.py`` and the GPU tests call this
-    to run the global instance at cluster sizes, and a cluster size the
-    card refuses."""
+    """One launch of the given instance (EG_CLUSTER and EG_GLOBAL over
+    ``ranks`` blocks a lane; EG_REGISTER and EG_SHARED: the kernel the
+    launcher picks from n), counted under its name.
+    :func:`eg_warmstart_cuda` picks the instance and its ranks from the
+    shape; ``chip_smoke.py`` and the GPU tests call this to run the global
+    instance at cluster sizes or at R = 1, and sizes the card refuses."""
     if M.device.type != "cuda":
         raise ValueError("the eg kernel takes CUDA tensors")
     _check(M, q, l, u, z0, tau, steps)
@@ -187,7 +227,22 @@ def _run(M, q, l, u, z0, tau, steps: int, instance: int,
     stream = torch.cuda.current_stream(M.device).cuda_stream
     with torch.cuda.device(M.device):
         if instance == EG_GLOBAL:
-            rc = lib.qpn_eg_warmstart_global_f32(*args, stream)
+            xg = bars = mt = None
+            if ranks > 1:
+                # each lane's z and z½, and its barrier: an arrival count
+                # and a generation
+                xg = torch.empty(B * lib.qpn_eg_exchange_floats(n),
+                                 dtype=torch.float32, device=M.device)
+                bars = torch.zeros(2 * B, dtype=torch.int32, device=M.device)
+            copy = lib.qpn_eg_global_copy_floats(n, int(ranks))
+            if copy > 0:
+                # each lane's column-major copy of M, which the kernel
+                # writes and reads (bands past shared memory)
+                mt = torch.empty(B * copy, dtype=torch.float32,
+                                 device=M.device)
+            rc = lib.qpn_eg_warmstart_global_f32(
+                *args, int(ranks), *(None if t is None else t.data_ptr()
+                                     for t in (xg, bars, mt)), stream)
         elif instance == EG_CLUSTER:
             rc = lib.qpn_eg_warmstart_cluster_f32(*args, int(ranks), stream)
         elif instance in (EG_REGISTER, EG_SHARED):
@@ -198,6 +253,8 @@ def _run(M, q, l, u, z0, tau, steps: int, instance: int,
         raise RuntimeError("eg kernel launch failed: "
                            + lib.qpn_eg_error_string(rc).decode())
     METRICS.launched(_COUNTED[instance])
+    if instance == EG_GLOBAL:
+        METRICS.bump(GLOBAL_RANKS, int(ranks))
     return out
 
 
@@ -207,8 +264,8 @@ def eg_steps_host(M, q, l, u, z0, tau, steps: int,
     """The kernel's lane code built for the host, on CPU tensors: every sum
     in the order of, and the lane carved as by, the kernel that the launcher
     picks for this n under the opt-in limit ``optin`` (an H100's by
-    default), spread over the ranks it would give the lane; ``ranks``
-    spreads it over that many instead (1: one block's lane)."""
+    default), spread over the ranks it would give this batch on an H100;
+    ``ranks`` spreads it over that many instead (1: one block's lane)."""
     if M.device.type != "cpu":
         raise ValueError("eg_steps_host takes CPU tensors")
     _check(M, q, l, u, z0, tau, steps)
@@ -217,7 +274,7 @@ def eg_steps_host(M, q, l, u, z0, tau, steps: int,
     out = torch.empty_like(z0)
     _host_lib().qpn_eg_warmstart_host_f32(
         *_args(M, q, l, u, z0, tau, out, steps), int(optin),
-        0 if ranks is None else int(ranks))
+        0 if ranks is None else int(ranks), HOPPER_RESIDENT_BLOCKS)
     return out
 
 
@@ -232,6 +289,29 @@ def host_instance(n: int, optin: int) -> int:
     opt-in limit ``optin`` in bytes (EG_REGISTER, EG_SHARED, EG_CLUSTER or
     EG_GLOBAL), from the kernel's header built for the host."""
     return _host_lib().qpn_eg_instance(int(n), int(optin))
+
+
+def host_global_ranks(n: int, lanes: int, resident: int, optin: int) -> int:
+    """The global instance's blocks a lane for ``lanes`` lanes of rows of
+    ``n`` on a card that holds ``resident`` of its blocks at once, under the
+    opt-in limit ``optin`` (1: one block), from the kernel's header built
+    for the host."""
+    return _host_lib().qpn_eg_global_ranks(int(n), int(lanes),
+                                           int(resident), int(optin))
+
+
+def host_global_band_fits(n: int, ranks: int, optin: int) -> bool:
+    """Whether a global rank's band of M sits in its shared memory at
+    ``ranks`` blocks a lane under ``optin`` (else in the lane's column-major
+    copy in device memory)."""
+    return bool(_host_lib().qpn_eg_global_band_fits(int(n), int(ranks),
+                                                    int(optin)))
+
+
+def host_band_bytes(n: int, ranks: int) -> int:
+    """Bytes of one rank's part of a lane of rows of ``n`` spread over
+    ``ranks`` blocks, its band of M included, from the kernel's header."""
+    return _host_lib().qpn_eg_band_bytes(int(n), int(ranks))
 
 
 def host_cluster_ranks(n: int, optin: int) -> int:

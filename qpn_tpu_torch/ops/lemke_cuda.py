@@ -16,8 +16,13 @@ that does not fit (f32 n >= 136, f64 n >= 95 on an H100), the lane spread
 over a cluster of 2-8 blocks (``lane_cluster_ranks``), counted in
 ``METRICS.launches["lemke_pivot_cluster"]``; past 8 blocks, the lane in a
 device-memory workspace that the wrapper allocates, counted in
-``METRICS.launches["lemke_pivot_global"]``.  A launch the card refuses
-raises ``RuntimeError`` with CUDA's message; no other instance is tried.
+``METRICS.launches["lemke_pivot_global"]``.  The global instance spreads
+each lane over the ranks ``lane_global_ranks`` picks from the shape, the
+batch and the card's resident blocks (R blocks on any SMs meeting at a
+barrier in device memory; R = 1 where the batch fills the card); the ranks
+of its launches are summed in ``METRICS.counters["lemke_pivot_global_ranks"]``.
+A launch the card refuses raises ``RuntimeError`` with CUDA's message; no
+other instance is tried.
 
 :func:`lemke_pivot_host` runs the same lane code built with g++ on CPU
 tensors — the CPU tests' window on the kernel's logic — with the lane
@@ -31,7 +36,8 @@ from typing import Optional
 
 import torch
 
-from ..utils.cuda_build import (HOPPER_SMEM_OPTIN, load_cuda_library,
+from ..utils.cuda_build import (HOPPER_RESIDENT_BLOCKS, HOPPER_SMEM_OPTIN,
+                                card_query, load_cuda_library,
                                 load_host_library, smem_optin)
 from ..utils.metrics import METRICS
 from .lemke import LemkeInit, PivotResult
@@ -39,6 +45,8 @@ from .lemke import LemkeInit, PivotResult
 KERNEL = "lemke_pivot"
 KERNEL_GLOBAL = "lemke_pivot_global"
 KERNEL_CLUSTER = "lemke_pivot_cluster"
+GLOBAL_RANKS = "lemke_pivot_global_ranks"
+_HEADERS = ["lemke_lane.cuh", "lane_barrier.cuh"]
 # csrc/lemke_lane.cuh::lane_instance
 LANE_SHARED, LANE_GLOBAL, LANE_CLUSTER = 0, 1, 2
 _COUNTED = {LANE_SHARED: KERNEL, LANE_GLOBAL: KERNEL_GLOBAL,
@@ -54,14 +62,14 @@ def _cuda_lib() -> ctypes.CDLL:
     global _CUDA_LIB
     if _CUDA_LIB is None:
         lib = load_cuda_library(KERNEL, ["lemke_pivot.cu"],
-                                ["lemke_lane.cuh", "cluster_launch.cuh"])
+                                [*_HEADERS, "cluster_launch.cuh"])
         for fn in (lib.qpn_lemke_pivot_f32, lib.qpn_lemke_pivot_f64):
             fn.restype = ctypes.c_int
             fn.argtypes = _PARAMS + [ctypes.c_void_p]
         for fn in (lib.qpn_lemke_pivot_global_f32,
                    lib.qpn_lemke_pivot_global_f64):
             fn.restype = ctypes.c_int
-            fn.argtypes = _PARAMS + [ctypes.c_void_p] * 2
+            fn.argtypes = _PARAMS + [ctypes.c_int] + [ctypes.c_void_p] * 3
         for fn in (lib.qpn_lemke_pivot_cluster_f32,
                    lib.qpn_lemke_pivot_cluster_f64):
             fn.restype = ctypes.c_int
@@ -69,6 +77,8 @@ def _cuda_lib() -> ctypes.CDLL:
         _shape_functions(lib)
         lib.qpn_lemke_smem_optin.restype = ctypes.c_longlong
         lib.qpn_lemke_smem_optin.argtypes = []
+        lib.qpn_lemke_global_resident.restype = ctypes.c_longlong
+        lib.qpn_lemke_global_resident.argtypes = [ctypes.c_int]
         lib.qpn_cuda_error_string.restype = ctypes.c_char_p
         lib.qpn_cuda_error_string.argtypes = [ctypes.c_int]
         _CUDA_LIB = lib
@@ -79,10 +89,10 @@ def _host_lib() -> ctypes.CDLL:
     global _HOST_LIB
     if _HOST_LIB is None:
         lib = load_host_library("lemke_lane_host", ["lemke_lane_host.cpp"],
-                                ["lemke_lane.cuh"])
+                                _HEADERS)
         for fn in (lib.qpn_lemke_pivot_host_f32, lib.qpn_lemke_pivot_host_f64):
             fn.restype = None
-            fn.argtypes = _PARAMS + [ctypes.c_int]
+            fn.argtypes = _PARAMS + [ctypes.c_int] * 2
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for fn, res, args in (
                 (lib.qpn_lk_scan_min_f64, ctypes.c_double, [vp, ci]),
@@ -90,7 +100,9 @@ def _host_lib() -> ctypes.CDLL:
                 (lib.qpn_lk_scan_ties_f64, ci,
                  [vp, vp, ci, ctypes.c_double, ci, vp,
                   ctypes.POINTER(ci)]),
-                (lib.qpn_lemke_lane_stride, ci, [ci])):
+                (lib.qpn_lemke_lane_stride, ci, [ci]),
+                (lib.qpn_lemke_spread_own_bytes, ctypes.c_longlong,
+                 [ci, ci])):
             fn.restype, fn.argtypes = res, args
         _shape_functions(lib)
         _HOST_LIB = lib
@@ -107,6 +119,11 @@ def _shape_functions(lib: ctypes.CDLL) -> None:
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
     lib.qpn_lemke_band_bytes.restype = ctypes.c_longlong
     lib.qpn_lemke_band_bytes.argtypes = [ctypes.c_int] * 3
+    lib.qpn_lemke_global_lane_bytes.restype = ctypes.c_longlong
+    lib.qpn_lemke_global_lane_bytes.argtypes = [ctypes.c_int] * 3
+    lib.qpn_lemke_global_ranks.restype = ctypes.c_int
+    lib.qpn_lemke_global_ranks.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.c_longlong] * 2
 
 
 def host_lane_instance(n: int, itemsize: int, optin: int) -> int:
@@ -137,14 +154,40 @@ def host_band_bytes(n: int, itemsize: int, ranks: int) -> int:
                                             int(ranks))
 
 
-def _ranks(lib: ctypes.CDLL, n: int, itemsize: int, optin: int
-           ) -> tuple[int, int]:
-    """(instance, ranks) that ``lib``'s pure choice gives a lane of ``n``
-    under ``optin``: ranks 1 but for the cluster instance."""
+def host_global_ranks(n: int, itemsize: int, lanes: int, resident: int,
+                      optin: int) -> int:
+    """The global instance's blocks a lane for ``lanes`` lanes of ``n`` on
+    a card that holds ``resident`` of its blocks at once, under the opt-in
+    limit ``optin`` (1: one block's lane), from the kernel's header."""
+    return _host_lib().qpn_lemke_global_ranks(int(n), int(itemsize),
+                                              int(lanes), int(resident),
+                                              int(optin))
+
+
+def host_global_lane_bytes(n: int, itemsize: int, ranks: int) -> int:
+    """Bytes of the global instance's workspace a lane at ``ranks``."""
+    return _host_lib().qpn_lemke_global_lane_bytes(int(n), int(itemsize),
+                                                   int(ranks))
+
+
+def host_spread_own_bytes(n: int, itemsize: int) -> int:
+    """Bytes of a spread global rank's own part (its shared memory)."""
+    return _host_lib().qpn_lemke_spread_own_bytes(int(n), int(itemsize))
+
+
+def _ranks(lib: ctypes.CDLL, n: int, itemsize: int, optin: int, lanes: int,
+           resident) -> tuple[int, int]:
+    """(instance, ranks) that ``lib``'s pure choice gives ``lanes`` lanes
+    of ``n`` under ``optin`` on a card that holds ``resident()`` blocks of
+    the global instance (asked only for it): ranks 1 for the shared
+    instance."""
     instance = lib.qpn_lemke_lane_instance(n, itemsize, optin)
-    if instance != LANE_CLUSTER:
-        return instance, 1
-    return instance, lib.qpn_lemke_cluster_ranks(n, itemsize, optin)
+    if instance == LANE_CLUSTER:
+        return instance, lib.qpn_lemke_cluster_ranks(n, itemsize, optin)
+    if instance == LANE_GLOBAL:
+        return instance, lib.qpn_lemke_global_ranks(n, itemsize, lanes,
+                                                    resident(), optin)
+    return instance, 1
 
 
 def card_optin(device: torch.device) -> int:
@@ -154,11 +197,21 @@ def card_optin(device: torch.device) -> int:
     return smem_optin(lib.qpn_lemke_smem_optin, device)
 
 
-def card_instance(n: int, itemsize: int, device: torch.device
-                  ) -> tuple[int, int]:
-    """(instance, ranks) that the launcher picks for a lane of ``n`` on the
-    CUDA ``device``."""
-    return _ranks(_cuda_lib(), int(n), int(itemsize), card_optin(device))
+def card_resident(itemsize: int, device: torch.device) -> int:
+    """Blocks of the global instance that the CUDA ``device`` holds at
+    once, each with the opt-in limit of shared memory (one an SM)."""
+    lib = _cuda_lib()
+    return card_query(f"lemke_global_resident_{int(itemsize)}",
+                      lambda: lib.qpn_lemke_global_resident(int(itemsize)),
+                      device)
+
+
+def card_instance(n: int, itemsize: int, device: torch.device,
+                  lanes: int = 1) -> tuple[int, int]:
+    """(instance, ranks) that the launcher picks for ``lanes`` lanes of
+    ``n`` on the CUDA ``device``."""
+    return _ranks(_cuda_lib(), int(n), int(itemsize), card_optin(device),
+                  int(lanes), lambda: card_resident(itemsize, device))
 
 
 def host_scans() -> ctypes.CDLL:
@@ -231,18 +284,19 @@ def lemke_pivot_cuda(init: LemkeInit, *, tol, piv_tol, max_pivots
         raise ValueError("lemke_pivot_cuda takes CUDA tensors; CPU tensors "
                          "go to lemke.lemke_pivot_torch")
     _check(init)
-    n, itemsize = init.T.shape[1], init.T.element_size()
-    instance, ranks = card_instance(n, itemsize, init.T.device)
+    B, n = init.T.shape[:2]
+    instance, ranks = card_instance(n, init.T.element_size(), init.T.device,
+                                    lanes=B)
     return _run(init, tol, piv_tol, max_pivots, instance, ranks)
 
 
 def _launch(init: LemkeInit, *, tol, piv_tol, max_pivots, instance: int,
             ranks: int = 1) -> PivotResult:
-    """One launch of the given instance (LANE_CLUSTER over ``ranks``
-    blocks a lane), counted under its name.  :func:`lemke_pivot_cuda`
-    picks the instance from the shape; ``chip_smoke.py`` and the GPU tests
-    call this to run the global instance at cluster sizes, and a cluster
-    size the card refuses."""
+    """One launch of the given instance over ``ranks`` blocks a lane
+    (LANE_CLUSTER and LANE_GLOBAL), counted under its name.
+    :func:`lemke_pivot_cuda` picks the instance and its ranks from the
+    shape; ``chip_smoke.py`` and the GPU tests call this to run the global
+    instance at cluster sizes or at R = 1, and sizes the card refuses."""
     if init.T.device.type != "cuda":
         raise ValueError("the lemke pivot kernel takes CUDA tensors")
     _check(init)
@@ -264,11 +318,16 @@ def _run(init: LemkeInit, tol, piv_tol, max_pivots, instance: int,
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         if instance == LANE_GLOBAL:
-            workspace = torch.empty(B * lib.qpn_lemke_lane_bytes(n, itemsize),
-                                    dtype=torch.uint8, device=device)
+            workspace = torch.empty(
+                B * lib.qpn_lemke_global_lane_bytes(n, itemsize, int(ranks)),
+                dtype=torch.uint8, device=device)
+            # each lane's barrier: an arrival count and a generation
+            bars = (torch.zeros(2 * B, dtype=torch.int32, device=device)
+                    if ranks > 1 else None)
             fn = (lib.qpn_lemke_pivot_global_f32 if f32
                   else lib.qpn_lemke_pivot_global_f64)
-            rc = fn(*args, workspace.data_ptr(), stream)
+            rc = fn(*args, int(ranks), workspace.data_ptr(),
+                    None if bars is None else bars.data_ptr(), stream)
         elif instance == LANE_CLUSTER:
             fn = (lib.qpn_lemke_pivot_cluster_f32 if f32
                   else lib.qpn_lemke_pivot_cluster_f64)
@@ -282,6 +341,8 @@ def _run(init: LemkeInit, tol, piv_tol, max_pivots, instance: int,
         raise RuntimeError("lemke pivot kernel launch failed: "
                            + lib.qpn_cuda_error_string(rc).decode())
     METRICS.launched(_COUNTED[instance])
+    if instance == LANE_GLOBAL:
+        METRICS.bump(GLOBAL_RANKS, int(ranks))
     return out
 
 
@@ -290,20 +351,25 @@ def lemke_pivot_host(init: LemkeInit, *, tol, piv_tol, max_pivots,
                      ranks: Optional[int] = None) -> PivotResult:
     """The kernel's lane code built for the host, on CPU tensors, every sum
     in the kernel's order: the lane spread over ``ranks`` ranks (each phase
-    run for one rank after another), by default the ranks of the instance
-    the launcher picks under the opt-in limit ``optin`` (an H100's by
-    default; 1 unless that is the cluster instance)."""
+    run for one rank after another) and carved as the instance the launcher
+    picks under the opt-in limit ``optin`` (an H100's by default) carves
+    it; by default the ranks it picks for this batch on an H100 (1 for the
+    shared instance)."""
     if init.T.device.type != "cpu":
         raise ValueError("lemke_pivot_host takes CPU tensors")
     _check(init)
     lib = _host_lib()
-    n, itemsize = init.T.shape[1], init.T.element_size()
+    B, n = init.T.shape[:2]
+    itemsize = init.T.element_size()
+    instance, picked = _ranks(lib, n, itemsize, int(optin), B,
+                              lambda: HOPPER_RESIDENT_BLOCKS)
     if ranks is None:
-        ranks = _ranks(lib, n, itemsize, int(optin))[1]
+        ranks = picked
     if ranks < 1:
         raise ValueError(f"lemke_pivot_host: ranks={ranks} < 1")
     out = _outputs(init)
     fn = (lib.qpn_lemke_pivot_host_f32 if init.T.dtype == torch.float32
           else lib.qpn_lemke_pivot_host_f64)
-    fn(*_args(init, out, tol, piv_tol, max_pivots), int(ranks))
+    fn(*_args(init, out, tol, piv_tol, max_pivots), int(ranks),
+       int(instance == LANE_GLOBAL))
     return out

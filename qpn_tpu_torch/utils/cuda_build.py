@@ -90,22 +90,32 @@ def load_host_library(name: str, sources: Sequence[str],
 # card's launchers find there, and what the host instances take to pick the
 # instance the card would run.
 HOPPER_SMEM_OPTIN = 232448
+# Blocks of a spread global instance that an H100 SXM holds at once, each
+# with that much shared memory: one on each of its 132 SMs.
+HOPPER_RESIDENT_BLOCKS = 132
 
-_SMEM_OPTIN: dict = {}
+_CARD: dict = {}
+
+
+def card_query(name: str, query, device) -> int:
+    """A kernel library's ``query`` of the CUDA ``device`` (a count, or
+    minus a ``cudaError_t``), made with the device current and cached per
+    device under ``name``.  Raises when the query fails."""
+    import torch
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    if (name, index) not in _CARD:
+        with torch.cuda.device(index):
+            value = query()
+        if value < 0:
+            raise RuntimeError(f"{name} of cuda:{index} could not be read "
+                               f"(cudaError {-value})")
+        _CARD[name, index] = value
+    return _CARD[name, index]
 
 
 def smem_optin(query, device) -> int:
     """The shared memory a block can opt into on the CUDA ``device``, from a
     kernel library's ``query`` function (the opt-in limit, or minus a
     ``cudaError_t``); cached per device.  Raises when the query fails."""
-    import torch
-    index = torch.cuda.current_device() if device.index is None \
-        else device.index
-    if index not in _SMEM_OPTIN:
-        with torch.cuda.device(index):
-            optin = query()
-        if optin < 0:
-            raise RuntimeError(f"the shared-memory limit of cuda:{index} "
-                               f"could not be read (cudaError {-optin})")
-        _SMEM_OPTIN[index] = optin
-    return _SMEM_OPTIN[index]
+    return card_query("the shared-memory limit", query, device)

@@ -208,6 +208,145 @@ def test_a_refused_cluster_launch_raises(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("ranks", [None, 3], ids=["picked", "R3"])
+def test_k1_spread_global_instance_against_one_block_and_host(cuda_device,
+                                                              ranks):
+    """K1's global instance on (g)'s lanes, f64 at n=304 (robust_avoid T=8,
+    num_obj=2) on 16 lanes, spread over the ranks the wrapper picks (8 on an
+    H100; also 3 through the private launcher): bit for bit the global
+    instance at R = 1 (the private launcher), the plain loop's status and
+    pivots, and the host emulation of the same ranks on 4 lanes."""
+    from qpn_tpu_torch.ops import lemke_cuda
+    b = scenario_batch_gavis(num_scenarios=16, T=8, num_obj=2,
+                             num_poly_faces=4, seed=0)
+    t = batch_from_numpy(b, cuda_device)
+    init = lemke.lemke_setup(*(t[k].double() for k in
+                               ("M", "q", "l", "u", "z0")), t["mask"],
+                             tol=F64["tol"])
+    n = init.T.shape[1]
+    instance, picked = lemke_cuda.card_instance(n, 8, cuda_device, lanes=16)
+    assert n == 304 and instance == lemke_cuda.LANE_GLOBAL and picked > 1
+    METRICS.reset()
+    if ranks is None:
+        ranks = picked
+        rk = lemke_pivot_cuda(init, max_pivots=1024, **F64)
+    else:
+        rk = lemke_cuda._launch(init, instance=lemke_cuda.LANE_GLOBAL,
+                                ranks=ranks, max_pivots=1024, **F64)
+    torch.cuda.synchronize()
+    assert METRICS.launches[lemke_cuda.KERNEL_GLOBAL] == 1
+    assert METRICS.counters[lemke_cuda.GLOBAL_RANKS] == ranks
+    r1 = lemke_cuda._launch(init, instance=lemke_cuda.LANE_GLOBAL, ranks=1,
+                            max_pivots=1024, **F64)
+    torch.cuda.synchronize()
+    for name in rk._fields:
+        assert torch.equal(getattr(rk, name), getattr(r1, name)), name
+    rp = lemke.lemke_pivot_torch(init, max_pivots=1024, **F64)
+    assert torch.equal(rk.status, rp.status)
+    assert torch.equal(rk.piv, rp.piv)
+    assert (rk.status == lemke.LEMKE_SUCCESS).all()
+    rh = lemke_cuda.lemke_pivot_host(
+        lemke.LemkeInit(*(a[:4].cpu() for a in init)), max_pivots=1024,
+        optin=lemke_cuda.card_optin(cuda_device), ranks=ranks, **F64)
+    for name in rk._fields:
+        assert torch.equal(getattr(rk, name)[:4].cpu(),
+                           getattr(rh, name)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ranks", [None, 4], ids=["picked", "R4_in_place"])
+def test_k2_spread_global_instance_against_one_block_and_host(cuda_device,
+                                                              ranks):
+    """K2's global instance on (h)'s shape, n=684 on 4 lanes, 300 steps,
+    spread over the ranks the wrapper picks (9 on an H100, each band of M
+    in shared memory; also 4 through the private launcher, the bands read
+    in place): bit for bit the global instance at R = 1 and the host
+    emulation of the same ranks, the plain loop within 1e-5 of the lane
+    scale."""
+    p = _eg_random(cuda_device, 684, B=4, seed=684)
+    ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
+    optin = eg_cuda.card_optin(cuda_device)
+    instance, picked = eg_cuda.card_instance(684, cuda_device, lanes=4)
+    assert instance == eg_cuda.EG_GLOBAL and picked > 1
+    METRICS.reset()
+    if ranks is None:
+        ranks = picked
+        assert eg_cuda.host_global_band_fits(684, ranks, optin)
+        zk = eg_cuda.eg_warmstart_cuda(*ins, 300)
+    else:
+        assert not eg_cuda.host_global_band_fits(684, ranks, optin)
+        zk = eg_cuda._launch(*ins, 300, instance=eg_cuda.EG_GLOBAL,
+                             ranks=ranks)
+    torch.cuda.synchronize()
+    assert METRICS.launches[eg_cuda.KERNEL_GLOBAL] == 1
+    assert METRICS.counters[eg_cuda.GLOBAL_RANKS] == ranks
+    z1 = eg_cuda._launch(*ins, 300, instance=eg_cuda.EG_GLOBAL, ranks=1)
+    torch.cuda.synchronize()
+    assert torch.equal(zk, z1)
+    zh = eg_cuda.eg_steps_host(*(a.cpu() for a in ins), 300, optin=optin,
+                               ranks=ranks)
+    assert torch.equal(zk.cpu(), zh)
+    zp = eg.eg_steps_torch(*ins, 300)
+    scale = 1.0 + float(zp.abs().max())
+    assert float((zk - zp).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_k2_global_instance_on_a_full_batch(cuda_device):
+    """K2's global instance at n=684 on 67 lanes, which fill an H100 (R =
+    1, one block a lane reading M from its column-major copy): 300 steps
+    bit for bit the host emulation of one block a lane on 4 lanes, the
+    plain loop within 1e-5 of the lane scale."""
+    p = _eg_random(cuda_device, 684, B=67, seed=685)
+    ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
+    assert eg_cuda.card_instance(684, cuda_device, lanes=67) == (
+        eg_cuda.EG_GLOBAL, 1)
+    METRICS.reset()
+    zk = eg_cuda.eg_warmstart_cuda(*ins, 300)
+    torch.cuda.synchronize()
+    assert METRICS.launches[eg_cuda.KERNEL_GLOBAL] == 1
+    assert METRICS.counters[eg_cuda.GLOBAL_RANKS] == 1
+    zh = eg_cuda.eg_steps_host(*(a[:4].cpu() for a in ins), 300,
+                               optin=eg_cuda.card_optin(cuda_device),
+                               ranks=1)
+    assert torch.equal(zk[:4].cpu(), zh)
+    zp = eg.eg_steps_torch(*ins, 300)
+    scale = 1.0 + float(zp.abs().max())
+    assert float((zk - zp).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_a_refused_cooperative_launch_raises(cuda_device):
+    """A spread global lane of 4096 blocks does not fit the card at once:
+    the card refuses the cooperative launch and both wrappers raise with
+    CUDA's message, without running another instance or a smaller grid;
+    the next launches work."""
+    from qpn_tpu_torch.ops import lemke_cuda
+    t = _data(cuda_device, S=4)
+    init = lemke.lemke_setup(*(t[k].float() for k in
+                               ("M", "q", "l", "u", "z0")), t["mask"],
+                             tol=HOT["tol"])
+    METRICS.reset()
+    # cudaGetErrorString(cudaErrorCooperativeLaunchTooLarge)
+    refusal = "launch failed: too many blocks in cooperative launch"
+    with pytest.raises(RuntimeError, match=refusal):
+        lemke_cuda._launch(init, instance=lemke_cuda.LANE_GLOBAL,
+                           ranks=4096, max_pivots=64, **HOT)
+    p = _eg_random(cuda_device, 304, B=2)
+    with pytest.raises(RuntimeError, match=refusal):
+        eg_cuda._launch(p.M, p.q, p.l, p.u, p.z0, p.tau, 10,
+                        instance=eg_cuda.EG_GLOBAL, ranks=4096)
+    torch.cuda.synchronize()
+    assert sum(METRICS.launches.values()) == 0
+    # the refusal leaves no error behind for the next launches to report
+    lemke_pivot_cuda(init, max_pivots=64, **HOT)
+    eg_cuda.eg_warmstart_cuda(p.M, p.q, p.l, p.u, p.z0, p.tau, 10)
+    torch.cuda.synchronize()
+    assert METRICS.launches[KERNEL] == 1
+    assert METRICS.launches[eg_cuda.KERNEL_CLUSTER] == 1
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("seed", [2, 3])
 @pytest.mark.parametrize("dtype,kw", [(torch.float32, HOT),
                                       (torch.float64, F64)],

@@ -111,6 +111,93 @@ def test_k2_cluster_ranks_at_their_boundaries(n, ranks):
     assert eg_cuda.host_cluster_ranks(n, HOPPER_SMEM_OPTIN) == ranks
 
 
+# The global instance's ranks: the card's resident blocks (an H100's 132,
+# one an SM) shared among the batch's lanes, at most 8 for K1 and n; R = 1
+# where B alone fills the card, where a rank's own part does not fit the
+# limit (K1 f64 past n = 2323, f32 past 4468), where the card holds nothing
+# or the limit is unknown.
+@pytest.mark.parametrize("itemsize,n,lanes,resident,optin,ranks", [
+    (8, 304, 16, 132, HOPPER_SMEM_OPTIN, 8),
+    (8, 304, 17, 132, HOPPER_SMEM_OPTIN, 7),
+    (8, 304, 33, 132, HOPPER_SMEM_OPTIN, 4),
+    (8, 304, 66, 132, HOPPER_SMEM_OPTIN, 2),
+    (8, 304, 67, 132, HOPPER_SMEM_OPTIN, 1),
+    (8, 304, 1, 132, HOPPER_SMEM_OPTIN, 8),
+    (4, 375, 256, 132, HOPPER_SMEM_OPTIN, 1),
+    (8, 3, 1, 132, HOPPER_SMEM_OPTIN, 3),
+    (8, 2323, 1, 132, HOPPER_SMEM_OPTIN, 8),
+    (8, 2324, 1, 132, HOPPER_SMEM_OPTIN, 1),
+    (4, 4468, 1, 132, HOPPER_SMEM_OPTIN, 8),
+    (4, 4469, 1, 132, HOPPER_SMEM_OPTIN, 1),
+    (8, 304, 16, 0, HOPPER_SMEM_OPTIN, 1),
+    (8, 304, 16, 132, -1, 1),
+    (8, 304, 0, 132, HOPPER_SMEM_OPTIN, 1)],
+    ids=["f64_B16", "f64_B17", "f64_B33", "f64_B66", "f64_B67_fills",
+         "f64_B1_cap", "f32_B256_fills", "f64_n3", "f64_own_fits",
+         "f64_own_past", "f32_own_fits", "f32_own_past", "no_resident",
+         "unknown_limit", "no_lanes"])
+def test_k1_global_ranks_at_their_boundaries(itemsize, n, lanes, resident,
+                                             optin, ranks):
+    assert lemke_cuda.host_global_ranks(n, itemsize, lanes, resident,
+                                        optin) == ranks
+    if ranks > 1:
+        assert lanes * ranks <= resident
+        assert lemke_cuda.host_spread_own_bytes(n, itemsize) <= optin
+    # the workspace: the whole lane at R = 1, else R bands, each 16-byte
+    # aligned
+    ws = lemke_cuda.host_global_lane_bytes(n, itemsize, ranks)
+    if ranks == 1:
+        assert ws == lemke_cuda.host_lane_bytes(n, itemsize)
+    assert ws % (16 * ranks) == 0
+
+
+# K2: the fewest ranks whose band of M fits the limit where B lanes of them
+# fit the card (n = 684: 9 ranks up to 14 lanes), else resident / B ranks
+# reading their bands in place; R = 1 where B alone fills the card.
+@pytest.mark.parametrize("n,lanes,resident,optin,ranks,band", [
+    (684, 4, 132, HOPPER_SMEM_OPTIN, 9, True),
+    (684, 14, 132, HOPPER_SMEM_OPTIN, 9, True),
+    (684, 15, 132, HOPPER_SMEM_OPTIN, 8, False),
+    (684, 66, 132, HOPPER_SMEM_OPTIN, 2, False),
+    (684, 67, 132, HOPPER_SMEM_OPTIN, 1, False),
+    (672, 1, 132, HOPPER_SMEM_OPTIN, 9, True),
+    (711, 14, 132, HOPPER_SMEM_OPTIN, 9, True),
+    (712, 14, 132, HOPPER_SMEM_OPTIN, 9, False),
+    (712, 13, 132, HOPPER_SMEM_OPTIN, 10, True),
+    (2000, 4, 132, HOPPER_SMEM_OPTIN, 33, False),
+    (684, 4, 0, HOPPER_SMEM_OPTIN, 1, False),
+    (684, 4, 132, -1, 1, False),
+    (684, 0, 132, HOPPER_SMEM_OPTIN, 1, False)],
+    ids=["n684_B4", "n684_B14", "n684_B15_in_place", "n684_B66",
+         "n684_B67_fills", "n672_B1", "n711_B14", "n712_B14_in_place",
+         "n712_B13", "n2000_B4_in_place", "no_resident", "unknown_limit",
+         "no_lanes"])
+def test_k2_global_ranks_at_their_boundaries(n, lanes, resident, optin,
+                                             ranks, band):
+    assert eg_cuda.host_instance(n, HOPPER_SMEM_OPTIN) == eg_cuda.EG_GLOBAL
+    assert eg_cuda.host_global_ranks(n, lanes, resident, optin) == ranks
+    assert eg_cuda.host_global_band_fits(n, ranks, optin) == band
+    if band:
+        # the fewest ranks whose band fits
+        assert eg_cuda.host_band_bytes(n, ranks) <= optin
+        assert eg_cuda.host_band_bytes(n, ranks - 1) > optin
+    if ranks > 1:
+        assert lanes * ranks <= resident
+
+
+@pytest.mark.parametrize("n,ranks,optin,fits", [
+    (684, 1, 1 << 40, False), (684, 8, HOPPER_SMEM_OPTIN, False),
+    (684, 9, HOPPER_SMEM_OPTIN, True), (711, 9, HOPPER_SMEM_OPTIN, True),
+    (712, 9, HOPPER_SMEM_OPTIN, False), (130, 9, 0, False),
+    (684, 33, -1, False)],
+    ids=["R1_in_place", "n684_R8", "n684_R9", "n711_R9", "n712_R9",
+         "no_limit", "unknown_limit"])
+def test_k2_global_band_switch(n, ranks, optin, fits):
+    """A global rank's band of M sits in its shared memory exactly where it
+    fits the limit and the lane is spread; at R = 1 M is read in place."""
+    assert eg_cuda.host_global_band_fits(n, ranks, optin) == fits
+
+
 @pytest.mark.parametrize("m,n,want", [
     (18, 18, screen_cuda.SCREEN_WARP), (32, 32, screen_cuda.SCREEN_WARP),
     (33, 33, screen_cuda.SCREEN_SHARED), (238, 238, screen_cuda.SCREEN_SHARED),

@@ -83,8 +83,12 @@ Phases, one line each, with their seconds; any failure exits non-zero:
 16. the banded x-update (``ops/banded.py``) against the dense one in
    ``batch_qp.solve_qp_batch`` on the card (``benchmarks/banded_bench.py``'s
    sweep: B=64, k=6, T = 8..64, median of 3 warm calls each, x within
-   1e-6), the measured crossover, which must equal the shipped
-   ``config.banded_min_blocks()`` on the card, and one call of
+   1e-6; each T's dense / banded ratio; a route wins a T only when each
+   of its calls beats each of the other's by 1.25 times, a smaller edge is
+   a tie), the measured crossover (the smallest T from which the banded
+   route won to the end of the sweep), which, where there is one, must
+   equal the shipped ``config.banded_min_blocks()`` on the card, and one
+   call of
    ``solve_qp_batch_padded`` through the automatic route switched on
    (``banded_route`` counts its lanes);
 17. ``solve(robust_avoid, checkpoint_path=...)`` on the card, then
@@ -117,8 +121,9 @@ Phases, one line each, with their seconds; any failure exits non-zero:
    the native library's path, which must lie under ``build/qpn_tpu_torch/``,
    each model's wall on both devices and the kernels' launches.
 20. the kernels' whole domain: lanes past a block's shared memory run in
-   K1's and K2's cluster instances (the lane spread over the shared memory
-   of a cluster of 2-8 blocks) and K3's global-memory instance.  (a)
+   the kernels' cluster instances (the lane spread over the shared memory
+   of a cluster of 2-8 blocks) and past that in their global-memory
+   instances.  (a)
    robust_avoid S=256 at T=4 and T=5 with num_obj=2 (n=152, 190;
    num_poly_faces=4, seed 0) through ``solve_kkt_avi_batch(tol=1e-8)``:
    every lane certified, 0 uncertified, the numpy re-audit, at least one
@@ -135,10 +140,22 @@ Phases, one line each, with their seconds; any failure exits non-zero:
    20000 steps as in phase 7; (d) ``is_empty_batch`` with the screen on for
    4 seeded polyhedra of 260 rows in dimension 240 (no strict rows, centred
    on the origin, every second one empty): the verdicts the truth, at least
-   one launch of K3's global instance, and K3 against the plain loop as in
-   phase 10; (e) each instance on 8 lanes against the bits of its g++ host
+   one launch of K3's cluster instance and none of its others; then on 4
+   such polyhedra centred off the origin (phase 10's centre), where x
+   moves on every one: the kernel's x and max |v| equal to the g++
+   emulation of its ranks bit for bit, K3 against the plain loop as in
+   phase 10, and the A/B on those 4 and on 128: the cluster instance
+   against the global instance through the private launcher, equal bit
+   for bit, both timed (median of 7 launches between CUDA events), the
+   ratio and the ranks printed; then past the cluster's reach, 520 rows in
+   dimension 500: ``is_empty_batch`` on 4 nonempty polyhedra that contain
+   the screen's start (witnessed, no host LP) with one launch of K3's
+   global instance and none of its others, and that instance against its
+   host bits and the plain loop on 4 polyhedra centred off the origin,
+   every second one empty; each K3 line prints the chain floor of its
+   shape; (e) each instance on 8 lanes against the bits of its g++ host
    build (K1 f32 at n=190 and f64 at n=152 and K2 at n=304 and 300 steps,
-   emulating the cluster's ranks; K3 on the 4 polyhedra); (f) the A/B in
+   emulating the cluster's ranks); (f) the A/B in
    this run: K1's and K2's global instances through the wrappers' private
    launchers at the cluster instances' shapes (K1 f32 S=256 n=190, f64 16
    lanes n=152; K2 n=304, 20000 steps), equal to the cluster instances bit
@@ -165,18 +182,25 @@ Phases, one line each, with their seconds; any failure exits non-zero:
    kernels with the cooperative launch's own refusal, and the next launch
    runs.
 
-Then one JSON line for the kernels, a row for each instance (K1 and K2:
-shared or register, cluster, global; K3: warp or shared, global): launches
+Then one JSON line for the kernels, a row for each instance (K1, K2 and
+K3: shared, register or warp, cluster, global): launches
 on the main paths, error against the plain version, the kernel's, the plain
 version's and the bound's milliseconds: the larger of the bytes each call
 must move over 3.35 TB/s and its operations over the rate of their type
 outside the tensor cores (f32 67 TFLOP/s; 34 for K1's global row, whose
-lanes are f64), counted from this run's shapes, steps and pivots.
+lanes are f64), counted from this run's shapes, steps and pivots.  K3's
+comparison lines (not the JSON line) also print the chain floor of their
+shape: the dependent adds of its fixed order of sums, (steps + 1)·n +
+steps·m, at 4 cycles an add and the card's largest SM clock, a yardstick
+computed, not measured.
 The global rows of K1 and K2 count their launches on (g) and on (h)'s
 whole batch and take their error, times and bound from the comparisons at
 those shapes, at the ranks the wrappers pick (K1 R = 8, K2 R = 1); the
 A/B's times, the spread and R = 1 on the few lanes among them, are printed
-on its own lines.
+on its own lines.  K3's cluster row counts its launches on (d)'s
+``is_empty_batch`` at 260 x 240, its global row on the one at 520 x 500,
+and each takes its error, times and bound from the comparison at its
+shape.
 Then the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The script needs no network and imports nothing of JAX.
@@ -297,6 +321,10 @@ MIDSIZE_GENERIC = (8, 2)
 LARGE_GENERIC = (256, 18, 2)
 LARGE_GENERIC_FEW = 4
 DOMAIN_SCREEN_B, DOMAIN_SCREEN_M, DOMAIN_SCREEN_N = 4, 260, 240
+# (d): the A/B's larger batch (3 waves of clusters of 3 on an H100), and
+# the polyhedra past K3's cluster reach (rows, dimension)
+SCREEN_AB_B = 128
+SCREEN_GLOBAL_MN = (520, 500)
 HOST_BIT_LANES = 8
 # Timed calls of phase 20 (the plain loops take 1-3 s a call there).
 DOMAIN_REPEATS = 3
@@ -306,6 +334,10 @@ SPREAD_HOST_LANES = 4
 REFUSED_RANKS = 4096
 # cudaGetErrorString(cudaErrorCooperativeLaunchTooLarge)
 COOPERATIVE_REFUSAL = "too many blocks in cooperative launch"
+# Phase 16: a route wins a block count only when each of its calls beats
+# each of the other's by this factor; a smaller edge is a tie, which keeps
+# the shipped value (the two routes tie at T=64 on some machines).
+BANDED_MARGIN = 1.25
 SHARED_Z_TOL = 1e-8   # shared route vs KKT path at T=2: one solution
 SHARED_RUNGS = ("shared_kkt_chip_admm_rung", "shared_kkt_admm_escalation",
                 "shared_kkt_generic_escalation")
@@ -354,6 +386,30 @@ def screen_bound(ins, outs, steps):
     B, m, n = ins[0].shape
     return bound(tensor_bytes(*ins, *outs),
                  B * (steps * (4.0 * m * n + 4 * m + 2 * n) + 2 * m * n + 4 * m))
+
+
+def screen_chain_floor(m, n, steps):
+    """K3's chain floor: each step sums n, then m, products one after the
+    other in a fixed order (phase 1, phase 2), and one more phase 1 ends
+    the run.  Returns (dependent adds, ms at 4 cycles an f32 add and the
+    card's largest SM clock)."""
+    adds = (steps + 1) * n + steps * m
+    return adds, adds * 4 / (card_max_sm_mhz() * 1e6) * 1e3
+
+
+_MAX_SM_MHZ = []
+
+
+def card_max_sm_mhz() -> float:
+    """The card's largest SM clock in MHz (``nvidia-smi``), read once."""
+    if not _MAX_SM_MHZ:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=60)
+        if smi.returncode != 0:
+            fail(f"nvidia-smi clocks.max.sm: {smi.stderr.strip()}")
+        _MAX_SM_MHZ.append(float(smi.stdout.split()[0]))
+    return _MAX_SM_MHZ[0]
 
 
 def kernel_row(name, source, replaces, launches, err, t_k, t_p, bnd):
@@ -638,11 +694,12 @@ def forced_stragglers(data, batch, device, say, card, lanes=16,
         f"certified, max resid {resid[conv].max():.3g} [{card}]")
 
 
-def screen_batch(B, m, n, seed, centre=0.1):
+def screen_batch(B, m, n, seed, centre=0.1, empty=True):
     """Seeded polyhedra l ≤ Ax ≤ u (no strict rows): A ~ N(0,1), bounds a
     random width around a centre of scale ``centre`` near the origin, ~30%
-    of the rows one-sided; every odd one made empty by two rows with the
-    same normal and bounds 2 apart.  Returns (polys, empty truth)."""
+    of the rows one-sided; with ``empty`` every odd one made empty by two
+    rows with the same normal and bounds 2 apart.  Returns (polys, empty
+    truth)."""
     import numpy as np
     from qpn_tpu_torch.geometry import Poly
     rng = np.random.default_rng(seed)
@@ -655,7 +712,7 @@ def screen_batch(B, m, n, seed, centre=0.1):
         low_open = one_sided & (rng.random(m) < 0.5)
         l = np.where(low_open, -np.inf, ax - w)
         u = np.where(one_sided & ~low_open, np.inf, ax + w)
-        if b % 2:
+        if empty and b % 2:
             A[1] = A[0]
             l[0], u[0] = ax[0] + 1.0, np.inf
             l[1], u[1] = -np.inf, ax[0] - 1.0
@@ -700,13 +757,17 @@ def compare_screen(polys, truth, device, say, card, label):
     t_p = device_timed(lambda: screen.screen_steps_torch(
         *ins, SCREEN_STEPS, SCREEN_LR), device)
     max_abs = float(dx.max())
+    bnd = screen_bound(ins, (xk, vk), SCREEN_STEPS)
+    adds, floor_ms = screen_chain_floor(m, n, SCREEN_STEPS)
     say(f"feasibility_screen {label} B={B} m={m} n={n} steps={SCREEN_STEPS}: "
         f"max |dx| {max_abs:.3g} ({xerr:.3g} of the scale), max |v| "
         f"{verr:.3g} relative, both <= {SCREEN_TOL}; witnessed "
         f"{int(wk.sum())} kernel, {int(wp.sum())} plain (margin "
         f"{SCREEN_MARGIN}); kernel {t_k * 1e3:.4f} ms, plain "
-        f"{t_p * 1e3:.4f} ms (median of {REPEATS}) [{card}]")
-    return max_abs, t_k, t_p, screen_bound(ins, (xk, vk), SCREEN_STEPS)
+        f"{t_p * 1e3:.4f} ms (median of {REPEATS}); bound {bnd[0]:.5f} ms by "
+        f"{bnd[1]}, chain floor {floor_ms:.4f} ms ({adds} dependent adds) "
+        f"[{card}]")
+    return max_abs, t_k, t_p, bnd
 
 
 def geometry_entry(polys, truth, device, say, card):
@@ -1237,13 +1298,15 @@ def lockstep_phase(device, say, card):
 def banded_phase(device, say, card):
     """Phase 16: benchmarks/banded_bench.py's sweep on the card, dense
     against banded x-update of ``solve_qp_batch``, then the automatic route
-    of ``solve_qp_batch_padded`` once.  The measured crossover is the
-    smallest block count from which the banded route was faster at every
-    larger count of the sweep, or 0 when the dense route won throughout;
-    the banded route is faster at a count when each of its 3 calls beat
-    each dense call, so that no single noisy call decides.  The phase
-    fails when the crossover differs from ``config.banded_min_blocks()``,
-    the value the port ships for the card."""
+    of ``solve_qp_batch_padded`` once.  At each block count T one route
+    wins only when each of its 3 calls beats each of the other's by the
+    factor BANDED_MARGIN; a smaller edge either way is a tie, and a tie
+    keeps the shipped value.  The measured crossover is the smallest T from
+    which the banded route won at every larger count of the sweep, or 0.
+    The phase fails when a crossover was measured and differs from
+    ``config.banded_min_blocks()``, the value the port ships for the card
+    (0, off: the banded route won by the margin from some T to the end of
+    the sweep)."""
     import numpy as np
     import torch
     from qpn_tpu_torch import config
@@ -1252,7 +1315,7 @@ def banded_phase(device, say, card):
     from qpn_tpu_torch.utils.metrics import METRICS
     rng = np.random.default_rng(0)
     B, k = 64, 6
-    rows, faster = [], []
+    rows, verdicts = [], []
     for T in (8, 16, 32, 64):
         n = T * k
         Ps, qs = [], []
@@ -1278,14 +1341,17 @@ def banded_phase(device, say, card):
         if not (bool((band.status == batch_qp.SOLVED).all()) and dx <= 1e-6):
             fail(f"banded T={T}: statuses {band.status.unique().tolist()}, x "
                  f"differs from the dense route's by {dx!r}")
+        verdict = ("banded" if max(all_b) * BANDED_MARGIN < min(all_d)
+                   else "dense" if max(all_d) * BANDED_MARGIN < min(all_b)
+                   else "tie")
         rows.append(f"T={T} n={n}: dense {t_d:.4f} s ({min(all_d):.4f}-"
                     f"{max(all_d):.4f}), banded {t_b:.4f} s ({min(all_b):.4f}"
-                    f"-{max(all_b):.4f}), {t_d / t_b:.2f}x, x within "
-                    f"{dx:.2g}")
-        faster.append((T, max(all_b) < min(all_d)))
+                    f"-{max(all_b):.4f}), dense / banded {t_d / t_b:.2f}, "
+                    f"{verdict}, x within {dx:.2g}")
+        verdicts.append((T, verdict))
     crossover = 0
-    for T, win in reversed(faster):
-        if not win:
+    for T, verdict in reversed(verdicts):
+        if verdict != "banded":
             break
         crossover = T
     # the automatic route once: detection on a 16-block trajectory batch,
@@ -1294,8 +1360,9 @@ def banded_phase(device, say, card):
     P, q, A, lo, hi = (a[:4, :96, :96] if a.ndim == 3 else a[:4, :96]
                        for a in (P, q, A, lo, hi))
     shipped = config.banded_min_blocks()
-    if crossover != shipped:
-        fail(f"banded crossover measured {crossover}, but the port ships "
+    if crossover not in (0, shipped):
+        fail(f"banded crossover measured {crossover} (a win by at least "
+             f"{BANDED_MARGIN}x), but the port ships "
              f"config.banded_min_blocks() = {shipped} for the card: "
              + "; ".join(rows))
     METRICS.reset()
@@ -1311,8 +1378,9 @@ def banded_phase(device, say, card):
              f"{sol.status.tolist()}")
     say(f"banded x-update B={B} k={k} solve_qp_batch, median of 3 warm "
         f"calls: " + "; ".join(rows) + f"; crossover "
-        f"{crossover or 'none (dense faster at every size)'}, equal to the "
-        f"shipped config.banded_min_blocks() = {shipped}; automatic route "
+        f"{crossover or 'none'} (a win needs {BANDED_MARGIN}x), consistent "
+        f"with the shipped config.banded_min_blocks() = {shipped}; automatic "
+        f"route "
         f"(solve_qp_batch_padded, 16 blocks, switched on for the call): "
         f"banded_route {routed} [{card}]")
 
@@ -1979,19 +2047,17 @@ def large_generic(device, say, card):
     return launches, row
 
 
-def midsize_screen(device, say, card):
-    """Phase 20 (d): is_empty_batch on polyhedra past shared memory, K3
-    against the plain loop and its host bits.  Returns (launches,
-    compare_screen's result)."""
+def screen_entry(polys, truth, label, device, say, card):
+    """is_empty_batch with the screen on for polyhedra past a block's
+    shared memory: the verdicts the truth, the launches of each K3
+    instance.  Returns them."""
     import numpy as np
-    import torch
     from qpn_tpu_torch.config import CONFIG
     from qpn_tpu_torch.geometry import is_empty_batch
     from qpn_tpu_torch.geometry.query_cache import CACHE
-    from qpn_tpu_torch.ops import screen, screen_cuda
+    from qpn_tpu_torch.ops import screen_cuda
     from qpn_tpu_torch.utils.metrics import METRICS
-    B, m, n = DOMAIN_SCREEN_B, DOMAIN_SCREEN_M, DOMAIN_SCREEN_N
-    polys, truth = screen_batch(B, m, n, SEED, centre=0.0)
+    B, m, n = len(polys), polys[0].m, polys[0].dim
     CONFIG.use_screen = True
     try:
         CACHE.clear()
@@ -1999,8 +2065,9 @@ def midsize_screen(device, say, card):
         t0 = time.perf_counter()
         verdict = is_empty_batch(polys)
         wall = time.perf_counter() - t0
-        launches = METRICS.launches[screen_cuda.KERNEL_GLOBAL]
-        shared = METRICS.launches[screen_cuda.KERNEL]
+        launches = {k: METRICS.launches[k] for k in (
+            screen_cuda.KERNEL, screen_cuda.KERNEL_CLUSTER,
+            screen_cuda.KERNEL_GLOBAL)}
         witnessed = int(METRICS.counters["screen_witnessed"])
         lps = int(METRICS.counters["lp_host"])
     finally:
@@ -2009,34 +2076,119 @@ def midsize_screen(device, say, card):
     if not np.array_equal(verdict, truth):
         fail(f"is_empty_batch {m} x {n}: {int((verdict != truth).sum())} "
              "verdicts differ from the truth")
-    if launches < 1 or shared != 0:
-        fail(f"is_empty_batch {m} x {n}: {launches} launches of K3's global "
-             f"instance, {shared} of the others")
-    say(f"geometry is_empty_batch B={B} m={m} n={n}: verdicts the truth "
-        f"({int(truth.sum())} empty), {launches} launch(es) of "
-        f"{screen_cuda.KERNEL_GLOBAL}, {witnessed} witnessed, {lps} host "
-        f"LPs, {wall:.3f} s [{card}]")
-    ins = [torch.as_tensor(a, device=device)
-           for a in screen.screen_prepare(polys)]
-    optin = screen_cuda.card_optin(device)
-    if screen_cuda.host_instance(m, n, optin) != screen_cuda.SCREEN_GLOBAL:
-        fail(f"K3: {m} x {n} does not take the global instance")
+    say(f"geometry is_empty_batch B={B} m={m} n={n} ({label}): verdicts the "
+        f"truth ({int(truth.sum())} empty), K3 launches {launches}, "
+        f"{witnessed} witnessed, {lps} host LPs, {wall:.3f} s [{card}]")
+    return launches
+
+
+def k3_host_bits(ins, label, say):
+    """K3 on the card (the instance the wrapper picks) against the bits of
+    its g++ host build under the card's limit (the cluster's ranks
+    emulated).  Fails where x stays at its start on some polyhedron: there
+    every step's sums would be of zeros, and the bits would check none."""
+    from qpn_tpu_torch.ops import screen_cuda
+    device = ins[0].device
+    instance, ranks = screen_cuda.card_instance(*ins[0].shape[1:], device)
     xk, vk = screen_cuda.feasibility_screen_cuda(*ins, SCREEN_STEPS,
                                                  SCREEN_LR)
-    xh, vh = screen_cuda.screen_steps_host(*(a.cpu() for a in ins),
-                                           SCREEN_STEPS, SCREEN_LR,
-                                           optin=optin)
-    host_bits("K3 global", [xk, vk], [xh, vh])
-    say(f"K3 global {m} x {n}: x and max |v| equal to the g++ host "
-        f"instance's bit for bit on {B} polyhedra")
-    return launches, compare_screen(polys, truth, device, say, card,
-                                    "past shared memory")
+    xh, vh = screen_cuda.screen_steps_host(
+        *(a.cpu() for a in ins), SCREEN_STEPS, SCREEN_LR,
+        optin=screen_cuda.card_optin(device))
+    host_bits(f"K3 {label}", [xk, vk], [xh, vh])
+    moved = (xk != ins[3]).any(1)
+    if not bool(moved.all()):
+        fail(f"K3 {label}: x stayed at its start on "
+             f"{int((~moved).sum())} of {len(moved)} polyhedra")
+    say(f"K3 {label} {tuple(ins[0].shape)} (instance {instance}, {ranks} "
+        f"block(s) a polyhedron): x moved on every polyhedron, x and max "
+        f"|v| equal to the g++ host instance's bit for bit")
+
+
+def k3_ab(polys, device, say, card):
+    """The A/B of phase 20 (d): K3's cluster instance, as the wrapper picks
+    it, against the global instance through the private launcher on the
+    same inputs: the same bits, both timed (median of REPEATS launches
+    between CUDA events).  Returns (cluster s, global s)."""
+    import torch
+    from qpn_tpu_torch.ops import screen, screen_cuda
+    ins = [torch.as_tensor(a, device=device)
+           for a in screen.screen_prepare(polys)]
+    B, m, n = ins[0].shape
+    instance, ranks = screen_cuda.card_instance(m, n, device)
+    if instance != screen_cuda.SCREEN_CLUSTER:
+        fail(f"K3 A/B: {m} x {n} does not take the cluster instance")
+
+    def cluster():
+        return screen_cuda.feasibility_screen_cuda(*ins, SCREEN_STEPS,
+                                                   SCREEN_LR)
+
+    def glob():
+        return screen_cuda._launch_global(*ins, SCREEN_STEPS, SCREEN_LR)
+
+    (xc, vc), (xg, vg) = cluster(), glob()
+    torch.cuda.synchronize(device)
+    if not (torch.equal(xc, xg) and torch.equal(vc, vg)):
+        fail(f"K3 A/B B={B} m={m} n={n}: the global instance differs from "
+             f"the cluster instance on {int((xc != xg).sum())} entries of x, "
+             f"{int((vc != vg).sum())} of max |v|")
+    t_c = device_timed(cluster, device)
+    t_g = device_timed(glob, device)
+    say(f"K3 A/B B={B} m={m} n={n}: global instance (private launcher) "
+        f"equal to the cluster instance ({ranks} blocks a polyhedron) bit "
+        f"for bit; cluster {t_c * 1e3:.4f} ms, global {t_g * 1e3:.4f} ms "
+        f"(median of {REPEATS}), global / cluster {t_g / t_c:.2f} [{card}]")
+    return t_c, t_g
+
+
+def midsize_screen(device, say, card):
+    """Phase 20 (d): is_empty_batch on polyhedra past a block's shared
+    memory in K3's cluster instance, K3 against its host bits and the plain
+    loop, the A/B against the global instance at B = 4 and 128; then the
+    global instance past the cluster's reach.  Returns the cluster's and
+    the global instance's (launches, compare_screen's result)."""
+    import torch
+    from qpn_tpu_torch.ops import screen, screen_cuda
+    B, m, n = DOMAIN_SCREEN_B, DOMAIN_SCREEN_M, DOMAIN_SCREEN_N
+    polys, truth = screen_batch(B, m, n, SEED, centre=0.0)
+    launches = screen_entry(polys, truth, "cluster", device, say, card)
+    if (launches[screen_cuda.KERNEL_CLUSTER] < 1
+            or sum(launches.values()) != launches[screen_cuda.KERNEL_CLUSTER]):
+        fail(f"is_empty_batch {m} x {n}: K3 launches {launches}, expected "
+             "the cluster instance's alone")
+    # the bits, the plain loop and the A/B on polyhedra off the origin,
+    # where x moves on all of them (centred on it, x stays at the start on
+    # the nonempty ones, and the empty ones' two rows cancel)
+    polys, truth = screen_batch(B, m, n, SEED + 1)
+    k3_host_bits([torch.as_tensor(a, device=device)
+                  for a in screen.screen_prepare(polys)], "cluster", say)
+    cluster = compare_screen(polys, truth, device, say, card,
+                             "cluster instance")
+    for ab in (B, SCREEN_AB_B):
+        k3_ab(screen_batch(ab, m, n, SEED + 1)[0], device, say, card)
+    # past the cluster's reach: the main path on polyhedra the screen
+    # witnesses at its start (no host LP), then the comparisons on polyhedra
+    # off the origin
+    B, m, n = DOMAIN_SCREEN_B, *SCREEN_GLOBAL_MN
+    polys, truth = screen_batch(B, m, n, SEED, centre=0.0, empty=False)
+    glaunches = screen_entry(polys, truth, "global", device, say, card)
+    if (glaunches[screen_cuda.KERNEL_GLOBAL] < 1
+            or sum(glaunches.values()) != glaunches[screen_cuda.KERNEL_GLOBAL]):
+        fail(f"is_empty_batch {m} x {n}: K3 launches {glaunches}, expected "
+             "the global instance's alone")
+    polys, truth = screen_batch(B, m, n, SEED)
+    k3_host_bits([torch.as_tensor(a, device=device)
+                  for a in screen.screen_prepare(polys)], "global", say)
+    glob = compare_screen(polys, truth, device, say, card,
+                          "past the cluster's reach")
+    return ((launches[screen_cuda.KERNEL_CLUSTER], cluster),
+            (glaunches[screen_cuda.KERNEL_GLOBAL], glob))
 
 
 def domain_phase(device, say, card):
     """Phase 20: the kernels' instances for lanes past a block's shared
     memory on the normal entry points.  Returns the kernel rows of the JSON
-    line: K1 and K2 cluster and global, K3 global."""
+    line: K1, K2 and K3 cluster and global."""
     import torch
     from qpn_tpu_torch.ops import eg_cuda, lemke_cuda, screen_cuda
     rows = {}
@@ -2069,8 +2221,9 @@ def domain_phase(device, say, card):
     rows["k2c"] = (eg_cuda.KERNEL_CLUSTER, launches, *k2c)
     launches, k2g = large_generic(device, say, card)
     rows["k2g"] = (eg_cuda.KERNEL_GLOBAL, launches, *k2g)
-    launches, (err, t_k, t_p, bnd) = midsize_screen(device, say, card)
-    rows["k3g"] = (screen_cuda.KERNEL_GLOBAL, launches, err, t_k, t_p, bnd)
+    (lc, k3c), (lg, k3g) = midsize_screen(device, say, card)
+    rows["k3c"] = (screen_cuda.KERNEL_CLUSTER, lc, *k3c)
+    rows["k3g"] = (screen_cuda.KERNEL_GLOBAL, lg, *k3g)
     sources = {"k1": ("qpn_tpu_torch/csrc/lemke_pivot.cu",
                       "qpn_tpu/ops/lemke_pallas.py:118"),
                "k2": ("qpn_tpu_torch/csrc/eg_warmstart.cu",

@@ -129,10 +129,13 @@ def screen_enabled() -> bool:
 def banded_min_blocks() -> int:
     """Minimum block count for the automatic banded route on
     ``CONFIG.device``; 0 when the route is off there.  It is off on the
-    card, where the dense x-update was faster at every block count measured
-    (chip_smoke.py phase 16, B=64, k=6, T=8..64, which fails when its
-    crossover differs from this value); an explicit banded_k still takes
-    the banded route."""
+    card, where the banded x-update won at no block count measured
+    (chip_smoke.py phase 16, B=64, k=6, T=8..64: the dense route won below
+    T=64, and the two tie at T=64).  Phase 16 counts a block count as a
+    banded win only when each banded call beats each dense call by 1.25
+    times; a smaller edge either way is a tie, which keeps this value.  It
+    fails when the banded route wins from some T to the end of the sweep
+    while this is 0.  An explicit banded_k still takes the banded route."""
     if CONFIG.device.startswith("cuda"):
         return 0
     return CONFIG.banded_min_blocks_cpu

@@ -12,15 +12,21 @@ instance from the shape alone (``csrc/screen_lane.cuh::screen_instance``
 against the card's shared-memory opt-in limit): one polyhedron in a warp
 with A in registers up to 32 rows and columns, else a thread block per
 polyhedron with A in shared memory, both counted in
-``METRICS.launches["feasibility_screen"]``; or, where A does not fit (m = n
-above 238 on an H100), a thread block per polyhedron with A read in place
-from device memory, counted in
+``METRICS.launches["feasibility_screen"]``; where A does not fit (m = n
+above 238 on an H100), a polyhedron spread over a thread-block cluster of
+2-8 blocks (``screen_cluster_ranks``: the fewest whose bands of A fit; m =
+n up to 473), counted in ``METRICS.launches["feasibility_screen_cluster"]``;
+past that, a thread block per polyhedron with A in device memory (read in
+place, and from a column-major copy the kernel writes at its start into a
+workspace allocated here), counted in
 ``METRICS.launches["feasibility_screen_global"]``.  There is no launch
-option.  The kernel is built with nvcc on first use
-(``utils/cuda_build.py``) and launched on the current stream.
+option.  A launch the card refuses raises ``RuntimeError`` with CUDA's
+message; no other instance is tried.  The kernel is built with nvcc on first
+use (``utils/cuda_build.py``) and launched on the current stream.
 
 :func:`screen_steps_host` runs the same lane code built with g++ on CPU
-tensors — the CPU tests' window on the kernel's logic.
+tensors — the CPU tests' window on the kernel's logic — with the cluster's
+ranks emulated.
 """
 
 from __future__ import annotations
@@ -36,8 +42,12 @@ from ..utils.metrics import METRICS
 
 KERNEL = "feasibility_screen"
 KERNEL_GLOBAL = "feasibility_screen_global"
+KERNEL_CLUSTER = "feasibility_screen_cluster"
+_HEADERS = ["screen_lane.cuh"]
 # csrc/screen_lane.cuh::screen_instance
-SCREEN_WARP, SCREEN_SHARED, SCREEN_GLOBAL = 0, 1, 2
+SCREEN_WARP, SCREEN_SHARED, SCREEN_GLOBAL, SCREEN_CLUSTER = 0, 1, 2, 3
+_COUNTED = {SCREEN_WARP: KERNEL, SCREEN_SHARED: KERNEL,
+            SCREEN_GLOBAL: KERNEL_GLOBAL, SCREEN_CLUSTER: KERNEL_CLUSTER}
 _PARAMS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float]
 _CUDA_LIB: Optional[ctypes.CDLL] = None
 _HOST_LIB: Optional[ctypes.CDLL] = None
@@ -46,10 +56,15 @@ _HOST_LIB: Optional[ctypes.CDLL] = None
 def _cuda_lib() -> ctypes.CDLL:
     global _CUDA_LIB
     if _CUDA_LIB is None:
-        lib = load_cuda_library(KERNEL, ["screen.cu"], ["screen_lane.cuh"])
-        for fn in (lib.qpn_screen_f32, lib.qpn_screen_global_f32):
-            fn.restype = ctypes.c_int
-            fn.argtypes = _PARAMS + [ctypes.c_void_p]
+        lib = load_cuda_library(KERNEL, ["screen.cu"],
+                                [*_HEADERS, "cluster_launch.cuh"])
+        lib.qpn_screen_f32.restype = ctypes.c_int
+        lib.qpn_screen_f32.argtypes = _PARAMS + [ctypes.c_void_p]
+        lib.qpn_screen_cluster_f32.restype = ctypes.c_int
+        lib.qpn_screen_cluster_f32.argtypes = _PARAMS + [ctypes.c_int,
+                                                         ctypes.c_void_p]
+        lib.qpn_screen_global_f32.restype = ctypes.c_int
+        lib.qpn_screen_global_f32.argtypes = _PARAMS + [ctypes.c_void_p] * 2
         _instance_function(lib)
         lib.qpn_screen_smem_optin.restype = ctypes.c_longlong
         lib.qpn_screen_smem_optin.argtypes = []
@@ -63,20 +78,33 @@ def _host_lib() -> ctypes.CDLL:
     global _HOST_LIB
     if _HOST_LIB is None:
         lib = load_host_library("screen_lane_host", ["screen_lane_host.cpp"],
-                                ["screen_lane.cuh"])
+                                _HEADERS)
         lib.qpn_screen_host_f32.restype = None
-        lib.qpn_screen_host_f32.argtypes = _PARAMS + [ctypes.c_longlong]
+        lib.qpn_screen_host_f32.argtypes = _PARAMS + [ctypes.c_longlong,
+                                                      ctypes.c_int]
         lib.qpn_screen_host_generic_f32.restype = None
         lib.qpn_screen_host_generic_f32.argtypes = _PARAMS
+        lib.qpn_screen_cluster_bytes.restype = ctypes.c_longlong
+        lib.qpn_screen_cluster_bytes.argtypes = [ctypes.c_int] * 3
         _instance_function(lib)
         _HOST_LIB = lib
     return _HOST_LIB
 
 
 def _instance_function(lib: ctypes.CDLL) -> None:
-    lib.qpn_screen_instance.restype = ctypes.c_int
-    lib.qpn_screen_instance.argtypes = [ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_longlong]
+    for fn in (lib.qpn_screen_instance, lib.qpn_screen_cluster_ranks):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
+
+
+def _pick(lib: ctypes.CDLL, m: int, n: int, optin: int) -> tuple[int, int]:
+    """(instance, ranks) that ``lib``'s pure choice gives polyhedra of ``m``
+    rows in dimension ``n`` under ``optin``: ranks 1 but in the cluster
+    instance."""
+    instance = lib.qpn_screen_instance(m, n, optin)
+    if instance == SCREEN_CLUSTER:
+        return instance, lib.qpn_screen_cluster_ranks(m, n, optin)
+    return instance, 1
 
 
 def card_optin(device: torch.device) -> int:
@@ -84,6 +112,12 @@ def card_optin(device: torch.device) -> int:
     the kernel library reads it (the limit the instance is picked by)."""
     lib = _cuda_lib()
     return smem_optin(lib.qpn_screen_smem_optin, device)
+
+
+def card_instance(m: int, n: int, device: torch.device) -> tuple[int, int]:
+    """(instance, ranks) that the launcher picks for polyhedra of ``m`` rows
+    in dimension ``n`` on the CUDA ``device``."""
+    return _pick(_cuda_lib(), int(m), int(n), card_optin(device))
 
 
 def build() -> None:
@@ -126,10 +160,39 @@ def feasibility_screen_cuda(A, l, u, x0, steps: int, lr: float):
     """Run ``steps`` screen steps of every polyhedron in the CUDA kernel (one
     launch).  A (B,m,n) row-normalised; l/u (B,m); x0 (B,n); all f32 on one
     CUDA device.  Returns (x (B,n), max |v| (B,))."""
+    _check_cuda(A, l, u, x0, steps)
+    B, m, n = A.shape
+    instance, ranks = ((SCREEN_SHARED, 1) if B == 0 or m == 0 or n == 0
+                       else card_instance(m, n, A.device))
+    return _run(A, l, u, x0, steps, lr, instance, ranks)
+
+
+def _launch_global(A, l, u, x0, steps: int, lr: float):
+    """One launch of the global instance at any shape, counted under its
+    name.  :func:`feasibility_screen_cuda` picks the instance from the
+    shape; ``chip_smoke.py`` and the GPU tests call this to hold the global
+    instance against the cluster instance at the cluster's shapes."""
+    _check_cuda(A, l, u, x0, steps)
+    return _run(A, l, u, x0, steps, lr, SCREEN_GLOBAL, 1)
+
+
+def _launch_cluster(A, l, u, x0, steps: int, lr: float, ranks: int):
+    """One launch of the cluster instance over ``ranks`` blocks a
+    polyhedron, counted under its name: the GPU tests ask for a size the
+    card refuses."""
+    _check_cuda(A, l, u, x0, steps)
+    return _run(A, l, u, x0, steps, lr, SCREEN_CLUSTER, ranks)
+
+
+def _check_cuda(A, l, u, x0, steps) -> None:
     if A.device.type != "cuda":
         raise ValueError("feasibility_screen_cuda takes CUDA tensors; CPU "
                          "tensors go to screen.screen_steps_torch")
     _check(A, l, u, x0, steps)
+
+
+def _run(A, l, u, x0, steps: int, lr: float, instance: int, ranks: int):
+    """The launch of every entry point, on inputs they have checked."""
     B, m, n = A.shape
     x_out = torch.empty_like(x0)
     v_out = torch.empty(B, dtype=torch.float32, device=A.device)
@@ -139,30 +202,42 @@ def feasibility_screen_cuda(A, l, u, x0, steps: int, lr: float):
         raise ValueError(f"screen kernel: polyhedra of shape {(m, n)}; the "
                          "caller gives every polyhedron at least one row")
     lib = _cuda_lib()
+    args = _args(A, l, u, x0, x_out, v_out, steps, lr)
     stream = torch.cuda.current_stream(A.device).cuda_stream
     with torch.cuda.device(A.device):
-        instance = lib.qpn_screen_instance(m, n, card_optin(A.device))
-        fn = (lib.qpn_screen_global_f32 if instance == SCREEN_GLOBAL
-              else lib.qpn_screen_f32)
-        rc = fn(*_args(A, l, u, x0, x_out, v_out, steps, lr), stream)
+        if instance == SCREEN_GLOBAL:
+            # each polyhedron's column-major copy of A, which the kernel
+            # writes and reads
+            mt = torch.empty(B * m * n, dtype=torch.float32, device=A.device)
+            rc = lib.qpn_screen_global_f32(*args, mt.data_ptr(), stream)
+        elif instance == SCREEN_CLUSTER:
+            rc = lib.qpn_screen_cluster_f32(*args, int(ranks), stream)
+        elif instance in (SCREEN_WARP, SCREEN_SHARED):
+            rc = lib.qpn_screen_f32(*args, stream)
+        else:
+            raise ValueError(f"screen kernel: no instance {instance}")
     if rc != 0:
         raise RuntimeError("screen kernel launch failed: "
                            + lib.qpn_screen_error_string(rc).decode())
-    METRICS.launched(KERNEL_GLOBAL if instance == SCREEN_GLOBAL else KERNEL)
+    METRICS.launched(_COUNTED[instance])
     return x_out, v_out
 
 
 def screen_steps_host(A, l, u, x0, steps: int, lr: float,
-                      generic: bool = False, optin: int = HOPPER_SMEM_OPTIN):
+                      generic: bool = False, optin: int = HOPPER_SMEM_OPTIN,
+                      ranks: Optional[int] = None):
     """The kernels' lane code built for the host, on CPU tensors: the
     instance the card's launcher would pick for this shape under the opt-in
     limit ``optin`` (an H100's by default; the warp instance up to 32 rows
-    and columns, A carved into the working set or read in place beyond),
-    or with ``generic`` the generic instance with A in the working set at
-    any shape."""
+    and columns, A carved into the working set, spread over a cluster's
+    ranks, or in device memory beyond), with ``ranks`` the cluster instance
+    over that many ranks whatever the shape, or with ``generic`` the shared
+    instance with A in the working set at any shape."""
     if A.device.type != "cpu":
         raise ValueError("screen_steps_host takes CPU tensors")
     _check(A, l, u, x0, steps)
+    if ranks is not None and ranks < 1:
+        raise ValueError(f"screen_steps_host: ranks={ranks} < 1")
     B, m, n = A.shape
     x_out = torch.empty_like(x0)
     v_out = torch.empty(B, dtype=torch.float32)
@@ -171,13 +246,27 @@ def screen_steps_host(A, l, u, x0, steps: int, lr: float,
     if generic:
         lib.qpn_screen_host_generic_f32(*args)
     else:
-        lib.qpn_screen_host_f32(*args, int(optin))
+        lib.qpn_screen_host_f32(*args, int(optin),
+                                0 if ranks is None else int(ranks))
     return x_out, v_out
 
 
 def host_instance(m: int, n: int, optin: int) -> int:
     """The instance the launcher picks for polyhedra of ``m`` rows in
     dimension ``n`` under the opt-in limit ``optin`` in bytes (SCREEN_WARP,
-    SCREEN_SHARED or SCREEN_GLOBAL), from the kernel's header built for the
-    host."""
+    SCREEN_SHARED, SCREEN_CLUSTER or SCREEN_GLOBAL), from the kernel's
+    header built for the host."""
     return _host_lib().qpn_screen_instance(int(m), int(n), int(optin))
+
+
+def host_cluster_ranks(m: int, n: int, optin: int) -> int:
+    """The blocks of the cluster instance's polyhedron of ``m`` rows in
+    dimension ``n`` under the opt-in limit ``optin`` (0: no cluster of at
+    most 8 holds it), from the kernel's header built for the host."""
+    return _host_lib().qpn_screen_cluster_ranks(int(m), int(n), int(optin))
+
+
+def host_cluster_bytes(m: int, n: int, ranks: int) -> int:
+    """Bytes of one rank's part of a polyhedron of ``m`` rows in dimension
+    ``n`` spread over ``ranks`` blocks, from the kernel's header."""
+    return _host_lib().qpn_screen_cluster_bytes(int(m), int(n), int(ranks))

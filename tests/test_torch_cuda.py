@@ -182,8 +182,8 @@ def test_cluster_instance_against_plain_loop_host_and_global(
 @pytest.mark.gpu
 def test_a_refused_cluster_launch_raises(cuda_device):
     """A cluster of 16 blocks is past the portable size the kernels do not
-    opt out of: the card refuses the launch and both wrappers raise with
-    CUDA's message, without running another instance."""
+    opt out of: the card refuses the launch and the three wrappers raise
+    with CUDA's message, without running another instance."""
     from qpn_tpu_torch.ops import lemke_cuda
     t = _data(cuda_device, S=4)
     init = lemke.lemke_setup(*(t[k].float() for k in
@@ -197,14 +197,21 @@ def test_a_refused_cluster_launch_raises(cuda_device):
     with pytest.raises(RuntimeError, match="launch failed"):
         eg_cuda._launch(p.M, p.q, p.l, p.u, p.z0, p.tau, 10,
                         instance=eg_cuda.EG_CLUSTER, ranks=16)
+    polys, _ = _screen_polys(4, 260, 240, seed=4)
+    ins = [torch.as_tensor(a, device=cuda_device)
+           for a in screen.screen_prepare(polys)]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        screen_cuda._launch_cluster(*ins, 10, 0.05, ranks=16)
     torch.cuda.synchronize()
     assert sum(METRICS.launches.values()) == 0
     # the refusal leaves no error behind for the next launches to report
     lemke_pivot_cuda(init, max_pivots=64, **HOT)
     eg_cuda.eg_warmstart_cuda(p.M, p.q, p.l, p.u, p.z0, p.tau, 10)
+    screen_cuda.feasibility_screen_cuda(*ins, 10, 0.05)
     torch.cuda.synchronize()
     assert METRICS.launches[KERNEL] == 1
     assert METRICS.launches[eg_cuda.KERNEL_CLUSTER] == 1
+    assert METRICS.launches[screen_cuda.KERNEL_CLUSTER] == 1
 
 
 @pytest.mark.gpu
@@ -607,11 +614,11 @@ def test_screen_kernel_bits_match_its_host_instance(cuda_device, m, n):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("bad", [float("nan"), float("inf"), -float("inf")])
-@pytest.mark.parametrize("m,n", [(9, 8), (18, 18), (33, 5)])
+@pytest.mark.parametrize("m,n", [(9, 8), (18, 18), (33, 5), (260, 240)])
 def test_screen_kernel_nan_and_inf_as_its_host_instance(cuda_device, m, n,
                                                         bad):
     """A NaN or infinite start entry: NaN where the host instance has NaN,
-    its bits elsewhere."""
+    its bits elsewhere (260 x 240: the cluster instance)."""
     cpu = _ragged_screen(5, m, n, seed=7)
     cpu[3][1, n - 1] = bad
     xk, vk = screen_cuda.feasibility_screen_cuda(
@@ -640,16 +647,69 @@ def test_screen_kernel_keeps_nan(cuda_device):
 def test_screen_kernel_takes_a_block_too_large_for_shared_memory(
         cuda_device):
     """Polyhedra of 260 rows in dimension 240 (A of 245 KB with its odd
-    stride) run in the global instance: one launch counted under its name,
-    the host instance's bits, the plain loop within 1e-4 (relative)."""
+    stride) run in the cluster instance (3 blocks a polyhedron on an H100):
+    one launch counted under its name, the bits of the host emulation of
+    those ranks and of the global instance (the private launcher), the
+    plain loop within 1e-4 (relative)."""
     polys, _ = _screen_polys(4, 260, 240, seed=4)
     prob = screen.screen_prepare(polys)
     ins = [torch.as_tensor(a, device=cuda_device) for a in prob]
+    instance, ranks = screen_cuda.card_instance(260, 240, cuda_device)
+    assert instance == screen_cuda.SCREEN_CLUSTER and ranks >= 2
+    METRICS.reset()
+    xk, vk = screen_cuda.feasibility_screen_cuda(*ins, 120, 0.05)
+    torch.cuda.synchronize()
+    assert METRICS.launches[screen_cuda.KERNEL_CLUSTER] == 1
+    assert METRICS.launches[screen_cuda.KERNEL_GLOBAL] == 0
+    assert METRICS.launches[screen_cuda.KERNEL] == 0
+    xh, vh = screen_cuda.screen_steps_host(
+        *(a.cpu() for a in ins), 120, 0.05,
+        optin=screen_cuda.card_optin(cuda_device))
+    assert torch.equal(xk.cpu(), xh) and torch.equal(vk.cpu(), vh)
+    xg, vg = screen_cuda._launch_global(*ins, 120, 0.05)
+    torch.cuda.synchronize()
+    assert torch.equal(xk, xg) and torch.equal(vk, vg)
+    xp, vp = screen.screen_steps_torch(*ins, 120, 0.05)
+    assert float(((xk - xp).abs().amax(1)
+                  / (1.0 + xp.abs().amax(1))).max()) <= 1e-4
+    assert float(((vk - vp).abs() / (1.0 + vp)).max()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ranks", [2, 8], ids=["R2", "R8"])
+def test_screen_cluster_instance_at_other_sizes(cuda_device, ranks):
+    """The cluster instance at 2 and 8 blocks a polyhedron through the
+    private launcher (where one rank fits the card: 2 at 120 rows in
+    dimension 100, 8 at 260 x 240): the bits of the host emulation of those
+    ranks, and of the picked instance."""
+    m, n = (120, 100) if ranks == 2 else (260, 240)
+    cpu = _ragged_screen(9, m, n, seed=ranks)
+    ins = [a.to(cuda_device) for a in cpu]
+    METRICS.reset()
+    xk, vk = screen_cuda._launch_cluster(*ins, 120, 0.05, ranks=ranks)
+    torch.cuda.synchronize()
+    assert METRICS.launches[screen_cuda.KERNEL_CLUSTER] == 1
+    xh, vh = screen_cuda.screen_steps_host(*cpu, 120, 0.05, ranks=ranks)
+    assert torch.equal(xk.cpu(), xh) and torch.equal(vk.cpu(), vh)
+    xs, vs = screen_cuda.feasibility_screen_cuda(*ins, 120, 0.05)
+    assert torch.equal(xk, xs) and torch.equal(vk, vs)
+
+
+@pytest.mark.gpu
+def test_screen_global_instance_past_the_cluster_reach(cuda_device):
+    """Polyhedra of 520 rows in dimension 500, past a cluster of 8 blocks:
+    the global instance, one launch counted under its name, the bits of
+    its host build, the plain loop within 1e-4 (relative)."""
+    polys, _ = _screen_polys(2, 520, 500, seed=5)
+    ins = [torch.as_tensor(a, device=cuda_device)
+           for a in screen.screen_prepare(polys)]
+    assert screen_cuda.card_instance(520, 500, cuda_device) == (
+        screen_cuda.SCREEN_GLOBAL, 1)
     METRICS.reset()
     xk, vk = screen_cuda.feasibility_screen_cuda(*ins, 120, 0.05)
     torch.cuda.synchronize()
     assert METRICS.launches[screen_cuda.KERNEL_GLOBAL] == 1
-    assert METRICS.launches[screen_cuda.KERNEL] == 0
+    assert sum(METRICS.launches.values()) == 1
     xh, vh = screen_cuda.screen_steps_host(*(a.cpu() for a in ins), 120,
                                            0.05)
     assert torch.equal(xk.cpu(), xh) and torch.equal(vk.cpu(), vh)

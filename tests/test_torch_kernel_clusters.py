@@ -1,5 +1,6 @@
-"""The cluster instances of K1 (``csrc/lemke_lane.cuh``) and K2
-(``csrc/eg_lane.cuh``), through their host emulation.
+"""The cluster instances of K1 (``csrc/lemke_lane.cuh``), K2
+(``csrc/eg_lane.cuh``) and K3 (``csrc/screen_lane.cuh``), through their host
+emulation.
 
 A lane that does not fit one block's shared memory is spread over a cluster
 of R blocks: rank k holds a band of the lane's rows, and the phases read
@@ -9,12 +10,15 @@ points where the card's ranks meet at the cluster's barrier.  Each rank's
 sums walk the same order as one block's, so the emulation at any R gives
 the bits of the host instance at R = 1 (the shared and global instances'
 lane code): status, pivots, basis, nonbasic values and basic values for
-K1, z for K2.  At R = 2, K1 also lands where the JAX package's KKT solve
-does on the same numpy inputs.
+K1, z for K2, x and max |v| for K3 (whose rank k also holds a band of A's
+columns for phase 2).  At R = 2, K1 also lands where the JAX package's KKT
+solve does on the same numpy inputs, and at R = 3 K3 where the JAX
+package's Pallas screen does in interpret mode.
 
 Lanes: a few of robust_avoid's ensembles at num_obj=2, seed 0 (T=4, 5: n =
 152, 190 for K1 in f32 at the hot route's tolerances and n = 152 in f64 at
-the re-pivot's; T=8: n = 304 for K2, 300 steps).
+the re-pivot's; T=8: n = 304 for K2, 300 steps); for K3, 4 seeded
+polyhedra of 260 rows in dimension 240 (every second one empty), 120 steps.
 """
 
 import functools
@@ -25,12 +29,17 @@ import torch
 
 from qpn_tpu_torch.config import CONFIG
 from qpn_tpu_torch.models.robust_avoid import scenario_batch_gavis
-from qpn_tpu_torch.ops import eg, eg_cuda, lemke, lemke_cuda
+from qpn_tpu_torch.ops import eg, eg_cuda, lemke, lemke_cuda, screen
+from qpn_tpu_torch.ops import screen_cuda
 from qpn_tpu_torch.utils.cuda_build import HOPPER_SMEM_OPTIN
 
 HOT = dict(tol=1e-6, piv_tol=1e-5, max_pivots=1024)
 F64 = dict(tol=1e-11, piv_tol=1e-11, max_pivots=1024)
 JAX_Z_TOL = 1e-8
+# K3 against the JAX package's screen (tests/test_torch_screen.py): f32
+# sums in another order, a few ulps a step over 120 contracting steps
+SCREEN_TOL = 1e-5
+SCREEN_STEPS, SCREEN_LR = 120, 0.05
 PICKED = None              # the ranks the launcher picks at an H100's limit
 
 
@@ -129,3 +138,111 @@ def test_a_lane_needs_at_least_one_rank():
                       torch.ones(1, 3, dtype=torch.bool))
     with pytest.raises(ValueError, match="ranks"):
         eg_cuda.eg_steps_host(p.M, p.q, p.l, p.u, p.z0, p.tau, 1, ranks=0)
+
+
+# --- K3 ---------------------------------------------------------------------
+
+def _k3_polys(P, B=4, m=260, n=240, seed=0):
+    """Seeded polyhedra of the class ``P`` (the port's or the JAX
+    package's Poly) without strict rows around a centre of scale 0.1,
+    ~30 % of the rows one-sided, every odd one empty by two rows with one
+    normal and bounds 2 apart."""
+    rng = np.random.default_rng(seed)
+    polys = []
+    for b in range(B):
+        A = rng.standard_normal((m, n))
+        ax = A @ (0.1 * rng.standard_normal(n))
+        w = 0.5 + rng.random(m)
+        l, u = ax - w, ax + w
+        u[rng.random(m) < 0.3] = np.inf
+        if b % 2:
+            A[1] = A[0]
+            l[0], u[0] = ax[0] + 1.0, np.inf
+            l[1], u[1] = -np.inf, ax[0] - 1.0
+        polys.append(P(A, l, u, normalize=False, dedupe=False))
+    return polys
+
+
+@functools.lru_cache(maxsize=None)
+def _k3_inputs():
+    from qpn_tpu_torch.geometry import Poly
+    return tuple(torch.as_tensor(a) for a in
+                 screen.screen_prepare(_k3_polys(Poly)))
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, NaN where the other has NaN."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+@pytest.mark.parametrize("ranks", [2, 3, 8], ids=["R2", "R3", "R8"])
+def test_k3_cluster_emulation_gives_the_host_instance_bits(ranks):
+    """The emulation of R ranks, picked by the launcher's rule under a
+    limit (an H100's picks R = 3 at 260 x 240; a limit that just holds a
+    rank at R = 2 or at 8 picks those) and forced by ``ranks``: x and max
+    |v| of the one-block host instance, bit for bit."""
+    ins = _k3_inputs()
+    optin = (HOPPER_SMEM_OPTIN if ranks == 3
+             else screen_cuda.host_cluster_bytes(260, 240, ranks))
+    assert screen_cuda.host_instance(260, 240, optin) == (
+        screen_cuda.SCREEN_CLUSTER)
+    assert screen_cuda.host_cluster_ranks(260, 240, optin) == ranks
+    one = screen_cuda.screen_steps_host(*ins, SCREEN_STEPS, SCREEN_LR,
+                                        generic=True)
+    assert bool(torch.isfinite(one[0]).all())
+    for kw in (dict(optin=optin), dict(ranks=ranks)):
+        x, v = screen_cuda.screen_steps_host(*ins, SCREEN_STEPS, SCREEN_LR,
+                                             **kw)
+        assert torch.equal(x, one[0]) and torch.equal(v, one[1]), kw
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf"), -float("inf")],
+                         ids=["nan", "inf", "-inf"])
+def test_k3_cluster_emulation_keeps_nan_and_inf(bad):
+    """A NaN or an infinity in l and in u at a small shape (40 rows in
+    dimension 36, 3 ranks; infinite bounds are also the one-sided rows):
+    NaN where the one-block host instance has NaN, its bits elsewhere."""
+    from qpn_tpu_torch.geometry import Poly
+    A, l, u, x0 = (torch.as_tensor(a) for a in screen.screen_prepare(
+        _k3_polys(Poly, B=4, m=40, n=36, seed=3)))
+    l[1, 5] = bad
+    u[2, 7] = bad
+    one = screen_cuda.screen_steps_host(A, l, u, x0, 10, SCREEN_LR,
+                                        generic=True)
+    spread = screen_cuda.screen_steps_host(A, l, u, x0, 10, SCREEN_LR,
+                                           ranks=3)
+    if bad != bad:
+        assert bool(torch.isnan(one[1][1])) and bool(torch.isnan(one[1][2]))
+    for a, b in zip(spread, one):
+        assert _same_bits(a, b)
+
+
+def test_k3_cluster_emulation_matches_the_jax_package(monkeypatch):
+    """The emulation at R = 3 (the pick at 260 x 240 on an H100) against
+    the JAX package's screen, its Pallas kernel in interpret mode, on the
+    same numpy polyhedra: x within 1e-5 of 1 + max |x|, max |v| within 1e-5
+    relative, the same polyhedra witnessed outside the margin band."""
+    from qpn_tpu.geometry.poly import Poly as RefPoly
+    from qpn_tpu_torch.geometry import Poly
+    from test_torch_screen import _reference
+    w_ref, x_ref, v_ref, _ = _reference(monkeypatch, _k3_polys(RefPoly))
+    assert screen_cuda.host_cluster_ranks(260, 240, HOPPER_SMEM_OPTIN) == 3
+
+    def run(*args, **kw):
+        return screen_cuda.screen_steps_host(*args, **kw, ranks=3)
+
+    x, v = run(*_k3_inputs(), steps=SCREEN_STEPS, lr=SCREEN_LR)
+    x, v = x.numpy(), v.numpy()
+    scale = 1.0 + np.abs(x_ref).max(axis=1, keepdims=True)
+    assert (np.abs(x - x_ref) / scale).max() <= SCREEN_TOL
+    assert (np.abs(v - v_ref) / (1.0 + v_ref)).max() <= SCREEN_TOL
+    w, _ = screen.feasibility_screen(_k3_polys(Poly), engine=run)
+    near = np.abs(v_ref - 1e-3) <= SCREEN_TOL * (1 + 1e-3)
+    assert not ((w != w_ref) & ~near).any()
+
+
+def test_k3_host_ranks_must_be_positive():
+    ins = _k3_inputs()
+    with pytest.raises(ValueError, match="ranks"):
+        screen_cuda.screen_steps_host(*ins, 1, SCREEN_LR, ranks=0)

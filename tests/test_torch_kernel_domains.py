@@ -5,10 +5,10 @@ Each kernel has an instance whose working set lives in a block's shared
 memory, and one for lanes that do not fit the block's opt-in limit (232448
 bytes on an H100), whose large array stays in device memory: K1's tableau
 (``csrc/lemke_lane.cuh``), K2's M (``csrc/eg_lane.cuh``), K3's A
-(``csrc/screen_lane.cuh``).  Between the two, K1 and K2 spread a lane over
+(``csrc/screen_lane.cuh``).  Between the two, each kernel spreads a lane over
 the shared memory of a cluster of 2-8 blocks (``lane_cluster_ranks``,
-``eg_cluster_ranks``: the fewest ranks whose bands fit); past 8 ranks the
-device-memory instance takes the lane.  The choice is a pure function of
+``eg_cluster_ranks``, ``screen_cluster_ranks``: the fewest ranks whose bands
+fit); past 8 ranks the device-memory instance takes the lane.  The choice is a pure function of
 the shape and the limit, built here with g++ from the kernels' headers; the
 tests pin its boundaries.  The g++ host instances run the lane code of the instance the
 launcher picks, on a lane carved as that instance carves it; at the new
@@ -20,8 +20,9 @@ contract:
   z after the f64 refactorization within 1e-10;
 * K2 (n = 239, 304): z within 1e-5 of the lane scale after 300 steps (f32
   sums in another order), as ``test_torch_eg.py``;
-* K3 (260 rows in dimension 240): x within 1e-5 of its scale and max |v|
-  within 1e-5 relative, as ``test_torch_screen.py``.
+* K3 (260 rows in dimension 240, the global instance forced; 520 rows in
+  dimension 500): x within 1e-5 of its scale and max |v| within 1e-5
+  relative, as ``test_torch_screen.py``.
 
 Where the card holds a large array in device memory or in shared memory,
 the sums are the same: both carvings give the same bits.
@@ -201,10 +202,38 @@ def test_k2_global_band_switch(n, ranks, optin, fits):
 @pytest.mark.parametrize("m,n,want", [
     (18, 18, screen_cuda.SCREEN_WARP), (32, 32, screen_cuda.SCREEN_WARP),
     (33, 33, screen_cuda.SCREEN_SHARED), (238, 238, screen_cuda.SCREEN_SHARED),
-    (239, 239, screen_cuda.SCREEN_GLOBAL),
-    (260, 240, screen_cuda.SCREEN_GLOBAL)])
+    (239, 239, screen_cuda.SCREEN_CLUSTER),
+    (260, 240, screen_cuda.SCREEN_CLUSTER),
+    (473, 473, screen_cuda.SCREEN_CLUSTER),
+    (474, 474, screen_cuda.SCREEN_GLOBAL),
+    (937, 240, screen_cuda.SCREEN_CLUSTER),
+    (938, 240, screen_cuda.SCREEN_GLOBAL)])
 def test_k3_instance_at_its_boundary(m, n, want):
+    """K3's shared instance up to m = n = 238 on an H100, then its cluster
+    instance while some cluster of at most 8 blocks holds A twice (m = n up
+    to 473; 937 rows in dimension 240), then the global instance."""
     assert screen_cuda.host_instance(m, n, HOPPER_SMEM_OPTIN) == want
+
+
+@pytest.mark.parametrize("m,n,ranks", [
+    (237, 240, 2), (238, 240, 3), (239, 239, 3), (260, 240, 3),
+    (813, 240, 7), (814, 240, 8), (473, 473, 8), (474, 474, 0)])
+def test_k3_cluster_ranks_at_their_boundaries(m, n, ranks):
+    """The fewest ranks whose row and column bands fit the limit (R = 2 only
+    where one block nearly fits: A is on chip twice), 0 past 8."""
+    assert screen_cuda.host_cluster_ranks(m, n, HOPPER_SMEM_OPTIN) == ranks
+
+
+def test_k3_cluster_bytes():
+    """A rank's part at 260 rows in dimension 240: x, v, the row band (87
+    rows at the odd stride 241), the column band (80 columns of 260 rows
+    at the odd stride 261), in 16-byte units, then its l and u and 96
+    partial maxima: 170472 bytes at R = 3, 254288 at R = 2 (past an H100's
+    232448)."""
+    assert screen_cuda.host_cluster_bytes(260, 240, 3) == 4 * (
+        240 + 260 + 20968 + 20880 + 2 * 87 + 96)
+    assert screen_cuda.host_cluster_bytes(260, 240, 3) == 170472
+    assert screen_cuda.host_cluster_bytes(260, 240, 2) == 254288
 
 
 def test_a_failed_limit_query_picks_the_global_instances():
@@ -212,6 +241,9 @@ def test_a_failed_limit_query_picks_the_global_instances():
     assert lemke_cuda.host_lane_instance(38, 4, -1) == lemke_cuda.LANE_GLOBAL
     assert eg_cuda.host_instance(130, -1) == eg_cuda.EG_GLOBAL
     assert screen_cuda.host_instance(40, 40, -1) == screen_cuda.SCREEN_GLOBAL
+    assert screen_cuda.host_instance(260, 240, -1) == (
+        screen_cuda.SCREEN_GLOBAL)
+    assert screen_cuda.host_cluster_ranks(260, 240, -1) == 0
 
 
 # --- K1: lanes past shared memory --------------------------------------------
@@ -290,7 +322,7 @@ def test_k2_global_and_shared_carvings_give_the_same_bits():
     assert torch.equal(eg_cuda.eg_steps_host(*ins, 50), z)
 
 
-# --- K3: A read in place ------------------------------------------------------
+# --- K3: A in device memory ----------------------------------------------------
 
 def _polys(B, m, n, seed, centre=0.1):
     """Seeded polyhedra without strict rows around a centre of scale
@@ -314,20 +346,39 @@ def _polys(B, m, n, seed, centre=0.1):
     return polys, truth
 
 
-def test_k3_global_instance_matches_plain_loop():
-    polys, _ = _polys(4, 260, 240, seed=0)
+def _k3_global_against_plain_loop(B, m, n, seed, optin):
+    """The global instance's host build under the opt-in limit ``optin`` on
+    seeded polyhedra: within 1e-5 of the plain loop, and the bits of the
+    shared instance's carving."""
+    polys, _ = _polys(B, m, n, seed=seed)
     ins = [torch.as_tensor(a) for a in screen.screen_prepare(polys)]
-    assert ins[0].shape == (4, 260, 240)
-    xh, vh = screen_cuda.screen_steps_host(*ins, SCREEN_STEPS, SCREEN_LR)
+    assert ins[0].shape == (B, m, n)
+    assert screen_cuda.host_instance(m, n, optin) == screen_cuda.SCREEN_GLOBAL
+    xh, vh = screen_cuda.screen_steps_host(*ins, SCREEN_STEPS, SCREEN_LR,
+                                           optin=optin)
     xp, vp = screen.screen_steps_torch(*ins, SCREEN_STEPS, SCREEN_LR)
     assert bool(torch.isfinite(xh).all()) and bool(torch.isfinite(vh).all())
     xerr = (xh - xp).abs().amax(1) / (1.0 + xp.abs().amax(1))
     assert float(xerr.max()) <= SCREEN_TOL
     assert float(((vh - vp).abs() / (1.0 + vp)).max()) <= SCREEN_TOL
-    # A read in place, or copied as the shared instance copies it: same bits
+    # A read in place and from its column-major copy, or copied as the
+    # shared instance copies it: same bits
     xs, vs = screen_cuda.screen_steps_host(*ins, SCREEN_STEPS, SCREEN_LR,
                                            generic=True)
     assert torch.equal(xh, xs) and torch.equal(vh, vs)
+
+
+def test_k3_global_instance_matches_plain_loop():
+    """At 260 rows in dimension 240, which an H100 sends to the cluster
+    instance, with the global instance forced (a limit of 0 bytes)."""
+    _k3_global_against_plain_loop(4, 260, 240, seed=0, optin=0)
+
+
+def test_k3_global_instance_past_the_cluster_reach():
+    """At 520 rows in dimension 500, past a cluster of 8 blocks on an H100:
+    the global instance picked at its limit, on 2 polyhedra."""
+    _k3_global_against_plain_loop(2, 520, 500, seed=5,
+                                  optin=HOPPER_SMEM_OPTIN)
 
 
 def test_k3_global_instance_verdicts_on_the_cpu(monkeypatch):

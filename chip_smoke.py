@@ -158,9 +158,15 @@ Phases, one line each, with their seconds; any failure exits non-zero:
    emulating the cluster's ranks); (f) the A/B in
    this run: K1's and K2's global instances through the wrappers' private
    launchers at the cluster instances' shapes (K1 f32 S=256 n=190, f64 16
-   lanes n=152; K2 n=304, 20000 steps), equal to the cluster instances bit
-   for bit, both timed (median of 7 launches between CUDA events; K2 of
-   3), the ratio printed; (g) phase 9's forced stragglers at n=304, whose
+   lanes n=152; K2 n=304, 20000 steps), K1 equal to the cluster instance
+   bit for bit, K2 within 1e-4 of the lane scale (its cluster instance
+   sums a row in four chunks joined by a butterfly, the global one in
+   one), both timed (median of 7 launches between CUDA events; K2 of 3),
+   the ratio printed; the cluster instances' lines also print their
+   share of the bound and their computed floors (K1: the band read and
+   written once a pivot from shared memory; K2: the f32 issue of its
+   multiplies and adds, the chain of a row's dependent adds, and the first
+   design's band streamed from shared memory every half-step); (g) phase 9's forced stragglers at n=304, whose
    f64 re-pivot lanes are past K1's cluster reach: ``lemke_escalate`` in
    K1's global instance, at least one launch spread over R > 1 blocks a
    lane (the ranks printed), then that instance against the plain loop on
@@ -395,6 +401,55 @@ def screen_chain_floor(m, n, steps):
     card's largest SM clock)."""
     adds = (steps + 1) * n + steps * m
     return adds, adds * 4 / (card_max_sm_mhz() * 1e6) * 1e3
+
+
+# The SM's shared memory serves 128 bytes a cycle; an f32 add waits 4
+# cycles for the one before (assumed, as K3's chain floor).
+SMEM_BYTES_CYCLE = 128
+ADD_CYCLES = 4
+
+
+def cycles_ms(cycles):
+    """Milliseconds of ``cycles`` at the card's largest SM clock."""
+    return cycles / (card_max_sm_mhz() * 1e6) * 1e3
+
+
+def cluster_waves(lanes, ranks):
+    """Rounds of clusters of ``ranks`` blocks, one an SM, for ``lanes``."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return -(-lanes // max(1, sms // ranks))
+
+
+def k2_cluster_floors(n, ranks, lanes, steps):
+    """K2's cluster instance, computed from the shape (not measured), ms:
+    (issue: a rank's 2·nb·4C multiplies and adds a half-step, two
+    instructions each with -fmad=false, on an SM's 128 f32 lanes; chain:
+    the C + 2 dependent adds of a row a half-step; the first design's floor
+    of streaming the band from shared memory every half-step), over the
+    waves of clusters the batch takes."""
+    from qpn_tpu_torch.ops import eg_cuda
+    C = eg_cuda.host_cluster_chunk(n)
+    nb = -(-n // ranks)
+    half = 2 * steps * cluster_waves(lanes, ranks)
+    return (cycles_ms(half * 2 * nb * 4 * C / 128),
+            cycles_ms(half * (C + 2) * ADD_CYCLES),
+            cycles_ms(half * nb * n * 4 / SMEM_BYTES_CYCLE))
+
+
+def k1_cluster_floor(n, itemsize, pivots, ranks):
+    """K1's cluster instance, computed (ms): each rank's band read and
+    written once a pivot from shared memory, over the waves of clusters,
+    each as long as its slowest lane's ``pivots``."""
+    import torch
+    nb = -(-n // ranks)
+    per_pivot = 2 * nb * (3 * n + 2) * itemsize / SMEM_BYTES_CYCLE
+    piv = pivots.double() + 1
+    B = piv.shape[0]
+    per = max(1, torch.cuda.get_device_properties(0).multi_processor_count
+              // ranks)
+    rounds = sum(float(piv[i:i + per].max()) for i in range(0, B, per))
+    return cycles_ms(rounds * per_pivot)
 
 
 _MAX_SM_MHZ = []
@@ -1650,6 +1705,7 @@ def midsize_kkt(T, num_obj, device, say, card, repeats):
     err, t_k, t_p, rk, bnd = eng
     piv = res.iters.double()
     _, ranks = lemke_cuda.card_instance(n, 4, device)
+    floor = k1_cluster_floor(n, 4, rk.piv, ranks)
     say(f"midsize KKT robust_avoid S={B} T={T} num_obj={num_obj} n={n}: "
         f"conv {conv}, max resid {resid.max():.3g}, {int(uncertified)} "
         f"uncertified, {launches} launch(es) of {lemke_cuda.KERNEL_CLUSTER} "
@@ -1660,7 +1716,9 @@ def midsize_kkt(T, num_obj, device, say, card, repeats):
         f"loop ({t_plain * 1e3:.3f} ms), median of {repeats}; f32 pivot loop "
         f"alone: status and pivots identical, max |dz| {err:.3g}, kernel "
         f"{t_k * 1e3:.4f} ms, plain {t_p * 1e3:.4f} ms, bound {bnd[0]:.5f} "
-        f"ms by {bnd[1]} [{card}]")
+        f"ms by {bnd[1]}, share {bnd[0] / (t_k * 1e3) * 100:.2f} %, the "
+        f"band read and written once a pivot from shared memory (computed) "
+        f"{floor:.4f} ms [{card}]")
     return launches, data, batch, eng
 
 
@@ -1789,23 +1847,33 @@ def midsize_generic(device, say, card):
         f"to the g++ host emulation's of {ranks} ranks bit for bit on "
         f"{HOST_BIT_LANES} lanes")
     eg_row = compare_eg(data, device, say, card, repeats=DOMAIN_REPEATS)
-    # the A/B: the global instance at the same shape, 20000 steps
+    issue, chain, stream = k2_cluster_floors(n, ranks, B, EG_STEPS)
+    say(f"K2 cluster B={B} n={n} steps={EG_STEPS}: {eg_row[1] * 1e3:.4f} ms, "
+        f"bound {eg_row[3][0]:.5f} ms by {eg_row[3][1]}, share "
+        f"{eg_row[3][0] / (eg_row[1] * 1e3) * 100:.2f} %; computed floors: "
+        f"f32 issue {issue:.3f} ms, chain {chain:.3f} ms, the first design's "
+        f"band streamed from shared memory {stream:.3f} ms [{card}]")
+    # the A/B: the global instance at the same shape, 20000 steps; it sums
+    # every row in one chunk, the cluster instance in four
     p = eg.eg_prepare(*args)
     ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
     zc = eg_cuda.eg_warmstart_cuda(*ins, EG_STEPS)
     zg = eg_cuda._launch(*ins, EG_STEPS, instance=eg_cuda.EG_GLOBAL)
     torch.cuda.synchronize(device)
-    if not torch.equal(zc, zg):
-        fail(f"K2 A/B n={n}: the global instance differs from the cluster "
-             f"instance on {int((zc != zg).sum())} entries")
+    dz = float(((zc - zg).abs().amax(1) / (1.0 + zg.abs().amax(1))).max())
+    if not dz <= EG_TOL[EG_STEPS]:
+        fail(f"K2 A/B n={n}: the cluster instance's z differs from the "
+             f"global instance's by {dz!r} of the lane scale")
     t_c = device_timed(lambda: eg_cuda.eg_warmstart_cuda(*ins, EG_STEPS),
                        device, DOMAIN_REPEATS)
     t_g = device_timed(lambda: eg_cuda._launch(
         *ins, EG_STEPS, instance=eg_cuda.EG_GLOBAL), device, DOMAIN_REPEATS)
     say(f"K2 A/B B={B} n={n} steps={EG_STEPS}: global instance (private "
-        f"launcher) equal to the cluster instance bit for bit; cluster "
-        f"{t_c * 1e3:.4f} ms, global {t_g * 1e3:.4f} ms (median of "
-        f"{DOMAIN_REPEATS}), global / cluster {t_g / t_c:.2f} [{card}]")
+        f"launcher) within {dz:.3g} of the lane scale of the cluster "
+        f"instance (another partition of the sums; bound "
+        f"{EG_TOL[EG_STEPS]}); cluster {t_c * 1e3:.4f} ms, global "
+        f"{t_g * 1e3:.4f} ms (median of {DOMAIN_REPEATS}), global / cluster "
+        f"{t_g / t_c:.2f} [{card}]")
     # (g) stragglers at n=304: f64 lanes past 8 ranks, K1's global instance
     lanes = 16
     forced_stragglers(data, batch, device, say, card, lanes=lanes,

@@ -17,19 +17,27 @@
 //     of the row in registers for all steps, reads z from shared memory
 //     and joins with xor shuffles;
 //   * eg_row_sum: a loop over the same partition and the same butterfly,
-//     for the host instance.  The generic kernels' partition is (1, n): one
+//     for the host instance.  The generic kernel's partition is (1, n): one
 //     chunk, plain column order (eg_row), whether the lane's M sits in one
-//     block's shared memory, is spread over a cluster's or over blocks on
-//     any SMs, or stays in device memory (eg_instance picks).
+//     block's shared memory, is spread over blocks on any SMs, or stays in
+//     device memory (eg_instance picks).  The cluster instance's is
+//     (kEgGroup, eg_cluster_chunk(n)), the register kernel's order on rows
+//     too long for its instances: a group of G threads on two rows, each
+//     thread holding the first kEgClusterRegs entries of its chunk of each
+//     in registers and the rest in shared memory (eg_warmstart.cu).
 // Floating-point addition commutes, so every thread of a group ends the
-// butterfly with the same bits, and the loop reproduces them.
+// butterfly with the same bits, and the loop reproduces them.  A chunk's sum
+// starts from +0, so it is never -0, and the zeros past column n add
+// nothing: the card may skip them.
 //
-// Ranks (the cluster instance and the spread global one; R = 1 elsewhere).
+// Ranks (the spread global instance, and the host's emulation of the
+// cluster instance, whose kernel keeps its band in registers and writes
+// through distributed shared memory itself; R = 1 elsewhere).
 // Rank k of R holds a band of nb = ceil(n / R) rows of M, k·nb onwards,
 // with their q, l and u, and a copy of the whole z and z½.  A half-step
 // computes the band's rows of the new vector from this rank's copy of the
-// old one and writes each new entry into every rank's copy (eg_put:
-// distributed shared memory in a cluster), or, in the global instance, into
+// old one and writes each new entry into every rank's copy (eg_put: the
+// host's buffers of the emulated cluster), or, in the global instance, into
 // the lane's copy of that vector in device memory, which each rank copies
 // into its own after the barrier (eg_gather); one barrier of the ranks
 // follows the writes.  Between two barriers no rank reads what another
@@ -52,10 +60,6 @@
 #define QPN_EG_HD __host__ __device__ __forceinline__
 #else
 #define QPN_EG_HD inline
-#endif
-
-#if defined(__CUDACC__)
-#include <cooperative_groups.h>
 #endif
 
 #include "lane_barrier.cuh"
@@ -138,7 +142,7 @@ QPN_EG_HD float eg_row_sum(const float* Mi, const float* x, int n, int C) {
 // One lane's working set, or one rank's part of it.  In the shared instance
 // all of it sits in shared memory, the rows of M ld = n | 1 floats apart (an
 // odd stride puts the rows that neighbouring threads read on different
-// banks); in the cluster instance each rank's part does.  In the global
+// banks); in the host's emulated cluster each rank's buffer does.  In the global
 // instance, for lanes whose M fits no cluster, a rank's band of M sits in
 // its shared memory where it fits (eg_global_band_fits), else in the lane's
 // column-major copy in device memory, which eg_lane_load writes and every
@@ -160,7 +164,7 @@ struct EGLane {
     float* u;
     float* z;        // (n) the whole vector
     float* zh;       // (n) z½
-    float* const* bases;  // host: each rank's buffer (cluster, R > 1)
+    float* const* bases;  // host: each rank's buffer (emulated cluster)
     float* xg;       // the lane's z and z½ in device memory (global, R > 1)
     unsigned* bar;   // the lane's barrier in device memory (global, R > 1)
 };
@@ -216,7 +220,7 @@ QPN_EG_HD void eg_set_ranks(EGLane& L, int n, int R, int rank,
 
 // Rank `rank` of R of a lane, carved from a buffer of eg_band_bytes (R = 1:
 // the whole lane).  `bases` is the host's table of every rank's buffer,
-// read by eg_put where R > 1; null on the card.
+// read by eg_put where R > 1 (the emulated cluster); null on the card.
 QPN_EG_HD EGLane eg_lane_carve(float* base, int n, int R = 1, int rank = 0,
                                float* const* bases = nullptr) {
     EGLane L;
@@ -272,19 +276,71 @@ QPN_EG_HD EGLane eg_lane_carve_global(const EGBatch& bt, size_t b,
 // instance of it does (eg_pick_chunk), else the generic kernel with the
 // lane in one block's shared memory while eg_lane_bytes(n) fits the
 // block's opt-in limit `smem_optin` (232448 bytes on an H100: n up to 238),
-// else spread over the shared memory of a cluster of eg_cluster_ranks(n)
-// blocks while a band fits the limit at 8 ranks or fewer (8: the portable
-// cluster size), else with M in device memory.  A choice by shape alone.
+// else the cluster instance while a band of M's rows fits the limit at 8
+// ranks or fewer (8: the portable cluster size; n up to 671 on an H100),
+// spread over eg_cluster_ranks(n) blocks, else with M in device memory.  A
+// choice by shape alone.
 enum { EG_REGISTER = 0, EG_SHARED = 1, EG_GLOBAL = 2, EG_CLUSTER = 3 };
 constexpr int kEgMaxRanks = 8;
 
-// The fewest ranks, 2 to kEgMaxRanks, whose bands fit `smem_optin`; 0
-// where none does (or the limit is unknown: negative).
-QPN_EG_HD int eg_cluster_ranks(int n, long long smem_optin) {
-    if (smem_optin < 0) return 0;
+// The cluster instance (eg_warmstart.cu::eg_cluster_kernel): a block's
+// threads at most (its __launch_bounds__), the rows a thread sums (one
+// chunk of each, against the same entries of z), and the entries of its
+// chunk of a row that a thread holds in registers for all steps.  nvcc
+// -Xptxas -v on an H100 reports the kernel without spill at these.
+constexpr int kEgClusterThreads = 320;
+constexpr int kEgClusterRows = 2;
+constexpr int kEgClusterRegs = 60;
+
+// The cluster instance's chunk: ceil(n / kEgGroup) columns, rounded up to
+// a multiple of 4 (a chunk is read 16 bytes a load).
+QPN_EG_HD int eg_cluster_chunk(int n) {
+    return (int)eg_align4((size_t)((n + kEgGroup - 1) / kEgGroup));
+}
+
+// Floats between two chunks of z (or z½) in the cluster instance's shared
+// memory: the chunk, made an odd multiple of 4, so that the four chunks a
+// warp reads at once lie on different banks.
+QPN_EG_HD int eg_cluster_stride(int n) { return eg_cluster_chunk(n) | 4; }
+
+// Threads of a rank whose band is nb rows high: a group of kEgGroup on
+// every kEgClusterRows rows, whole warps.
+QPN_EG_HD int eg_cluster_threads(int nb) {
+    const int groups = (nb + kEgClusterRows - 1) / kEgClusterRows;
+    return (groups * kEgGroup + 31) / 32 * 32;
+}
+
+// Shared memory of a rank: z and z½ in chunks, and what its threads do not
+// hold of their rows' chunks in registers, 16 bytes a thread at a time.
+QPN_EG_HD size_t eg_cluster_rank_bytes(int n, int nb) {
+    const int C = eg_cluster_chunk(n);
+    const int rest = C > kEgClusterRegs ? C - kEgClusterRegs : 0;
+    return (2 * (size_t)kEgGroup * eg_cluster_stride(n)
+            + (size_t)eg_cluster_threads(nb) * kEgClusterRows * rest)
+           * sizeof(float);
+}
+
+// Whether some cluster of 2 to kEgMaxRanks blocks holds the bands of M's
+// rows in shared memory: the cluster instance's domain.
+QPN_EG_HD bool eg_cluster_reach(int n, long long smem_optin) {
+    if (smem_optin < 0) return false;
     for (int R = 2; R <= kEgMaxRanks; ++R)
         if (eg_band_bytes(n, eg_band_height(n, R)) <= (size_t)smem_optin)
+            return true;
+    return false;
+}
+
+// The cluster instance's ranks: within its domain, the fewest, 2 to
+// kEgMaxRanks, whose rank fits kEgClusterThreads threads and the limit;
+// 0 outside it (or where the limit is unknown: negative).
+QPN_EG_HD int eg_cluster_ranks(int n, long long smem_optin) {
+    if (!eg_cluster_reach(n, smem_optin)) return 0;
+    for (int R = 2; R <= kEgMaxRanks; ++R) {
+        const int nb = eg_band_height(n, R);
+        if (eg_cluster_threads(nb) <= kEgClusterThreads
+            && eg_cluster_rank_bytes(n, nb) <= (size_t)smem_optin)
             return R;
+    }
     return 0;
 }
 
@@ -322,21 +378,20 @@ QPN_EG_HD int eg_global_ranks(int n, int B, long long resident,
 }
 
 // The barrier of the lane's ranks: the lane's barrier in device memory
-// where they are spread over any SMs, the cluster's where they are a
-// cluster, else the block's.
+// where they are spread over any SMs, else the block's (the host: none).
 QPN_EG_HD void eg_sync_ranks(const EGLane& L) {
     if (L.bar != nullptr) {
         lane_barrier(L.bar, L.R);
         return;
     }
 #if defined(__CUDA_ARCH__)
-    if (L.R > 1) cooperative_groups::this_cluster().sync();
-    else __syncthreads();
+    __syncthreads();
 #endif
 }
 
 // v into entry r of the vector `x` (a field of this rank's part) of every
-// rank: in the global instance, into the lane's copy in device memory.
+// rank: in the global instance, into the lane's copy in device memory; in
+// the host's emulated cluster, into every rank's buffer.
 QPN_EG_HD void eg_put(const EGLane& L, float* x, int r, float v) {
     if (L.R == 1) {
         x[r] = v;
@@ -346,13 +401,8 @@ QPN_EG_HD void eg_put(const EGLane& L, float* x, int r, float v) {
         L.xg[(x - L.z) + r] = v;
         return;
     }
-    for (int k = 0; k < L.R; ++k) {
-#if defined(__CUDA_ARCH__)
-        cooperative_groups::this_cluster().map_shared_rank(x, k)[r] = v;
-#else
+    for (int k = 0; k < L.R; ++k)
         L.bases[k][(x - L.bases[L.rank]) + r] = v;
-#endif
-    }
 }
 
 // Lane b of the batch into this rank's part: its band of M (unless read in

@@ -2,7 +2,9 @@
 // built with plain g++ and loaded with ctypes by the CPU tests: each lane
 // runs the step loop as thread 0 of 1 with no-op barriers, every row summed
 // by the loop that walks the partition of the kernel that takes this n, on
-// a lane carved as that kernel carves it.  A lane of R ranks is R buffers
+// a lane carved as the generic kernel carves it (the cluster instance's
+// registers hold what its carving holds here: only the order of the sums
+// matters for the bits).  A lane of R ranks is R buffers
 // carved as the cluster's blocks are, or as the global instance's blocks
 // are (each band in its buffer where it fits the limit, else in the lane's
 // column-major copy, and the lane's z and z½ in one more buffer, gathered
@@ -19,20 +21,23 @@ extern "C" {
 
 // The kernel is the one the card's launcher picks from n under the opt-in
 // limit `smem_optin` (eg_instance): the register kernel's partition
-// (kEgGroup, chunk), else the generic kernel's one chunk of n columns with
-// M copied (shared instance), spread over the cluster's ranks (cluster
-// instance) or, in the global instance, spread over the ranks that
-// eg_global_ranks picks for B lanes on a card that holds `resident` of its
-// blocks at once.  ranks > 0 spreads the lane over that many ranks
-// whatever the limit picks (1: one block's lane).
+// (kEgGroup, chunk); the cluster instance's (kEgGroup,
+// eg_cluster_chunk(n)), spread over its ranks; else the generic kernel's
+// one chunk of n columns with M copied (shared instance) or, in the global
+// instance, spread over the ranks that eg_global_ranks picks for B lanes on
+// a card that holds `resident` of its blocks at once.  ranks > 0 spreads
+// the lane over that many ranks whatever the limit picks (1: one block's
+// lane), in the partition of the instance the limit picks.
 void qpn_eg_warmstart_host_f32(QPN_EG_PARAMS, long long smem_optin,
                                int ranks, long long resident) {
     const qpn::EGBatch bt = QPN_EG_BATCH;
     const int instance = qpn::eg_instance(bt.n, smem_optin);
     const bool global = instance == qpn::EG_GLOBAL;
-    const int chunk = qpn::eg_pick_chunk(bt.n);
-    const int G = instance == qpn::EG_REGISTER ? qpn::kEgGroup : 1;
-    const int C = G == 1 ? bt.n : chunk;
+    const int G = instance == qpn::EG_REGISTER || instance == qpn::EG_CLUSTER
+        ? qpn::kEgGroup : 1;
+    const int C = instance == qpn::EG_REGISTER ? qpn::eg_pick_chunk(bt.n)
+                  : instance == qpn::EG_CLUSTER ? qpn::eg_cluster_chunk(bt.n)
+                                                : bt.n;
     int R = ranks;
     if (R <= 0)
         R = instance == qpn::EG_CLUSTER
@@ -101,6 +106,19 @@ int qpn_eg_global_band_fits(int n, int ranks, long long smem_optin) {
 // of M in shared memory.
 long long qpn_eg_band_bytes(int n, int ranks) {
     return (long long)qpn::eg_band_bytes(n, qpn::eg_band_height(n, ranks));
+}
+
+// The cluster instance's chunk of a row, and one rank's shared memory at R
+// ranks (the part of its band that its threads do not hold in registers).
+int qpn_eg_cluster_chunk(int n) { return qpn::eg_cluster_chunk(n); }
+
+long long qpn_eg_cluster_rank_bytes(int n, int ranks) {
+    return (long long)qpn::eg_cluster_rank_bytes(
+        n, qpn::eg_band_height(n, ranks));
+}
+
+int qpn_eg_cluster_reach(int n, long long smem_optin) {
+    return qpn::eg_cluster_reach(n, smem_optin);
 }
 
 }  // extern "C"

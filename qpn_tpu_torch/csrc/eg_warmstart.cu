@@ -29,19 +29,32 @@
 //   * shared: the matrix in one block's dynamic shared memory (n up to 238
 //     on an H100); bound by the latency of a row's chain of n dependent
 //     adds a half-step;
-//   * cluster: the lane spread over a cluster of R = 2-8 blocks on
-//     neighbouring SMs (eg_cluster_ranks: the fewest whose bands fit; n=304
-//     on 2, up to n of about 680 on 8).  Rank k holds a band of M's rows
-//     in its shared memory, loaded once, and a copy of z and z½; a
-//     half-step computes the band's rows from the local copy, writes each
-//     new entry into every rank's copy through distributed shared memory,
-//     and ends at one cluster barrier (a ping-pong pair, as the register
-//     kernel's).  Bound by the same chain as the shared instance, plus the
-//     barrier, with one block an SM (a band fills its shared memory).
-//     Launched with cudaLaunchKernelEx and a cluster dimension; the first
-//     launch at each size checks that such a cluster fits the card
-//     (cudaOccupancyMaxActiveClusters) and returns CUDA's error where it
-//     does not: there is no fallback to another instance;
+//   * cluster (eg_cluster_kernel): the lane spread over a cluster of
+//     R = 2-8 blocks on neighbouring SMs, for n = 239-671 on an H100
+//     (eg_cluster_ranks: the fewest whose rank fits 320 threads and the
+//     limit; n=304 on 2).  Rank k holds a band of M's rows, split as the
+//     register kernel splits a row: a group of G = 4 neighbouring threads
+//     on two rows, thread g holding chunk g of C = eg_cluster_chunk(n)
+//     columns of each, its first kEgClusterRegs entries in registers for
+//     all steps and the rest in shared memory (16 bytes a thread,
+//     neighbouring threads on neighbouring addresses), loaded once; z and
+//     z½ in shared memory by chunks (eg_cluster_stride apart: the four
+//     chunks a warp reads lie on different banks).  A half-step is the
+//     chunks' multiply-adds, each 16-byte load of z serving both rows and
+//     issued ahead of the adds that wait for it (no guard between the
+//     loads: the launcher requires a chunk of at least kEgClusterRegs
+//     columns), the butterflies, the clips, and the new entries written
+//     into the ranks through distributed shared memory, thread g of a
+//     group writing ranks g, g + G, ...; then one cluster barrier (a
+//     ping-pong pair, as the register kernel's).  What bounds it: with
+//     -fmad=false a product and its sum are two instructions, 2·nb·4C a
+//     rank a half-step on the SM's 128 f32 lanes, the latency of a warp's
+//     chain of loads and adds, then the cluster barrier, about a third of
+//     a half-step at n=304 on an H100; one block an SM (its threads take
+//     the register file).  Launched with cudaLaunchKernelEx and a cluster
+//     dimension; the first launch at each size checks that such a cluster fits the
+//     card (cudaOccupancyMaxActiveClusters) and returns CUDA's error where
+//     it does not: there is no fallback to another instance;
 //   * global: past 8 ranks.  Where B lanes leave SMs idle, a lane is
 //     spread over R blocks on any SMs (eg_global_ranks): rank k keeps its
 //     band of M's rows in its own shared memory where the band fits (n=684
@@ -65,8 +78,9 @@
 //     wrapper's private launcher also runs it at cluster sizes, and at
 //     R = 1 where the pick spreads it, to hold the instances against each
 //     other on the card.
-// Every row sums in plain column order in all of them, so they give the
-// same bits.
+// Every row sums in plain column order in the generic kernel's instances,
+// so they give the same bits; the cluster instance sums in its partition
+// (kEgGroup, eg_cluster_chunk(n)), and the host loop walks it too.
 //
 // The order of every sum is defined in eg_lane.cuh, where a loop walks the
 // same partition for the host instance.  Built with nvcc -O3 -fmad=false,
@@ -82,6 +96,15 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+// Phase clocks of the cluster instance, compiled in only with
+// -DQPN_EG_PROFILE (tools/torch_cluster_phases.py): thread 0 of each block
+// adds the SM cycles of a half-step's chunk sums, of its exchange (the
+// butterflies, the clips and the writes into the ranks) and of its
+// cluster barrier, and the first two blocks print them.
+#if defined(QPN_EG_PROFILE)
+#include <cstdio>
+#endif
 
 #include "cluster_launch.cuh"
 #include "eg_lane.cuh"
@@ -114,20 +137,16 @@ __device__ __forceinline__ void run_rank(const qpn::EGBatch& bt, float* smem,
     qpn::eg_lane_store(L, bt, b, threadIdx.x, blockDim.x);
 }
 
-// EG_SHARED: M copied to the block's shared memory; EG_CLUSTER: one
-// cluster of R blocks a lane, rank k's band of M in block k's shared
-// memory; EG_GLOBAL: R blocks a lane on any SMs, rank k's band of M in its
-// shared memory (`copy`) or in the lane's column-major copy at mt + b · n²,
-// the lane's z and z½ at xg + b · eg_exchange_floats(n) and its barrier at
-// bars + 2b (R > 1).
+// EG_SHARED: M copied to the block's shared memory; EG_GLOBAL: R blocks a
+// lane on any SMs, rank k's band of M in its shared memory (`copy`) or in
+// the lane's column-major copy at mt + b · n², the lane's z and z½ at
+// xg + b · eg_exchange_floats(n) and its barrier at bars + 2b (R > 1).
 template <int kInstance>
 __global__ void __launch_bounds__(kGenericMaxThreads)
 eg_generic_kernel(qpn::EGBatch bt, int R, int copy, float* xg,
                   unsigned* bars, float* mt) {
     extern __shared__ __align__(16) float smem[];
-    const bool cluster = kInstance == qpn::EG_CLUSTER;
-    if (kInstance == qpn::EG_SHARED
-        || (kInstance == qpn::EG_GLOBAL && R == 1)) {
+    if (kInstance == qpn::EG_SHARED || R == 1) {
         // one block a lane: R = 1 known to the compiler (the global
         // instance's launch at R = 1 takes this path, the code it had
         // before it spread)
@@ -135,12 +154,140 @@ eg_generic_kernel(qpn::EGBatch bt, int R, int copy, float* xg,
                             mt);
         return;
     }
-    const int rank = cluster ? (int)cg::this_cluster().block_rank()
-                             : (int)(blockIdx.x % R);
-    run_rank<kInstance>(bt, smem, R, rank, blockIdx.x / R, copy, xg, bars,
-                        mt);
-    // no block leaves while a peer may still write into its shared memory
-    if (cluster) cg::this_cluster().sync();
+    run_rank<kInstance>(bt, smem, R, (int)(blockIdx.x % R), blockIdx.x / R,
+                        copy, xg, bars, mt);
+}
+
+// EG_CLUSTER: one cluster of R blocks a lane, rank k's band of M's rows
+// split between its threads' registers and its shared memory (the file's
+// notes).  Thread tid is chunk g = tid % 4 of band rows s and s + P, s =
+// tid / 4, P the block's groups; both rows' sums read the same entries of
+// z (or z½).
+__global__ void __launch_bounds__(qpn::kEgClusterThreads, 1)
+eg_cluster_kernel(qpn::EGBatch bt, int R) {
+    constexpr int K = qpn::kEgClusterRegs, NR = qpn::kEgClusterRows;
+    static_assert(K % 4 == 0, "registers hold whole 16-byte groups");
+    extern __shared__ __align__(16) float smem[];
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    const size_t b = blockIdx.x / R;
+    const int n = bt.n, tid = threadIdx.x, nthr = blockDim.x;
+    const int C = qpn::eg_cluster_chunk(n), CS = qpn::eg_cluster_stride(n);
+    const int nb = qpn::eg_band_height(n, R), r0 = rank * nb;
+    const int rows = n - r0 < nb ? (n - r0 < 0 ? 0 : n - r0) : nb;
+    const int g = tid % G, P = nthr / G;
+    const int quads = C > K ? (C - K) / 4 : 0;    // 16-byte groups in smem
+    float* zs = smem;                              // z, G chunks CS apart
+    float* zhs = zs + G * CS;                      // z½
+    // (quads, NR, nthr): what the registers do not hold
+    float4* ms = reinterpret_cast<float4*>(zhs + G * CS);
+
+    bool on[NR];
+    int r[NR], put[NR];
+    float m[NR][K], q[NR], lo[NR], hi[NR], z[NR];
+#pragma unroll
+    for (int h = 0; h < NR; ++h) {
+        const int i = tid / G + h * P;
+        on[h] = i < rows;
+        r[h] = r0 + (on[h] ? i : 0);
+        // where the row's entry lies in the chunked vectors
+        put[h] = (r[h] / C) * CS + r[h] % C;
+        const float* Mi = bt.M + (b * n + r[h]) * (size_t)n + g * C;
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+            m[h][k] = on[h] && g * C + k < n ? Mi[k] : 0.0f;
+        for (int p = 0; p < quads; ++p) {
+            float v[4];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                const int k = K + 4 * p + c;
+                v[c] = on[h] && g * C + k < n ? Mi[k] : 0.0f;
+            }
+            ms[(p * NR + h) * nthr + tid] = make_float4(v[0], v[1], v[2], v[3]);
+        }
+        const size_t at = b * n + r[h];
+        q[h] = on[h] ? bt.q[at] : 0.0f;
+        lo[h] = on[h] ? bt.l[at] : 0.0f;
+        hi[h] = on[h] ? bt.u[at] : 0.0f;
+        z[h] = on[h] ? bt.z0[at] : 0.0f;
+    }
+    const float tau = bt.tau[b];
+    // z0 into z by chunks, zeros past column n and in the gaps; z½ zeroed
+    for (int p = tid; p < G * CS; p += nthr) {
+        const int c = p / CS, k = p - c * CS, j = c * C + k;
+        zs[p] = k < C && j < n ? bt.z0[b * n + j] : 0.0f;
+        zhs[p] = 0.0f;
+    }
+    // every rank has started before any writes into another
+    cluster.sync();
+#if defined(QPN_EG_PROFILE)
+    long long t_sum = 0, t_put = 0, t_bar = 0;
+#endif
+    for (int s = 0; s < 2 * bt.steps; ++s) {
+#if defined(QPN_EG_PROFILE)
+        const long long t0 = clock64();
+#endif
+        const float* x = (s & 1 ? zhs : zs) + g * CS;
+        float* y = s & 1 ? zs : zhs;
+        float acc[NR];
+#pragma unroll
+        for (int h = 0; h < NR; ++h) acc[h] = 0.0f;
+        // K <= C (the launcher's check): no guard between the loads, so
+        // that they issue ahead of the adds that wait for them
+#pragma unroll
+        for (int k = 0; k < K; k += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(x + k);
+#pragma unroll
+            for (int h = 0; h < NR; ++h) {
+                acc[h] = acc[h] + m[h][k] * v.x;
+                acc[h] = acc[h] + m[h][k + 1] * v.y;
+                acc[h] = acc[h] + m[h][k + 2] * v.z;
+                acc[h] = acc[h] + m[h][k + 3] * v.w;
+            }
+        }
+        for (int p = 0; p < quads; ++p) {
+            const float4 v = *reinterpret_cast<const float4*>(x + K + 4 * p);
+#pragma unroll
+            for (int h = 0; h < NR; ++h) {
+                const float4 w = ms[(p * NR + h) * nthr + tid];
+                acc[h] = acc[h] + w.x * v.x;
+                acc[h] = acc[h] + w.y * v.y;
+                acc[h] = acc[h] + w.z * v.z;
+                acc[h] = acc[h] + w.w * v.w;
+            }
+        }
+#if defined(QPN_EG_PROFILE)
+        const long long ts = clock64();
+#endif
+#pragma unroll
+        for (int h = 0; h < NR; ++h) {
+            const float F = qpn::eg_tree<G>(acc[h]) + q[h];
+            const float znew = qpn::eg_clip(z[h] - tau * F, lo[h], hi[h]);
+            if (on[h])
+                for (int k = g; k < R; k += G)
+                    cluster.map_shared_rank(y, k)[put[h]] = znew;
+            if (s & 1) z[h] = znew;         // the second half-step moves z
+        }
+#if defined(QPN_EG_PROFILE)
+        const long long t1 = clock64();
+#endif
+        cluster.sync();
+#if defined(QPN_EG_PROFILE)
+        t_sum += ts - t0;
+        t_put += t1 - ts;
+        t_bar += clock64() - t1;
+#endif
+    }
+#if defined(QPN_EG_PROFILE)
+    if (tid == 0 && blockIdx.x < 2)
+        printf("eg_cluster_phases block %d half-steps %d cycles sums %lld "
+               "exchange %lld barrier %lld\n", (int)blockIdx.x, 2 * bt.steps,
+               t_sum, t_put, t_bar);
+#endif
+    // the last barrier follows every write into a peer
+#pragma unroll
+    for (int h = 0; h < NR; ++h)
+        if (on[h] && g == 0) bt.z_out[b * n + r[h]] = z[h];
 }
 
 constexpr int block_threads(int C) {
@@ -263,14 +410,19 @@ int launch_global(const qpn::EGBatch& bt, int R, float* xg, unsigned* bars,
 
 int launch_cluster(const qpn::EGBatch& bt, int R, cudaStream_t stream) {
     if (bt.n <= 0) return 0;
-    // the largest band checked at each cluster size
+    if (R < 1) return cudaErrorInvalidValue;
+    // the largest rank checked at each cluster size
     static size_t checked[qpn::kEgMaxRanks + 1] = {};
-    const int nb = R < 1 ? 0 : qpn::eg_band_height(bt.n, R);
-    return qpn::launch_cluster(eg_generic_kernel<qpn::EG_CLUSTER>, checked,
-                               bt.B, R, generic_threads(nb),
-                               qpn::eg_band_bytes(bt.n, nb), stream, bt, R, 0,
-                               (float*)nullptr, (unsigned*)nullptr,
-                               (float*)nullptr);
+    const int nb = qpn::eg_band_height(bt.n, R);
+    const int threads = qpn::eg_cluster_threads(nb);
+    // a thread's registers hold the first kEgClusterRegs entries of its
+    // chunk, which must have as many (n >= 225; the domain starts at 239)
+    if (threads > qpn::kEgClusterThreads
+        || qpn::eg_cluster_chunk(bt.n) < qpn::kEgClusterRegs)
+        return cudaErrorInvalidValue;
+    return qpn::launch_cluster(eg_cluster_kernel, checked, bt.B, R, threads,
+                               qpn::eg_cluster_rank_bytes(bt.n, nb), stream,
+                               bt, R);
 }
 
 }  // namespace

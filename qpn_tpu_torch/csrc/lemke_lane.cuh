@@ -26,6 +26,15 @@
 //   C. the rank-1 update as a 2-D loop: warps walk rows, lanes walk columns;
 //      the pivot row's owner records the basis exchange.
 // A step that is no pivot (bound flip, ray, singular) ends after B.
+// The cluster instance runs C and the next step's A as one pass
+// (lane_pass, lane_run_fused): A's group of G threads on a row updates its
+// chunks of the row and sums them while they are in registers, so the band
+// is read and written once a pivot, and each rank publishes the least
+// ratio of its band (LaneCtl::tmin), which B reads instead of every ratio.
+// Pivot k's bookkeeping (val, the next entering variable: lane_commit and
+// lane_advance in S) is final at the barrier after S, where the pass
+// starts; the pass's sums and products are A's and C's, in their order, so
+// the fused loop gives the bits of the phases apart.
 // Rows of the tableau are W | 1 elements apart (lane_stride): an odd stride
 // puts the rows that neighbouring threads read on different banks.
 //
@@ -56,11 +65,11 @@
 // that makes this correct, and makes the host's emulation (each phase run
 // for rank 0, 1, ..., R-1 in turn, between the same two points) give the
 // card's bits: between two of these barriers no rank reads what another
-// rank writes.  B and S read other ranks' theta, d, basis, tableau rows
-// and leff/ueff, and write only their own rank's scalars, val, pr, other
-// and tie list; C and A read and write their own band only.  So the basis
-// exchange is written in C, not in S, where a peer may still be deciding
-// from the basis.
+// rank writes.  B and S read other ranks' theta, d, basis, tableau rows,
+// leff/ueff and least ratio, and write only their own rank's scalars, val,
+// pr, other and tie list; C and A (or the pass) read and write their own
+// band and least ratio only.  So the basis exchange is written in C, not
+// in S, where a peer may still be deciding from the basis.
 //
 // Semantics follow the JAX package's pivot loop lane for lane
 // (qpn_tpu/ops/lemke.py::_lemke_single, qpn_tpu/ops/lemke_pallas.py):
@@ -79,6 +88,7 @@
 
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 
 #include "lane_barrier.cuh"
 
@@ -186,6 +196,33 @@ QPN_HD int lk_lowest(unsigned m) {
 #endif
 }
 
+// The key of a ratio theta >= 0 (never NaN): its bits, +0 for -0, which
+// order as the ratios do.  Two zeros give one key: B uses the least ratio
+// only through comparisons and tstar + tol*(1 + |tstar|), where they agree.
+template <typename T> QPN_HD unsigned long long lk_ratio_key(T th) {
+    if (th == T(0)) return 0ull;
+    if constexpr (sizeof(T) == 4) {
+        unsigned u;
+        memcpy(&u, &th, 4);
+        return u;
+    } else {
+        unsigned long long u;
+        memcpy(&u, &th, 8);
+        return u;
+    }
+}
+
+template <typename T> QPN_HD T lk_key_ratio(unsigned long long key) {
+    T th;
+    if constexpr (sizeof(T) == 4) {
+        const unsigned u = (unsigned)key;
+        memcpy(&th, &u, 4);
+    } else {
+        memcpy(&th, &key, 8);
+    }
+    return th;
+}
+
 // Append r to list (at count and above) from every thread whose flag is
 // set, in thread order; returns the new count.  Called by all threads.
 QPN_HD int lk_append(int* list, int count, int r, bool flag, int lane) {
@@ -287,6 +324,10 @@ template <typename T>
 struct LaneCtl {
     T edir, ev, pe;
     int ent, status, piv, k, jstar, col, act;
+    // the fused loop's least ratio of the rank's band (lk_ratio_key), for
+    // the step of parity k & 1: the pass of step k fills its slot and
+    // clears the other, which B read a step before
+    unsigned long long tmin[2];
 #if defined(QPN_LEMKE_PROFILE)
     // cycles of: basic values and ratios, decision, staging, update; inside
     // the decision: min ratio, tie set, lexicographic refinement, the rest
@@ -331,18 +372,22 @@ QPN_HD int lane_stride(int n) { return (3 * n + 2) | 1; }
 // Rows of each band of a lane of n spread over R ranks.
 QPN_HD int lane_band_height(int n, int R) { return (n + R - 1) / R; }
 
+// Elements of a rank's floats whose band rows are ld apart (0: the odd
+// stride).
 template <typename T>
-QPN_HD size_t lane_floats(int n, int nb) {
+QPN_HD size_t lane_floats(int n, int nb, int ld = 0) {
     const size_t W = 3 * (size_t)n + 2, NV = W - 1;
-    return (size_t)nb * lane_stride(n) + 3 * NV + 6 * (size_t)nb + W;
+    return (size_t)nb * (ld > 0 ? ld : lane_stride(n)) + 3 * NV
+           + 6 * (size_t)nb + W;
 }
 
-// Bytes of one rank's part of a lane whose bands are nb rows high: a rank
-// of every instance is carved with this layout.
+// Bytes of one rank's part of a lane whose bands are nb rows high, rows ld
+// apart (0: the odd stride, which every instance but the cluster's keeps):
+// a rank of every instance is carved with this layout.
 template <typename T>
-QPN_HD size_t lane_band_bytes(int n, int nb) {
+QPN_HD size_t lane_band_bytes(int n, int nb, int ld = 0) {
     return lk_align16(sizeof(LaneCtl<T>))
-         + lk_align16(lane_floats<T>(n, nb) * sizeof(T))
+         + lk_align16(lane_floats<T>(n, nb, ld) * sizeof(T))
          + lk_align16((size_t)nb * sizeof(int))
          + lk_align16((size_t)n * sizeof(int));
 }
@@ -354,19 +399,22 @@ QPN_HD size_t lane_bytes(int n) { return lane_band_bytes<T>(n, n); }
 // Carve rank `rank` of R of a lane's working set out of a 16-byte aligned
 // buffer (R = 1: the whole lane).  `bases` is the host's table of every
 // rank's buffer, read by lk_peer where R > 1; null on the card.
+// Rows are ld apart (0: the odd stride; the cluster instance's launcher
+// may space them further, lane_cluster_stride).
 // (The rank fields are set in each carving, not by a shared helper: nvcc
 // allotted the cluster instance 64 registers and spilled with one.)
 template <typename T>
 QPN_HD Lane<T> lane_carve(unsigned char* base, int n, int R = 1,
                           int rank = 0,
-                          unsigned char* const* bases = nullptr) {
+                          unsigned char* const* bases = nullptr,
+                          int ld = 0) {
     const size_t W = 3 * (size_t)n + 2, NV = W - 1;
     Lane<T> L;
     L.n = n;
-    L.ld = lane_stride(n);
     L.R = R;
     L.rank = rank;
     L.nb = lane_band_height(n, R);
+    L.ld = ld > 0 ? ld : lane_stride(n);
     L.r0 = rank * L.nb;
     const int left = n - L.r0;
     L.rows = left < 0 ? 0 : (left < L.nb ? left : L.nb);
@@ -388,7 +436,7 @@ QPN_HD Lane<T> lane_carve(unsigned char* base, int n, int R = 1,
     L.other = f;     f += nb;
     L.pr = f;
     unsigned char* rest = base + lk_align16(sizeof(LaneCtl<T>))
-                        + lk_align16(lane_floats<T>(n, L.nb) * sizeof(T));
+                        + lk_align16(lane_floats<T>(n, L.nb, L.ld) * sizeof(T));
     L.basis = reinterpret_cast<int*>(rest);
     L.clist = reinterpret_cast<int*>(rest + lk_align16(nb * sizeof(int)));
     return L;
@@ -541,6 +589,36 @@ QPN_HD int lane_cluster_ranks(int n, int itemsize, long long smem_optin) {
     return 0;
 }
 
+// The row stride of the cluster instance's band of nb rows: the fused
+// pass (lane_pass) has a warp read one entry of each of 4 chunks of 8 rows
+// at once.  The least stride from 3n+2 on, among the next 64, at which
+// those 32 entries lie on different banks (T = double: the 16 of each
+// half-warp on different pairs), where the band still fits `smem_optin`;
+// else the odd stride (so the ranks stay those of lane_cluster_ranks).
+// The bits do not depend on it.
+QPN_HD int lane_chunk(int n);
+
+template <typename T>
+QPN_HD int lane_cluster_stride(int n, int nb, long long smem_optin) {
+    if (smem_optin < 0) return lane_stride(n);
+    const int C = lane_chunk(n);
+    const int words = sizeof(T) == 4 ? 32 : 16, slots = words / 4;
+    for (int ld = 3 * n + 2; ld < 3 * n + 2 + 64; ++ld) {
+        bool clear = true;
+        for (int h = 0; h < 8 && clear; h += slots) {
+            unsigned seen = 0;
+            for (int s = h; s < h + slots; ++s)
+                for (int g = 0; g < kLemkeSplit; ++g)
+                    seen |= 1u << ((s * ld + g * C) % words);
+            clear = seen == (words == 32 ? ~0u : 0xffffu);
+        }
+        if (clear)
+            return lane_band_bytes<T>(n, nb, ld) <= (size_t)smem_optin
+                       ? ld : lane_stride(n);
+    }
+    return lane_stride(n);
+}
+
 QPN_HD int lane_instance(int n, int itemsize, long long smem_optin) {
     if (smem_optin < 0) return LANE_GLOBAL;
     if (lane_band_bytes_of(n, n, itemsize) <= (size_t)smem_optin)
@@ -619,6 +697,7 @@ QPN_HD void lane_load(const Lane<T>& L, const LemkeBatch<T>& bt, size_t b,
         c->col = 0;
         c->pe = T(0);
         c->act = ACT_NONE;
+        c->tmin[0] = c->tmin[1] = lk_ratio_key(lk_inf<T>());
 #if defined(QPN_LEMKE_PROFILE)
         for (int i = 0; i < 8; ++i) c->prof[i] = 0;
 #endif
@@ -747,6 +826,157 @@ QPN_HD void lane_basic_values(const Lane<T>& L, int tid, int nthr,
     }
 }
 
+// ---- the fused pass: C of a pivot and A of the next step --------------------
+
+// Chunk g of row r (the pivot row where `pivot`) updated from the staged
+// pivot row and entering column, and its partial sum taken from the new
+// entries while they are in registers: lane_basic_partial's sum, in its
+// order, of C's values.  Chunk 0 also updates the right-hand side first,
+// which its partial sum starts from.
+template <typename T>
+QPN_HD T lane_update_partial(const Lane<T>& L, int r, int g, bool pivot) {
+    const int NV = 3 * L.n + 1, C = lane_chunk(L.n);
+    // three arrays apart: the next eight entries' loads may pass this
+    // eight's stores
+    T* __restrict__ row = L.tab + r * L.ld;
+    const T* __restrict__ pr = L.pr;
+    const T* __restrict__ val = L.val;
+    const T o = L.other[r];
+    const int end = (g + 1) * C < NV ? (g + 1) * C : NV;
+    T s = T(0);
+    if (g == 0) {
+        s = pivot ? pr[NV] : row[NV] - o * pr[NV];
+        row[NV] = s;
+    }
+    int j = g * C;
+    for (; j + 8 <= end; j += 8) {
+        T e[8], p[8], w[8];
+        QPN_UNROLL
+        for (int k = 0; k < 8; ++k) {
+            e[k] = row[j + k];
+            p[k] = pr[j + k];
+            w[k] = val[j + k];
+        }
+        QPN_UNROLL
+        for (int k = 0; k < 8; ++k) {
+            const T v = pivot ? p[k] : e[k] - o * p[k];
+            row[j + k] = v;
+            e[k] = v * w[k];
+        }
+        QPN_UNROLL
+        for (int k = 0; k < 8; ++k) s -= e[k];
+    }
+    for (; j < end; ++j) {
+        const T v = pivot ? pr[j] : row[j] - o * pr[j];
+        row[j] = v;
+        s -= v * val[j];
+    }
+    return s;
+}
+
+// The same update of the whole row, for the host (which then sums the row
+// with lane_basic_value).
+template <typename T>
+QPN_HD void lane_update_row(const Lane<T>& L, int r, bool pivot) {
+    const int W = 3 * L.n + 2;
+    T* row = L.tab + r * L.ld;
+    const T o = L.other[r];
+    for (int j = 0; j < W; ++j) row[j] = pivot ? L.pr[j] : row[j] - o * L.pr[j];
+}
+
+// The least key of every thread's `key` into slot `slot` of this rank's
+// least ratio: the warp's least by shuffles, then one shared-memory atomic
+// a warp (the host: one thread, a plain min).
+template <typename T>
+QPN_HD void lane_publish_min(const Lane<T>& L, unsigned long long key,
+                             int slot) {
+#if defined(__CUDA_ARCH__)
+    key = lk_reduce_min(key);
+    if ((threadIdx.x & (QPN_WARP - 1)) == 0) atomicMin(&L.ctl->tmin[slot], key);
+#else
+    if (key < L.ctl->tmin[slot]) L.ctl->tmin[slot] = key;
+#endif
+}
+
+// Row r's basic value x and ratio into the band (the basis exchange first
+// where r is the pivot row); returns the least of `key` and the ratio's.
+template <typename T>
+QPN_HD unsigned long long lane_ratio(const Lane<T>& L, int r, T x,
+                                     bool pivot, int col, int ent, T edir,
+                                     T piv_tol, unsigned long long key) {
+    if (pivot) L.basis[r] = col;
+    L.xB[r] = x;
+    const T dr = edir * L.tab[r * L.ld + ent];
+    const int bv = L.basis[r];
+    T th;
+    if (dr > piv_tol) th = (x - L.vlb[bv]) / dr;
+    else if (dr < -piv_tol) th = (x - L.vub[bv]) / dr;
+    else th = lk_inf<T>();
+    if (lk_isnan(th)) th = lk_inf<T>();
+    if (th < T(0)) th = T(0);
+    L.d[r] = dr;
+    L.theta[r] = th;
+    const unsigned long long kth = lk_ratio_key(th);
+    return kth < key ? kth : key;
+}
+
+// The fused loop's pass: where `update`, the rank-1 update of the band
+// from pivot ctl->jstar (with the basis exchange, by the pivot row's
+// group); then the band's basic values, ratios and least ratio for step
+// ctl->k, published into tmin[k & 1].  A group of G threads on a row, as
+// lane_basic_values; on the host one thread walks every row.  (Two rows a
+// group, sharing the loads of the staged row and the values, measured
+// slower on an H100: half the warps to hide the latencies.)
+template <typename T>
+QPN_HD void lane_pass(const Lane<T>& L, int tid, int nthr, T piv_tol,
+                      bool update) {
+    const int n = L.rows;
+    LaneCtl<T>* c = L.ctl;
+    const int ent = c->ent, col = c->col, slot = c->k & 1;
+    const int js = update ? c->jstar - L.r0 : -1;  // off [0, n) off the band
+    const T edir = c->edir;
+    unsigned long long key = lk_ratio_key(lk_inf<T>());
+    // the other slot was B's a step ago; the next pass fills it
+    if (tid == 0) c->tmin[slot ^ 1] = key;
+#if defined(__CUDA_ARCH__)
+    const int g = tid & (kLemkeSplit - 1), slot_ = tid >> kLemkeSplitLog2;
+    const int P = nthr >> kLemkeSplitLog2;
+#else
+    const int g = 0, slot_ = tid, P = nthr;
+#endif
+    for (int base = 0; base < n; base += P) {
+        const int r = base + slot_;
+        const bool row = r < n;
+#if defined(__CUDA_ARCH__)
+        T x = T(0);
+        if (row)
+            x = update ? lane_update_partial(L, r, g, r == js)
+                       : lane_basic_partial(L, r, g);
+        x = lane_group_sum(x);
+        __syncwarp();                        // the group's new entries
+#else
+        if (row && update) lane_update_row(L, r, r == js);
+        const T x = row ? lane_basic_value(L, r) : T(0);
+#endif
+        if (!row || g != 0) continue;
+        key = lane_ratio(L, r, x, r == js, col, ent, edir, piv_tol, key);
+    }
+    lane_publish_min(L, key, slot);
+}
+
+// The least ratio of the lane for step ctl->k: the ranks' published least
+// ratios, thread `lane` of nl reading ranks lane, lane + nl, ...
+template <typename T>
+QPN_HD T lane_published_min(const Lane<T>& L, int lane, int nl) {
+    const int slot = L.ctl->k & 1;
+    unsigned long long key = ~0ull;
+    for (int k = lane; k < L.R; k += nl) {
+        const unsigned long long v = lk_peer(L, L.ctl, k)->tmin[slot];
+        if (v < key) key = v;
+    }
+    return lk_key_ratio<T>(lk_reduce_min(key));
+}
+
 // ---- phase B ---------------------------------------------------------------
 
 // Thread 0, at the end of an iteration: count it, and let the next one's
@@ -856,7 +1086,9 @@ QPN_HD int lane_lex_refine(const Lane<T>& L, int ncand, T piv_tol, int lane,
 // nl; 0 of 1 on the host): ray / bound flip / pivot-row choice after the
 // ratio test; thread 0 writes the outcome to ctl, with the bookkeeping of a
 // step that is no pivot.  Every branch is taken by all the threads alike.
-template <typename T>
+// kPublished: the least ratio from the ranks' published ones (the fused
+// loop), else a scan of every rank's ratios.
+template <typename T, bool kPublished = false>
 QPN_HD void lane_decide(const Lane<T>& L, T tol, T piv_tol, int max_pivots,
                         int lane, int nl) {
     const int n = L.n, T_ID = 3 * n;
@@ -869,10 +1101,14 @@ QPN_HD void lane_decide(const Lane<T>& L, T tol, T piv_tol, int max_pivots,
 
     QPN_PROF_START();
     T tstar = lk_inf<T>();
-    for (int k = 0; k < L.R; ++k) {
-        const T m = lk_scan_min(lk_peer(L, L.theta, k), lane_rows_of(L, k),
-                                lane, nl);
-        if (m < tstar) tstar = m;
+    if (kPublished) {
+        tstar = lane_published_min(L, lane, nl);
+    } else {
+        for (int k = 0; k < L.R; ++k) {
+            const T m = lk_scan_min(lk_peer(L, L.theta, k),
+                                    lane_rows_of(L, k), lane, nl);
+            if (m < tstar) tstar = m;
+        }
     }
     QPN_PROF(c, 4, lane == 0);
     const T theta_e = edir > T(0) ? L.vub[ent] - ev : ev - L.vlb[ent];
@@ -1025,6 +1261,46 @@ QPN_HD void lane_run(const Lane<T>& L, int tid, int nthr, T tol, T piv_tol,
                c->prof[5], c->prof[6], c->prof[7]);
 #endif
     lane_basic_values(L, tid, nthr, false, piv_tol);
+    if (tid == 0 && c->status == 0) c->status = LEMKE_MAX;
+    QPN_SYNC();
+}
+
+// The cluster instance's pivot loop: a pivot is B, S and the fused pass
+// (C of the pivot and A of the next step), with a barrier of the ranks
+// after the pass and after S.  A step that is no pivot runs the pass
+// without the update (its values changed).  The last pass leaves the final
+// basic values.  The host runs the same phases between the same barriers
+// for each rank in turn (lemke_lane_host.cpp).  Profile slots: 0 the
+// barrier after the pass, 1 B, 2 S with its barrier, 3 the pass.
+template <typename T>
+QPN_HD void lane_run_fused(const Lane<T>& L, int tid, int nthr, T tol,
+                           T piv_tol, int max_pivots) {
+    LaneCtl<T>* c = L.ctl;
+    lane_pass(L, tid, nthr, piv_tol, false);
+    QPN_PROF_START();
+    while (c->status == 0 && c->k < max_pivots) {
+        lane_sync_ranks(L);                  // B reads every band's ratios
+        QPN_PROF(c, 0, tid == 0);
+        if (tid < QPN_WARP)
+            lane_decide<T, true>(L, tol, piv_tol, max_pivots, tid, QPN_WARP);
+        QPN_SYNC();
+        QPN_PROF(c, 1, tid == 0);
+        const bool pivot = c->act == ACT_PIVOT;
+        if (pivot) lane_stage(L, max_pivots, tid, nthr);
+        // the pass overwrites what peers read in B and S
+        lane_sync_ranks(L);
+        QPN_PROF(c, 2, tid == 0 && pivot);
+        lane_pass(L, tid, nthr, piv_tol, pivot);
+        QPN_PROF(c, 3, tid == 0);
+    }
+#if defined(QPN_LEMKE_PROFILE) && defined(__CUDA_ARCH__)
+    if (tid == 0 && blockIdx.x < 2)
+        printf("lemke_fused_phases block %d iterations %d cycles barrier "
+               "%lld decide %lld stage %lld pass %lld | in decide: min %lld "
+               "ties %lld lex %lld rest %lld\n", (int)blockIdx.x, c->k - 1,
+               c->prof[0], c->prof[1], c->prof[2], c->prof[3], c->prof[4],
+               c->prof[5], c->prof[6], c->prof[7]);
+#endif
     if (tid == 0 && c->status == 0) c->status = LEMKE_MAX;
     QPN_SYNC();
 }

@@ -6,7 +6,8 @@
 // cluster's blocks are, or, for the spread global instance, R bands at
 // their stride in one workspace and R own parts, carved as its blocks are
 // (lane_carve_spread); each phase runs for rank 0, 1, ..., R-1 in turn
-// between the points where the card's ranks meet at their barrier.  That
+// between the points where the card's ranks meet at their barrier, in the
+// loop of the instance emulated (the cluster's fuses C with the next A).  That
 // gives the card's bits because between two such points no rank reads what
 // another writes (lemke_lane.cuh).  Not on any production path.
 
@@ -38,6 +39,28 @@ void run_ranks(const std::vector<qpn::Lane<T>>& L, T tol, T piv_tol,
     }
 }
 
+// The cluster instance's loop, lemke_lane.cuh::lane_run_fused, for the R
+// ranks of one lane: B and S, then the pass (C and the next A), each for
+// rank 0, 1, ..., R-1 in turn between the barriers.
+template <typename T>
+void run_ranks_fused(const std::vector<qpn::Lane<T>>& L, T tol, T piv_tol,
+                     int max_pivots) {
+    const qpn::LaneCtl<T>* c = L[0].ctl;     // every rank's scalars alike
+    for (const auto& r : L) qpn::lane_pass(r, 0, 1, piv_tol, false);
+    while (c->status == 0 && c->k < max_pivots) {
+        // the ranks' barrier
+        for (const auto& r : L) {
+            qpn::lane_decide<T, true>(r, tol, piv_tol, max_pivots, 0, 1);
+            if (r.ctl->act == qpn::ACT_PIVOT) qpn::lane_stage(r, max_pivots, 0, 1);
+        }
+        // the ranks' barrier
+        for (const auto& r : L)
+            qpn::lane_pass(r, 0, 1, piv_tol, r.ctl->act == qpn::ACT_PIVOT);
+    }
+    for (const auto& r : L)
+        if (r.ctl->status == 0) r.ctl->status = qpn::LEMKE_MAX;
+}
+
 template <typename T>
 void run_lanes(const qpn::LemkeBatch<T>& bt, int R, bool spread) {
     const int nb = qpn::lane_band_height(bt.n, R);
@@ -67,7 +90,8 @@ void run_lanes(const qpn::LemkeBatch<T>& bt, int R, bool spread) {
                                                bases.data());
             qpn::lane_load(L[k], bt, b, 0, 1);
         }
-        run_ranks(L, bt.tol, bt.piv_tol, bt.max_pivots);
+        if (spread || R == 1) run_ranks(L, bt.tol, bt.piv_tol, bt.max_pivots);
+        else run_ranks_fused(L, bt.tol, bt.piv_tol, bt.max_pivots);
         for (int k = 0; k < R; ++k) qpn::lane_store(L[k], bt, b, 0, 1);
     }
 }
@@ -78,7 +102,8 @@ extern "C" {
 
 // ranks: the lane spread over that many ranks (1: one block's lane, as
 // the shared instance and the global one at R = 1 run it); spread: carved
-// as the global instance spreads it (else as a cluster).
+// and run as the global instance spreads it (else as a cluster, in the
+// cluster instance's fused loop).
 void qpn_lemke_pivot_host_f32(QPN_LEMKE_PARAMS(float), int ranks,
                               int spread) {
     run_lanes(QPN_LEMKE_BATCH(float), ranks, spread != 0 && ranks > 1);
@@ -107,6 +132,16 @@ int qpn_lk_scan_ties_f64(const double* theta, const int* tag, int n,
 }
 
 int qpn_lemke_lane_stride(int n) { return qpn::lane_stride(n); }
+
+// The row stride of the cluster instance's band at R ranks under the
+// opt-in limit (the emulation keeps the odd stride: the bits do not
+// depend on it).
+int qpn_lemke_cluster_stride(int n, int itemsize, int ranks,
+                             long long smem_optin) {
+    const int nb = qpn::lane_band_height(n, ranks);
+    return itemsize == 4 ? qpn::lane_cluster_stride<float>(n, nb, smem_optin)
+                         : qpn::lane_cluster_stride<double>(n, nb, smem_optin);
+}
 
 // The instance the card's launcher picks for a lane (lemke_lane.cuh), and
 // the bytes of its working set: the same functions as the CUDA library's.

@@ -42,11 +42,18 @@
 //     vectors; the bands stay on chip for the whole path, and the phases
 //     read across ranks through distributed shared memory with two cluster
 //     barriers a pivot (lemke_lane.cuh).  Each rank decides alike from the
-//     same data, so no decision is sent between ranks.  What bounds it: the
-//     same chain as the shared instance's, with the decision's scans
-//     reading other SMs' shared memory and the cluster barriers, and at
-//     most one cluster on each pair of SMs (one band fills an SM's shared
-//     memory).  Launched with cudaLaunchKernelEx and a cluster dimension;
+//     same data, so no decision is sent between ranks.  A pivot's update
+//     and the next step's basic values and ratios are one pass over the
+//     band (lane_run_fused: a group of 4 threads a row updates its chunk
+//     and sums it while it is in registers), so the band is read and
+//     written once a pivot, and each rank publishes its band's least ratio
+//     for the decision; its rows lie at a stride that puts a warp's reads
+//     of the pass on different banks (lane_cluster_stride).  What bounds it: the shared-memory traffic of that
+//     pass (the band read and written, the staged row and the values read)
+//     and the chain of phases, with the decision's scans reading other SMs'
+//     shared memory and the cluster barriers, and at most one cluster on
+//     each pair of SMs (one band fills an SM's shared memory).  Launched
+//     with cudaLaunchKernelEx and a cluster dimension;
 //     the first launch at each size checks that such a cluster fits the
 //     card (cudaOccupancyMaxActiveClusters) and returns CUDA's error where
 //     it does not: there is no fallback to another instance;
@@ -100,29 +107,37 @@ constexpr int kThreads = 256;   // a multiple of 32 and of qpn::kLemkeSplit
 // H100).
 constexpr int kClusterThreads = 512;
 
-template <int kInstance>
-__host__ __device__ constexpr int block_threads() {
-    return kInstance == qpn::LANE_CLUSTER ? kClusterThreads : kThreads;
+// One block a lane (LANE_SHARED): the block's dynamic shared memory.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lemke_pivot_kernel(qpn::LemkeBatch<T> bt) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const qpn::Lane<T> L = qpn::lane_carve<T>(smem, bt.n);
+    qpn::lane_load(L, bt, blockIdx.x, threadIdx.x, kThreads);
+    qpn::lane_run(L, threadIdx.x, kThreads, bt.tol, bt.piv_tol,
+                  bt.max_pivots);
+    qpn::lane_store(L, bt, blockIdx.x, threadIdx.x, kThreads);
 }
 
-// One block a lane (LANE_SHARED: the block's dynamic shared memory), or
-// one cluster of R blocks a lane (LANE_CLUSTER: rank k's band in block k's
-// shared memory).
-template <typename T, int kInstance>
-__global__ void __launch_bounds__(block_threads<kInstance>())
-lemke_pivot_kernel(qpn::LemkeBatch<T> bt, int R) {
+// One cluster of R blocks a lane (LANE_CLUSTER): rank k's band in block
+// k's shared memory, the fused loop.  One block an SM is all a band's
+// shared memory allows, so the bound lets nvcc give a thread up to 128
+// registers (under the bound of 512 threads alone it held the f32 kernel
+// to 64 and spilled).
+template <typename T>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+lemke_pivot_cluster_kernel(qpn::LemkeBatch<T> bt, int R, int ld) {
     extern __shared__ __align__(16) unsigned char smem[];
-    const bool spread = kInstance == qpn::LANE_CLUSTER;
-    const int rank = spread ? (int)cg::this_cluster().block_rank() : 0;
-    const size_t b = spread ? blockIdx.x / R : blockIdx.x;
+    const int rank = (int)cg::this_cluster().block_rank();
+    const size_t b = blockIdx.x / R;
     const qpn::Lane<T> L =
-        qpn::lane_carve<T>(smem, bt.n, spread ? R : 1, rank);
-    constexpr int nthr = block_threads<kInstance>();
-    qpn::lane_load(L, bt, b, threadIdx.x, nthr);
-    qpn::lane_run(L, threadIdx.x, nthr, bt.tol, bt.piv_tol, bt.max_pivots);
-    qpn::lane_store(L, bt, b, threadIdx.x, nthr);
+        qpn::lane_carve<T>(smem, bt.n, R, rank, nullptr, ld);
+    qpn::lane_load(L, bt, b, threadIdx.x, kClusterThreads);
+    qpn::lane_run_fused(L, threadIdx.x, kClusterThreads, bt.tol, bt.piv_tol,
+                        bt.max_pivots);
+    qpn::lane_store(L, bt, b, threadIdx.x, kClusterThreads);
     // no block leaves while a peer may still read its shared memory
-    if (spread) cg::this_cluster().sync();
+    cg::this_cluster().sync();
 }
 
 // The global instance: R blocks a lane.  At R = 1, lane b whole in the
@@ -164,11 +179,11 @@ template <typename T>
 int launch_shared(const qpn::LemkeBatch<T>& bt, cudaStream_t stream) {
     if (bt.B <= 0) return 0;
     const size_t bytes = qpn::lane_bytes<T>(bt.n);
-    auto kernel = lemke_pivot_kernel<T, qpn::LANE_SHARED>;
+    auto kernel = lemke_pivot_kernel<T>;
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
-    kernel<<<bt.B, kThreads, bytes, stream>>>(bt, 1);
+    kernel<<<bt.B, kThreads, bytes, stream>>>(bt);
     return cudaGetLastError();
 }
 
@@ -196,11 +211,13 @@ template <typename T>
 int launch_cluster(const qpn::LemkeBatch<T>& bt, int R, cudaStream_t stream) {
     // the largest band checked at each cluster size
     static size_t checked[qpn::kLaneMaxRanks + 1] = {};
-    const size_t bytes = R < 1 ? 0 : qpn::lane_band_bytes<T>(
-        bt.n, qpn::lane_band_height(bt.n, R));
-    return qpn::launch_cluster(lemke_pivot_kernel<T, qpn::LANE_CLUSTER>,
-                               checked, bt.B, R, kClusterThreads, bytes,
-                               stream, bt, R);
+    if (R < 1) return cudaErrorInvalidValue;
+    const int nb = qpn::lane_band_height(bt.n, R);
+    const int ld = qpn::lane_cluster_stride<T>(bt.n, nb, qpn::smem_optin());
+    return qpn::launch_cluster(lemke_pivot_cluster_kernel<T>, checked, bt.B,
+                               R, kClusterThreads,
+                               qpn::lane_band_bytes<T>(bt.n, nb, ld), stream,
+                               bt, R, ld);
 }
 
 }  // namespace

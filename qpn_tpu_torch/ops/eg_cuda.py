@@ -11,9 +11,11 @@ first use (``utils/cuda_build.py``) and launched on the current stream.
 Before the launch the wrapper picks the instance from n alone
 (``csrc/eg_lane.cuh::eg_instance`` against the card's shared-memory opt-in
 limit): M in registers (n <= 128) or in shared memory (up to n = 238 on an
-H100), counted in ``METRICS.launches["eg_warmstart"]``; M spread over the
-shared memory of a cluster of 2-8 blocks (``eg_cluster_ranks``), counted in
-``METRICS.launches["eg_warmstart_cluster"]``; or, past 8 blocks, the
+H100), counted in ``METRICS.launches["eg_warmstart"]``; M spread over a
+cluster of 2-8 blocks (``eg_cluster_ranks``; n = 239-671 on an H100), a row
+over four threads that hold part of it in registers and the rest in shared
+memory, counted in ``METRICS.launches["eg_warmstart_cluster"]``; or, past
+8 blocks, the
 global instance, counted in ``METRICS.launches["eg_warmstart_global"]``:
 each lane spread over the ranks ``eg_global_ranks`` picks from the shape,
 the batch and the card's resident blocks (R blocks on any SMs, each band
@@ -97,6 +99,12 @@ def _host_lib() -> ctypes.CDLL:
                                                 ctypes.c_longlong]
         lib.qpn_eg_band_bytes.restype = ctypes.c_longlong
         lib.qpn_eg_band_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.qpn_eg_cluster_chunk.restype = ctypes.c_int
+        lib.qpn_eg_cluster_chunk.argtypes = [ctypes.c_int]
+        lib.qpn_eg_cluster_rank_bytes.restype = ctypes.c_longlong
+        lib.qpn_eg_cluster_rank_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.qpn_eg_cluster_reach.restype = ctypes.c_int
+        lib.qpn_eg_cluster_reach.argtypes = [ctypes.c_int, ctypes.c_longlong]
         _instance_function(lib)
         _HOST_LIB = lib
     return _HOST_LIB
@@ -316,6 +324,26 @@ def host_band_bytes(n: int, ranks: int) -> int:
 
 def host_cluster_ranks(n: int, optin: int) -> int:
     """The blocks of the cluster instance's lane for rows of ``n`` under the
-    opt-in limit ``optin`` (0: no cluster of at most 8 holds it), from the
+    opt-in limit ``optin`` (0: past the instance's domain), from the
     kernel's header built for the host."""
     return _host_lib().qpn_eg_cluster_ranks(int(n), int(optin))
+
+
+def host_cluster_reach(n: int, optin: int) -> bool:
+    """Whether rows of ``n`` lie in the cluster instance's domain under
+    ``optin``: some cluster of at most 8 blocks holds M's bands in shared
+    memory."""
+    return bool(_host_lib().qpn_eg_cluster_reach(int(n), int(optin)))
+
+
+def host_cluster_chunk(n: int) -> int:
+    """Columns of a row that each of its four threads sums in the cluster
+    instance (the partition of its order of sums)."""
+    return _host_lib().qpn_eg_cluster_chunk(int(n))
+
+
+def host_cluster_rank_bytes(n: int, ranks: int) -> int:
+    """Shared memory of one rank of the cluster instance at ``ranks`` blocks
+    a lane: z and z½, and the part of the band its threads do not hold in
+    registers."""
+    return _host_lib().qpn_eg_cluster_rank_bytes(int(n), int(ranks))

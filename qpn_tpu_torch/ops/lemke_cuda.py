@@ -102,7 +102,9 @@ def _host_lib() -> ctypes.CDLL:
                   ctypes.POINTER(ci)]),
                 (lib.qpn_lemke_lane_stride, ci, [ci]),
                 (lib.qpn_lemke_spread_own_bytes, ctypes.c_longlong,
-                 [ci, ci])):
+                 [ci, ci]),
+                (lib.qpn_lemke_cluster_stride, ci,
+                 [ci, ci, ci, ctypes.c_longlong])):
             fn.restype, fn.argtypes = res, args
         _shape_functions(lib)
         _HOST_LIB = lib
@@ -168,6 +170,16 @@ def host_global_lane_bytes(n: int, itemsize: int, ranks: int) -> int:
     """Bytes of the global instance's workspace a lane at ``ranks``."""
     return _host_lib().qpn_lemke_global_lane_bytes(int(n), int(itemsize),
                                                    int(ranks))
+
+
+def host_cluster_stride(n: int, itemsize: int, ranks: int,
+                        optin: int) -> int:
+    """Elements between the rows of the cluster instance's band at
+    ``ranks`` blocks under ``optin`` (its launcher's choice: a stride at
+    which the fused pass's reads meet no bank conflict where the band still
+    fits, else the odd stride), from the kernel's header."""
+    return _host_lib().qpn_lemke_cluster_stride(int(n), int(itemsize),
+                                                int(ranks), int(optin))
 
 
 def host_spread_own_bytes(n: int, itemsize: int) -> int:

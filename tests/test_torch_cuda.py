@@ -142,6 +142,53 @@ def test_kernel_takes_a_lane_too_large_for_shared_memory(cuda_device, dtype,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("source,n,dtype,kw", [
+    ("box", 136, torch.float32, HOT), (4, 152, torch.float32, HOT),
+    (5, 190, torch.float32, HOT), ("ra95", 95, torch.float64, F64),
+    (4, 152, torch.float64, F64)],
+    ids=["f32_n136", "f32_n152", "f32_n190", "f64_n95", "f64_n152"])
+def test_k1_cluster_fused_loop_gives_the_shared_instance_bits(
+        cuda_device, source, n, dtype, kw):
+    """K1's cluster instance (one pass over its band a pivot, each rank's
+    least ratio published) at the first n of its domain in f32 and f64 and
+    at phase 20's: status, pivots, basis, values and basic values equal to
+    the g++ host instance at R = 1 (the shared instance's phases apart) on
+    8 lanes, bit for bit."""
+    from qpn_tpu_torch.ops import lemke_cuda
+    if source == "box":
+        rng = np.random.default_rng(136)
+        A = rng.standard_normal((8, n, n)) / np.sqrt(n)
+        M = np.einsum("bij,bkj->bik", A, A) + 0.1 * np.eye(n)[None]
+        arrays = (M, rng.standard_normal((8, n)),
+                  np.where(rng.random((8, n)) < 0.5, 0.0, -np.inf),
+                  np.where(rng.random((8, n)) < 0.3, 1.0, np.inf),
+                  np.zeros((8, n)))
+        t = dict(zip(("M", "q", "l", "u", "z0"),
+                     (torch.as_tensor(a, device=cuda_device)
+                      for a in arrays)))
+        t["mask"] = torch.ones(8, n, dtype=torch.bool, device=cuda_device)
+    else:
+        T, num_obj = (5, 1) if source == "ra95" else (source, 2)
+        t = batch_from_numpy(scenario_batch_gavis(
+            num_scenarios=8, T=T, num_obj=num_obj, num_poly_faces=4,
+            seed=0), cuda_device)
+    init = lemke.lemke_setup(*(t[k].to(dtype) for k in
+                               ("M", "q", "l", "u", "z0")), t["mask"],
+                             tol=kw["tol"])
+    assert init.T.shape[1] == n
+    assert lemke_cuda.card_instance(n, init.T.element_size(),
+                                    cuda_device)[0] == lemke_cuda.LANE_CLUSTER
+    rk = lemke_pivot_cuda(init, max_pivots=1024, **kw)
+    torch.cuda.synchronize()
+    rh = lemke_cuda.lemke_pivot_host(
+        lemke.LemkeInit(*(a.cpu() for a in init)), max_pivots=1024,
+        ranks=1, **kw)
+    assert (rh.status == lemke.LEMKE_SUCCESS).all()
+    for name in rk._fields:
+        assert torch.equal(getattr(rk, name).cpu(), getattr(rh, name)), name
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("T,dtype,kw,lanes", [
     (4, torch.float32, HOT, 256), (5, torch.float32, HOT, 256),
     (4, torch.float64, F64, 16)], ids=["f32_n152", "f32_n190", "f64_n152"])
@@ -471,8 +518,9 @@ def test_eg_kernel_takes_a_lane_too_large_for_shared_memory(cuda_device, n):
     """Past shared memory (n = 239: M of 233 KB with its odd stride) the
     kernel spreads M over a cluster's blocks: one launch counted under the
     cluster instance's name, the plain loop within 1e-5 of the lane scale
-    after 300 steps, the bits of the host emulation of its ranks and of the
-    global instance (the private launcher)."""
+    after 300 steps, the bits of the host emulation of its ranks, and the
+    global instance (the private launcher; one chunk a row where the
+    cluster instance sums four) within 1e-5 of the lane scale."""
     p = _eg_random(cuda_device, n, B=4, seed=n)
     ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
     METRICS.reset()
@@ -488,7 +536,56 @@ def test_eg_kernel_takes_a_lane_too_large_for_shared_memory(cuda_device, n):
                                optin=eg_cuda.card_optin(cuda_device))
     assert torch.equal(zk.cpu(), zh)
     zg = eg_cuda._launch(*ins, 300, instance=eg_cuda.EG_GLOBAL)
-    assert torch.equal(zk, zg)
+    assert float((zk - zg).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [239, 304, 480, 671])
+def test_k2_cluster_instance_gives_the_host_bits(cuda_device, n):
+    """K2's cluster instance at the first and last n of its domain and two
+    between, at the ranks the wrapper picks (2, 2, 3, 6 on an H100): z after
+    300 steps equal to the g++ emulation of those ranks in the cluster's
+    partition, bit for bit; one launch counted under its name."""
+    p = _eg_random(cuda_device, n, B=4, seed=n + 7)
+    ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
+    instance, ranks = eg_cuda.card_instance(n, cuda_device)
+    assert instance == eg_cuda.EG_CLUSTER and 2 <= ranks <= 8
+    METRICS.reset()
+    zk = eg_cuda.eg_warmstart_cuda(*ins, 300)
+    torch.cuda.synchronize()
+    assert METRICS.launches[eg_cuda.KERNEL_CLUSTER] == 1
+    zh = eg_cuda.eg_steps_host(*(a.cpu() for a in ins), 300,
+                               optin=eg_cuda.card_optin(cuda_device))
+    assert torch.equal(zk.cpu(), zh)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ranks", [3, 8])
+def test_k2_cluster_instance_at_other_ranks(cuda_device, ranks):
+    """The private launcher spreads n=304 over 3 and 8 blocks: the bits of
+    the emulation of those ranks, which are the bits at the picked 2."""
+    p = _eg_random(cuda_device, 304, B=4, seed=11)
+    ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
+    zk = eg_cuda._launch(*ins, 300, instance=eg_cuda.EG_CLUSTER,
+                         ranks=ranks)
+    z2 = eg_cuda.eg_warmstart_cuda(*ins, 300)
+    torch.cuda.synchronize()
+    zh = eg_cuda.eg_steps_host(*(a.cpu() for a in ins), 300, ranks=ranks)
+    assert torch.equal(zk.cpu(), zh)
+    assert torch.equal(zk, z2)
+
+
+@pytest.mark.gpu
+def test_k2_cluster_refuses_a_chunk_shorter_than_its_registers(cuda_device):
+    """At n=130 a thread's chunk (36 columns) is shorter than the entries it
+    holds in registers: the private launcher's cluster launch raises, and
+    counts nothing."""
+    p = _eg_random(cuda_device, 130, B=2)
+    METRICS.reset()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        eg_cuda._launch(p.M, p.q, p.l, p.u, p.z0, p.tau, 10,
+                        instance=eg_cuda.EG_CLUSTER, ranks=2)
+    assert sum(METRICS.launches.values()) == 0
 
 
 @pytest.mark.gpu

@@ -8,17 +8,24 @@ across ranks.  The g++ host build carves R buffers as the card's blocks are
 carved and runs each phase for rank 0, 1, ..., R-1 in turn between the
 points where the card's ranks meet at the cluster's barrier.  Each rank's
 sums walk the same order as one block's, so the emulation at any R gives
-the bits of the host instance at R = 1 (the shared and global instances'
-lane code): status, pivots, basis, nonbasic values and basic values for
-K1, z for K2, x and max |v| for K3 (whose rank k also holds a band of A's
+the bits of the host instance at R = 1: status, pivots, basis, nonbasic
+values and basic values for K1 (whose cluster instance fuses a pivot's
+update with the next step's basic values and ratios, and whose decision
+reads each rank's least ratio: the bits of the shared instance's phases
+apart), z for K2 (in the cluster instance's partition of every row's sum:
+four chunks joined by a butterfly, not the shared and global instances'
+one chunk), x and max |v| for K3 (whose rank k also holds a band of A's
 columns for phase 2).  At R = 2, K1 also lands where the JAX package's KKT
-solve does on the same numpy inputs, and at R = 3 K3 where the JAX
-package's Pallas screen does in interpret mode.
+solve does on the same numpy inputs, K2 where its Pallas kernel does in
+interpret mode, and at R = 3 K3 where the JAX package's Pallas screen does
+in interpret mode.
 
 Lanes: a few of robust_avoid's ensembles at num_obj=2, seed 0 (T=4, 5: n =
 152, 190 for K1 in f32 at the hot route's tolerances and n = 152 in f64 at
-the re-pivot's; T=8: n = 304 for K2, 300 steps); for K3, 4 seeded
-polyhedra of 260 rows in dimension 240 (every second one empty), 120 steps.
+the re-pivot's; T=8: n = 304 for K2, 300 steps), at num_obj=1, T=5 (n = 95,
+K1 in f64), and seeded monotone box AVIs (K1 f32 at n = 136; K2 at n = 239,
+304, 480, 671); for K3, 4 seeded polyhedra of 260 rows in dimension 240
+(every second one empty), 120 steps.
 """
 
 import functools
@@ -36,6 +43,9 @@ from qpn_tpu_torch.utils.cuda_build import HOPPER_SMEM_OPTIN
 HOT = dict(tol=1e-6, piv_tol=1e-5, max_pivots=1024)
 F64 = dict(tol=1e-11, piv_tol=1e-11, max_pivots=1024)
 JAX_Z_TOL = 1e-8
+# K2 against the plain loop (300 steps) and the JAX package's Pallas kernel
+# (20000 steps): f32 sums in another order, as chip_smoke.py's EG_TOL
+EG_RTOL = {300: 1e-5, 20000: 1e-4}
 # K3 against the JAX package's screen (tests/test_torch_screen.py): f32
 # sums in another order, a few ulps a step over 120 contracting steps
 SCREEN_TOL = 1e-5
@@ -51,26 +61,49 @@ def _cpu_device(monkeypatch):
 
 
 @functools.lru_cache(maxsize=None)
-def _ensemble(S, T):
-    return scenario_batch_gavis(num_scenarios=S, T=T, num_obj=2,
+def _ensemble(S, T, num_obj=2):
+    return scenario_batch_gavis(num_scenarios=S, T=T, num_obj=num_obj,
                                 num_poly_faces=4, seed=0)
 
 
-def _k1_init(T, dtype, kw, S=4):
-    b = _ensemble(S, T)
-    M, q, l, u, z0 = (torch.as_tensor(b[k]).to(dtype) for k in
-                      ("M", "q", "l", "u", "z0"))
-    return lemke.lemke_setup(M, q, l, u, z0, torch.as_tensor(b["mask"]),
+def _box_avi(n, B, seed):
+    """Seeded monotone box AVIs (``test_torch_eg.py``'s recipe) as numpy
+    arrays M, q, l, u, z0."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, n, n)) / np.sqrt(n)
+    M = np.einsum("bij,bkj->bik", A, A) + 0.1 * np.eye(n)[None]
+    q = rng.standard_normal((B, n))
+    l = np.where(rng.random((B, n)) < 0.5, 0.0, -np.inf)
+    u = np.where(rng.random((B, n)) < 0.3, 1.0, np.inf)
+    return M, q, l, u, np.zeros((B, n))
+
+
+def _k1_init(T, dtype, kw, S=4, num_obj=2):
+    """K1's setup on S lanes of robust_avoid at T (T = 0: seeded box AVIs
+    of n = 136, which no robust_avoid size gives)."""
+    if T == 0:
+        arrays, mask = _box_avi(136, S, 136), np.ones((S, 136), dtype=bool)
+    else:
+        b = _ensemble(S, T, num_obj)
+        arrays = [b[k] for k in ("M", "q", "l", "u", "z0")]
+        mask = b["mask"]
+    M, q, l, u, z0 = (torch.as_tensor(a).to(dtype) for a in arrays)
+    return lemke.lemke_setup(M, q, l, u, z0, torch.as_tensor(mask),
                              tol=kw["tol"])
 
 
 @pytest.mark.parametrize("ranks", [2, 3, PICKED], ids=["R2", "R3", "picked"])
-@pytest.mark.parametrize("T,n,dtype,kw", [
-    (4, 152, torch.float32, HOT), (5, 190, torch.float32, HOT),
-    (4, 152, torch.float64, F64)], ids=["f32_n152", "f32_n190", "f64_n152"])
-def test_k1_cluster_emulation_gives_the_host_instance_bits(T, n, dtype, kw,
-                                                           ranks):
-    init = _k1_init(T, dtype, kw)
+@pytest.mark.parametrize("T,num_obj,n,dtype,kw", [
+    (4, 2, 152, torch.float32, HOT), (5, 2, 190, torch.float32, HOT),
+    (4, 2, 152, torch.float64, F64), (0, 0, 136, torch.float32, HOT),
+    (5, 1, 95, torch.float64, F64)],
+    ids=["f32_n152", "f32_n190", "f64_n152", "f32_n136", "f64_n95"])
+def test_k1_cluster_emulation_gives_the_host_instance_bits(T, num_obj, n,
+                                                           dtype, kw, ranks):
+    """The cluster instance's fused loop at R ranks (the lane's first and
+    last n in f32 and f64 among them: 136 and 95) against the shared
+    instance's phases at R = 1, bit for bit."""
+    init = _k1_init(T, dtype, kw, num_obj=num_obj)
     itemsize = init.T.element_size()
     assert init.T.shape[1] == n
     assert lemke_cuda.host_lane_instance(
@@ -112,6 +145,55 @@ def test_k1_cluster_emulation_matches_the_jax_package():
     np.testing.assert_array_equal(piv.numpy(), np.asarray(ref.iters))
     np.testing.assert_allclose(z.numpy(), np.asarray(ref.z), rtol=0,
                                atol=JAX_Z_TOL)
+
+
+@pytest.mark.parametrize("ranks", [2, 3, 4, 5, 6, 7, 8],
+                         ids=[f"R{r}" for r in range(2, 9)])
+@pytest.mark.parametrize("n", [239, 304, 480, 671])
+def test_k2_cluster_partition_gives_the_one_rank_bits(n, ranks):
+    """K2's cluster instance at the first and last n of its domain and two
+    between: the emulation of R ranks in the cluster's partition (a row's
+    sum in four chunks joined by a butterfly) gives the bits of one rank in
+    that partition, 40 steps on 2 seeded lanes."""
+    p = eg.eg_prepare(*(torch.as_tensor(a) for a in _box_avi(n, 2, n)),
+                      torch.ones(2, n, dtype=torch.bool))
+    ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
+    assert eg_cuda.host_instance(n, HOPPER_SMEM_OPTIN) == eg_cuda.EG_CLUSTER
+    one = eg_cuda.eg_steps_host(*ins, 40, ranks=1)
+    assert bool(torch.isfinite(one).all())
+    assert torch.equal(eg_cuda.eg_steps_host(*ins, 40, ranks=ranks), one)
+
+
+@pytest.mark.parametrize("n", [239, 304, 480, 671])
+def test_k2_cluster_partition_matches_plain_loop(n):
+    """The cluster instance's partition at the ranks an H100 picks is still
+    the plain loop's iteration: z within 1e-5 of the lane scale after 300
+    steps."""
+    p = eg.eg_prepare(*(torch.as_tensor(a) for a in _box_avi(n, 2, n + 1)),
+                      torch.ones(2, n, dtype=torch.bool))
+    ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
+    zh = eg_cuda.eg_steps_host(*ins, 300)
+    zp = eg.eg_steps_torch(*ins, 300)
+    scale = 1.0 + float(zp.abs().max())
+    assert float((zh - zp).abs().max()) <= EG_RTOL[300] * scale
+
+
+def test_k2_cluster_emulation_matches_the_jax_package():
+    """One lane of robust_avoid at T=8, num_obj=2 (n=304, the cluster
+    instance at R = 2 on an H100) through the port's warm start on the
+    cluster's emulation and through the JAX package's Pallas kernel in
+    interpret mode (as ``tests/test_pallas.py`` runs it), 20000 steps: z
+    within 1e-4 of the lane scale."""
+    from qpn_tpu.ops import pallas_kernels as pk
+    b = _ensemble(1, 8)
+    problem = tuple(b[k] for k in ("M", "q", "l", "u", "z0", "mask"))
+    assert problem[1].shape == (1, 304)
+    assert eg_cuda.host_cluster_ranks(304, HOPPER_SMEM_OPTIN) == 2
+    ref = pk.eg_warmstart(*problem, steps=20000)
+    z = eg.eg_warmstart(*(torch.as_tensor(a) for a in problem), steps=20000,
+                        engine=eg_cuda.eg_steps_host)
+    scale = 1.0 + np.abs(ref).max()
+    assert np.abs(z.numpy() - ref).max() <= EG_RTOL[20000] * scale
 
 
 @pytest.mark.parametrize("ranks", [2, 3, PICKED], ids=["R2", "R3", "picked"])

@@ -8,7 +8,9 @@ bytes on an H100), whose large array stays in device memory: K1's tableau
 (``csrc/screen_lane.cuh``).  Between the two, each kernel spreads a lane over
 the shared memory of a cluster of 2-8 blocks (``lane_cluster_ranks``,
 ``eg_cluster_ranks``, ``screen_cluster_ranks``: the fewest ranks whose bands
-fit); past 8 ranks the device-memory instance takes the lane.  The choice is a pure function of
+fit; K2's cluster instance, which holds part of a band in its threads'
+registers, the fewest whose rank fits its 320 threads and the limit, within
+the same domain); past 8 ranks the device-memory instance takes the lane.  The choice is a pure function of
 the shape and the limit, built here with g++ from the kernels' headers; the
 tests pin its boundaries.  The g++ host instances run the lane code of the instance the
 launcher picks, on a lane carved as that instance carves it; at the new
@@ -25,7 +27,10 @@ contract:
   relative, as ``test_torch_screen.py``.
 
 Where the card holds a large array in device memory or in shared memory,
-the sums are the same: both carvings give the same bits.
+the sums are the same: both carvings give the same bits (K2's cluster
+instance sums in its own partition).  K1's cluster instance spaces its band
+rows so that its pass reads them without bank conflicts where the band
+still fits (``lane_cluster_stride``).
 """
 
 import numpy as np
@@ -96,6 +101,37 @@ def test_k1_cluster_ranks_at_their_boundaries(itemsize, n, ranks):
         lemke_cuda.host_lane_bytes(n, itemsize)
 
 
+def _conflict_free(ld, n, itemsize):
+    """Whether the 32 entries a warp of K1's fused pass reads at once (one
+    of each of 4 chunks of 8 rows ld apart) lie on different banks (f64:
+    the 16 of each half-warp on different pairs)."""
+    C = (3 * n + 1 + 3) // 4
+    words = 32 if itemsize == 4 else 16
+    slots = words // 4
+    return all(len({(s * ld + g * C) % words for s in range(h, h + slots)
+                    for g in range(4)}) == words
+               for h in range(0, 8, slots))
+
+
+@pytest.mark.parametrize("itemsize,n", [
+    (4, 136), (4, 152), (4, 190), (4, 374), (8, 95), (8, 152), (8, 257)])
+def test_k1_cluster_stride(itemsize, n):
+    """The cluster instance's band rows lie at a stride of at least 3n+2
+    at which the fused pass's reads meet no bank conflict where the band
+    still fits the limit at the picked ranks (else at the odd stride, so the
+    ranks stay lane_cluster_ranks'); a limit of 0 bytes keeps the odd
+    stride."""
+    ranks = lemke_cuda.host_cluster_ranks(n, itemsize, HOPPER_SMEM_OPTIN)
+    odd = (3 * n + 2) | 1
+    ld = lemke_cuda.host_cluster_stride(n, itemsize, ranks, HOPPER_SMEM_OPTIN)
+    assert 3 * n + 2 <= ld < 3 * n + 2 + 64
+    assert ld == odd or _conflict_free(ld, n, itemsize)
+    # the shapes phase 20 times (f64 at n=95 fits only at the odd stride)
+    if n in (136, 152, 190):
+        assert _conflict_free(ld, n, itemsize)
+    assert lemke_cuda.host_cluster_stride(n, itemsize, ranks, 0) == odd
+
+
 @pytest.mark.parametrize("n,want", [
     (38, eg_cuda.EG_REGISTER), (128, eg_cuda.EG_REGISTER),
     (129, eg_cuda.EG_SHARED), (238, eg_cuda.EG_SHARED),
@@ -105,11 +141,43 @@ def test_k2_instance_at_its_boundary(n, want):
     assert eg_cuda.host_instance(n, HOPPER_SMEM_OPTIN) == want
 
 
+# K2's cluster instance keeps its domain (n = 239-671 on an H100: some
+# cluster of at most 8 blocks holds M's bands in shared memory), and takes
+# the fewest ranks whose rank fits 320 threads (a group of 4 on every two
+# rows: band rows up to 160) and, beside the part of the band its threads
+# hold in registers, the limit.
 @pytest.mark.parametrize("n,ranks", [
-    (239, 2), (304, 2), (336, 2), (337, 3), (411, 3), (412, 4), (627, 7),
-    (628, 8), (671, 8), (672, 0)])
+    (239, 2), (304, 2), (320, 2), (321, 3), (480, 3), (481, 4), (592, 4),
+    (593, 5), (640, 5), (641, 6), (671, 6), (672, 0)])
 def test_k2_cluster_ranks_at_their_boundaries(n, ranks):
     assert eg_cuda.host_cluster_ranks(n, HOPPER_SMEM_OPTIN) == ranks
+    if not ranks:
+        return
+    nb = -(-n // ranks)
+    assert nb <= 160
+    assert eg_cuda.host_cluster_rank_bytes(n, ranks) <= HOPPER_SMEM_OPTIN
+    if ranks > 2:
+        fewer = -(-n // (ranks - 1))
+        assert fewer > 160 or eg_cuda.host_cluster_rank_bytes(
+            n, ranks - 1) > HOPPER_SMEM_OPTIN
+
+
+def test_k2_cluster_domain_is_kept():
+    """Every n of 239-671 takes the cluster instance on an H100 (its domain
+    before the instance held part of M in registers), with ranks; 238 the
+    shared instance, 672 the global one."""
+    for n in range(239, 672):
+        assert eg_cuda.host_instance(n, HOPPER_SMEM_OPTIN) == \
+            eg_cuda.EG_CLUSTER, n
+        assert eg_cuda.host_cluster_reach(n, HOPPER_SMEM_OPTIN), n
+        assert 2 <= eg_cuda.host_cluster_ranks(n, HOPPER_SMEM_OPTIN) <= 8, n
+        # a thread's registers hold the first 60 entries of its chunk
+        assert eg_cuda.host_cluster_chunk(n) >= 60, n
+    assert eg_cuda.host_instance(238, HOPPER_SMEM_OPTIN) == eg_cuda.EG_SHARED
+    assert eg_cuda.host_instance(672, HOPPER_SMEM_OPTIN) == eg_cuda.EG_GLOBAL
+    assert not eg_cuda.host_cluster_reach(672, HOPPER_SMEM_OPTIN)
+    assert eg_cuda.host_cluster_chunk(304) == 76
+    assert eg_cuda.host_cluster_chunk(241) == 64
 
 
 # The global instance's ranks: the card's resident blocks (an H100's 132,
@@ -308,9 +376,11 @@ def test_k2_global_instance_matches_plain_loop(n, steps):
 
 
 def test_k2_global_and_shared_carvings_give_the_same_bits():
-    """M read in place (a limit of 0 bytes), copied to one block (a limit
-    every lane fits) and spread over a cluster's ranks (an H100's limit):
-    the same bits."""
+    """M read in place (a limit of 0 bytes) and copied to one block (a limit
+    every lane fits): the same bits.  Spread over a cluster's ranks (an
+    H100's limit), the lane sums in the cluster instance's partition: the
+    bits of one rank in that partition, within 1e-5 of the lane scale of
+    the others after 50 steps."""
     p = _box_avi(304, seed=3, B=2)
     ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
     assert eg_cuda.host_instance(304, 0) == eg_cuda.EG_GLOBAL
@@ -319,7 +389,10 @@ def test_k2_global_and_shared_carvings_give_the_same_bits():
         eg_cuda.EG_CLUSTER
     z = eg_cuda.eg_steps_host(*ins, 50, optin=0)
     assert torch.equal(eg_cuda.eg_steps_host(*ins, 50, optin=BIG_OPTIN), z)
-    assert torch.equal(eg_cuda.eg_steps_host(*ins, 50), z)
+    zc = eg_cuda.eg_steps_host(*ins, 50)
+    assert torch.equal(eg_cuda.eg_steps_host(*ins, 50, ranks=1), zc)
+    scale = 1.0 + float(z.abs().max())
+    assert float((zc - z).abs().max()) <= EG_RTOL * scale
 
 
 # --- K3: A in device memory ----------------------------------------------------

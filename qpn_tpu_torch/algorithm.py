@@ -1318,9 +1318,10 @@ def solve(qpn: QPNet, x_init=None, parent_level_request=frozenset(),
     frontiers under ``<checkpoint_path>.frontiers``, and the solution graphs
     at the end (utils/checkpoint; ``resume`` continues from the file).
 
-    The counters and timers of ``METRICS`` restart at every call, except
-    under a lockstep broker, where the scenario threads share them; the
-    kernel launch counts never do (a caller reads them across calls).
+    The counters of ``METRICS`` (span times included) restart at every
+    call, except under a lockstep broker, where the scenario threads share
+    them; the kernel launch counts never do (a caller reads them across
+    calls).
 
     The batched work runs on ``CONFIG.device``, the card by default; without
     a CUDA device the call raises (set ``CONFIG.device = "cpu"``), and so it

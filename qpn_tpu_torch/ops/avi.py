@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ..config import CONFIG, bucket, numeric_device
-from ..utils.metrics import METRICS
+from ..utils.metrics import METRICS, lanes_where
 from . import batch_qp, lemke
 from .eg import eg_step, eg_warmstart, ruiz
 from .linalg import ridge_solve
@@ -214,76 +214,102 @@ def solve_kkt_avi_batch(M, q, l, u, var_mask, structure, tol=1e-10,
     ``METRICS["kkt_shared_route"]``.
 
     Tensors: M (B,n,n), q/l/u (B,n) of any float dtype (the solve is f64),
-    var_mask (B,n) bool, all on one device."""
-    if method == "admm":
-        return _solve_kkt_avi_admm(M, q, l, u, var_mask, structure, tol)
-    if method != "lemke":
-        raise ValueError(f"unknown method {method!r} (expected 'lemke' or "
-                         "'admm')")
+    var_mask (B,n) bool, all on one device.
+
+    Spans (``METRICS.timer``): ``qpn.kkt`` over the call; inside it
+    ``qpn.kkt.pivot32`` (set-up and the f32 pivot path), ``.refactor``,
+    ``.audit`` (residual and decision), ``.polish``, ``.repivot``, ``.admm``
+    and ``.shared`` (the shared-matrix hand-off)."""
+    with METRICS.timer("qpn.kkt"):
+        if method == "admm":
+            return _solve_kkt_avi_admm(M, q, l, u, var_mask, structure, tol)
+        if method != "lemke":
+            raise ValueError(f"unknown method {method!r} (expected 'lemke' "
+                             "or 'admm')")
+        return _solve_kkt_avi_lemke(M, q, l, u, var_mask, structure, tol)
+
+
+def _solve_kkt_avi_lemke(M, q, l, u, var_mask, structure, tol) -> AVIResult:
+    """Lemke route of :func:`solve_kkt_avi_batch`."""
     f64, f32 = torch.float64, torch.float32
     M, q, l, u = (a.to(f64) for a in (M, q, l, u))
     vm = var_mask.to(torch.bool)
     B, n, _ = M.shape
     if (structure.get("shared_M") and n >= CONFIG.shared_kkt_min_n
-            and bool(vm.all()) and bool((M == M[:1]).all())):
+            and METRICS.sync(bool, vm.all())
+            and METRICS.sync(bool, (M == M[:1]).all())):
         from .shared_kkt import solve_kkt_avi_shared
         METRICS.bump("kkt_shared_route", B)
-        return solve_kkt_avi_shared(M[0], q, l, u, None, tol=tol,
-                                    structure=structure)
-    # power-of-two pivot budget, as the JAX package sizes it
-    max_pivots = 256
-    while max_pivots < min(4096, 16 * n + 256):
-        max_pivots *= 2
-    zeros = torch.zeros(B, n, dtype=f32, device=M.device)
-
-    # f32 pivot path: it only has to pick the right complementary basis
-    z32, _, pivL, basis32, val32 = lemke.solve_lemke_batch_state_auto(
-        M.to(f32), q.to(f32), l.to(f32), u.to(f32), zeros, vm,
-        tol=1e-6, piv_tol=1e-5, max_pivots=max_pivots)
-    zL, okR = lemke.refactor_batch(M, q, l, u, basis32, val32, vm)
-    zL = torch.where(okR[:, None], zL, z32.to(f64))
-    residL = natural_residual(M, q, l, u, zL, vm)
-    pivL = pivL.to(torch.int64)
-    okL = residL <= tol
-
-    if not bool(okL.all()):
-        # short f64 Newton polish only for the residual stragglers
-        idx = torch.nonzero(~okL)[:, 0]
-        METRICS.bump("kkt_polish_lanes", idx.numel())
-        pol = solve_avi_batch_polish(M[idx], q[idx], l[idx], u[idx],
-                                     zL[idx], vm[idx], tol=tol, max_iter=8)
-        rP = natural_residual(M[idx], q[idx], l[idx], u[idx], pol.z,
-                              vm[idx])
-        better = rP < residL[idx]
-        zL[idx[better]] = pol.z[better]
-        residL[idx[better]] = rP[better]
+        with METRICS.timer("qpn.kkt.shared"):
+            return solve_kkt_avi_shared(M[0], q, l, u, None, tol=tol,
+                                        structure=structure)
+    with METRICS.timer("qpn.kkt.pivot32"):
+        # power-of-two pivot budget, as the JAX package sizes it
+        max_pivots = 256
+        while max_pivots < min(4096, 16 * n + 256):
+            max_pivots *= 2
+        zeros = torch.zeros(B, n, dtype=f32, device=M.device)
+        # f32 pivot path: it only has to pick the right complementary basis
+        z32, _, pivL, basis32, val32 = lemke.solve_lemke_batch_state_auto(
+            M.to(f32), q.to(f32), l.to(f32), u.to(f32), zeros, vm,
+            tol=1e-6, piv_tol=1e-5, max_pivots=max_pivots)
+    with METRICS.timer("qpn.kkt.refactor"):
+        zL, okR = lemke.refactor_batch(M, q, l, u, basis32, val32, vm)
+        zL = torch.where(okR[:, None], zL, z32.to(f64))
+    with METRICS.timer("qpn.kkt.audit"):
+        residL = natural_residual(M, q, l, u, zL, vm)
+        pivL = pivL.to(torch.int64)
         okL = residL <= tol
-    if not bool(okL.all()):
-        # f64 re-pivot: the same engine in f64, then the refactorization
-        idx = torch.nonzero(~okL)[:, 0]
-        METRICS.bump("kkt_repivot_lanes", idx.numel())
-        z64, _, piv64, basis64, val64 = lemke.solve_lemke_batch_state_auto(
-            M[idx], q[idx], l[idx], u[idx], zeros[idx].to(f64), vm[idx],
-            tol=1e-11, max_pivots=max_pivots)
-        zR, okR64 = lemke.refactor_batch(M[idx], q[idx], l[idx], u[idx],
-                                         basis64, val64, vm[idx])
-        z64 = torch.where(okR64[:, None], zR, z64)
-        r64 = natural_residual(M[idx], q[idx], l[idx], u[idx], z64, vm[idx])
-        better = r64 < residL[idx]
-        zL[idx[better]] = z64[better]
-        residL[idx[better]] = r64[better]
-        pivL[idx] += piv64.to(torch.int64)
-        okL = residL <= tol
-    METRICS.bump("kkt_uncertified_lanes", int((~okL).sum()))
-    if bool(okL.all()):
+        certified = METRICS.sync(bool, okL.all())
+
+    if not certified:
+        with METRICS.timer("qpn.kkt.polish"):
+            # short f64 Newton polish only for the residual stragglers
+            idx = lanes_where(~okL)
+            METRICS.bump("kkt_polish_lanes", idx.numel())
+            pol = solve_avi_batch_polish(M[idx], q[idx], l[idx], u[idx],
+                                         zL[idx], vm[idx], tol=tol,
+                                         max_iter=8)
+            rP = natural_residual(M[idx], q[idx], l[idx], u[idx], pol.z,
+                                  vm[idx])
+            better = rP < residL[idx]
+            zL[idx] = torch.where(better[:, None], pol.z, zL[idx])
+            residL[idx] = torch.where(better, rP, residL[idx])
+            okL = residL <= tol
+    with METRICS.timer("qpn.kkt.audit"):
+        certified = METRICS.sync(bool, okL.all())
+    if not certified:
+        with METRICS.timer("qpn.kkt.repivot"):
+            # f64 re-pivot: the same engine in f64, then the refactorization
+            idx = lanes_where(~okL)
+            METRICS.bump("kkt_repivot_lanes", idx.numel())
+            z64, _, piv64, basis64, val64 = \
+                lemke.solve_lemke_batch_state_auto(
+                    M[idx], q[idx], l[idx], u[idx], zeros[idx].to(f64),
+                    vm[idx], tol=1e-11, max_pivots=max_pivots)
+            zR, okR64 = lemke.refactor_batch(M[idx], q[idx], l[idx], u[idx],
+                                             basis64, val64, vm[idx])
+            z64 = torch.where(okR64[:, None], zR, z64)
+            r64 = natural_residual(M[idx], q[idx], l[idx], u[idx], z64,
+                                   vm[idx])
+            better = r64 < residL[idx]
+            zL[idx] = torch.where(better[:, None], z64, zL[idx])
+            residL[idx] = torch.where(better, r64, residL[idx])
+            pivL[idx] += piv64.to(torch.int64)
+            okL = residL <= tol
+    with METRICS.timer("qpn.kkt.audit"):
+        METRICS.bump("kkt_uncertified_lanes", ~okL)
+        certified = METRICS.sync(bool, okL.all())
+    if certified:
         return AVIResult(z=zL, resid=residL, iters=pivL, converged=okL)
-    # re-solve the uncertified lanes through the ADMM + polish route
-    idx = torch.nonzero(~okL)[:, 0]
-    sub = _solve_kkt_avi_admm(M[idx], q[idx], l[idx], u[idx], vm[idx],
-                              structure, tol)
-    zL[idx] = sub.z
-    residL[idx] = sub.resid
-    pivL[idx] += sub.iters
+    with METRICS.timer("qpn.kkt.admm"):
+        # re-solve the uncertified lanes through the ADMM + polish route
+        idx = lanes_where(~okL)
+        sub = _solve_kkt_avi_admm(M[idx], q[idx], l[idx], u[idx], vm[idx],
+                                  structure, tol)
+        zL[idx] = sub.z
+        residL[idx] = sub.resid
+        pivL[idx] += sub.iters
     return AVIResult(z=zL, resid=residL, iters=pivL, converged=residL <= tol)
 
 
@@ -317,13 +343,13 @@ def _solve_kkt_avi_admm(M, q, l, u, var_mask, structure, tol) -> AVIResult:
     resid = natural_residual(M, q, l, u, z, vm)
     # f64 Newton polish for lanes above tolerance: first the light Newton-
     # only pass, then the full hybrid solver only for whatever remains
-    need = torch.nonzero(resid > tol)[:, 0]
+    need = lanes_where(resid > tol)
     if need.numel():
         res = solve_avi_batch_polish(M[need], q[need], l[need], u[need],
                                      z[need], vm[need], tol=tol)
         z[need] = res.z
         resid[need] = res.resid
-        need = torch.nonzero(resid > tol)[:, 0]
+        need = lanes_where(resid > tol)
         if need.numel():
             res = solve_avi_batch_padded(M[need], q[need], l[need], u[need],
                                          z[need], vm[need], tol=tol,
@@ -366,7 +392,7 @@ def _newton_phase(Mx, qx, l, u, z, iters_left, tol_m, stall_limit=3,
     k = torch.zeros(b, dtype=torch.int64, device=dev)
     stall = torch.zeros_like(k)
     for _ in range(iters_left):
-        sel = torch.nonzero((best_m > tol_m) & (stall < stall_limit))[:, 0]
+        sel = lanes_where((best_m > tol_m) & (stall < stall_limit))
         if sel.numel() == 0:
             break
         zs, Ms, qs, ls, us = z[sel], Mx[sel], qx[sel], l[sel], u[sel]
@@ -461,7 +487,7 @@ def solve_avi_batch(M, q, l, u, z0, var_mask, tol=1e-10,
     total_k = torch.zeros(B, dtype=torch.int64, device=dev)
     max_rounds = max(2, int(max_iter) // (40 + 30 + 60))
     for _ in range(max_rounds):
-        act = torch.nonzero(best_m > tol_m)[:, 0]
+        act = lanes_where(best_m > tol_m)
         if act.numel() == 0:
             break
         Ma, qa, la, ua = Mm[act], qm[act], ls[act], us[act]
@@ -585,7 +611,20 @@ def solve_avi_batch_adaptive(M, q, l, u, z0, var_mask, *, tol=1e-10,
 
     Tensors as in :func:`solve_avi_batch`, on one device; the solve is f64.
     The stages run at exact shapes (the JAX package's batch padding only
-    serves XLA's compile cache and changes no lane's result)."""
+    serves XLA's compile cache and changes no lane's result).
+
+    Spans (``METRICS.timer``): ``qpn.generic`` over the call; inside it
+    ``qpn.generic.eg`` (the pre-pass and both residuals), ``.stage`` (each
+    budget stage), ``.reseed`` (the nearest-q warm start) and ``.escalate``
+    (``lemke_escalate``)."""
+    with METRICS.timer("qpn.generic"):
+        return _solve_avi_batch_adaptive(M, q, l, u, z0, var_mask, tol,
+                                         budgets, mixed, onchip_eg_steps)
+
+
+def _solve_avi_batch_adaptive(M, q, l, u, z0, var_mask, tol, budgets, mixed,
+                              onchip_eg_steps) -> AVIResult:
+    """The body of :func:`solve_avi_batch_adaptive`."""
     f64 = torch.float64
     M, q, l, u, z0 = (a.to(f64) for a in (M, q, l, u, z0))
     vm = var_mask.to(torch.bool)
@@ -599,49 +638,57 @@ def solve_avi_batch_adaptive(M, q, l, u, z0, var_mask, *, tol=1e-10,
     idx = torch.arange(B, device=dev)
     z_cur = z0
     if onchip_eg_steps > 0:
-        z_eg = eg_warmstart(M, q, l, u, z_cur, vm, steps=onchip_eg_steps)
-        r_eg = natural_residual(M, q, l, u, z_eg, vm)
-        r_0 = natural_residual(M, q, l, u, z_cur, vm)
-        better = torch.isfinite(r_eg) & (r_eg < r_0)
-        METRICS.bump("eg_accepted_lanes", int(better.sum()))
-        z_cur = torch.where(better[:, None], z_eg, z_cur)
+        with METRICS.timer("qpn.generic.eg"):
+            z_eg = eg_warmstart(M, q, l, u, z_cur, vm, steps=onchip_eg_steps)
+            r_eg = natural_residual(M, q, l, u, z_eg, vm)
+            r_0 = natural_residual(M, q, l, u, z_cur, vm)
+            better = torch.isfinite(r_eg) & (r_eg < r_0)
+            METRICS.bump("eg_accepted_lanes", better)
+            z_cur = torch.where(better[:, None], z_eg, z_cur)
     z_warm = z_out      # seed for the NEXT stage; may hold neighbour copies
     for bi, budget in enumerate(budgets):
         if idx.numel() == 0:
             break
-        res = solver(M[idx], q[idx], l[idx], u[idx],
-                     (z_cur if bi == 0 else z_warm)[idx], vm[idx], tol=tol,
-                     max_iter=budget)
-        # a straggler reseeded from a neighbour can diverge in a later stage:
-        # keep its earlier best (resid_out starts at inf, so stage 0 lands)
-        upd = res.resid < resid_out[idx]
-        z_out[idx[upd]] = res.z[upd]
-        resid_out[idx[upd]] = res.resid[upd]
-        conv_out[idx] = res.converged
-        iters_out[idx] += res.iters
-        idx = idx[~res.converged]
+        with METRICS.timer("qpn.generic.stage"):
+            res = solver(M[idx], q[idx], l[idx], u[idx],
+                         (z_cur if bi == 0 else z_warm)[idx], vm[idx],
+                         tol=tol, max_iter=budget)
+            # a straggler reseeded from a neighbour can diverge in a later
+            # stage: keep its earlier best (resid_out starts at inf, so
+            # stage 0 lands)
+            upd = res.resid < resid_out[idx]
+            z_out[idx] = torch.where(upd[:, None], res.z, z_out[idx])
+            resid_out[idx] = torch.where(upd, res.resid, resid_out[idx])
+            conv_out[idx] = res.converged
+            iters_out[idx] += res.iters
+            idx = idx[lanes_where(~res.converged)]
         # cross-lane warm start: seed each straggler from the nearest (by
         # q-distance) certified lane, in a separate array so z_out keeps
         # each lane's own iterate beside its own residual
         z_warm = z_out
-        if idx.numel() and bool(conv_out.any()):
-            conv_idx = torch.nonzero(conv_out)[:, 0]
-            dist = (q[conv_idx][None, :, :] - q[idx][:, None, :]).norm(dim=2)
-            j = conv_idx[dist.argmin(1)]
-            far = resid_out[idx] > 1e-4
-            z_warm = z_out.clone()
-            z_warm[idx[far]] = z_out[j[far]]
+        if idx.numel():
+            with METRICS.timer("qpn.generic.reseed"):
+                if METRICS.sync(bool, conv_out.any()):
+                    conv_idx = lanes_where(conv_out)
+                    dist = (q[conv_idx][None, :, :]
+                            - q[idx][:, None, :]).norm(dim=2)
+                    j = conv_idx[dist.argmin(1)]
+                    far = resid_out[idx] > 1e-4
+                    z_warm = z_out.clone()
+                    z_warm[idx] = torch.where(far[:, None], z_out[j],
+                                              z_out[idx])
     if idx.numel():
-        # final tier: proximal Lemke pivoting on the stragglers, which ends on
-        # an exact complementary basis where the smooth hybrid chases
-        # residuals
-        METRICS.bump("escalated_lanes", idx.numel())
-        zL, rL = lemke.lemke_escalate(M[idx], q[idx], l[idx], u[idx],
-                                      z_warm[idx], vm[idx], tol=tol)
-        better = rL < resid_out[idx]
-        z_out[idx[better]] = zL[better]
-        resid_out[idx[better]] = rL[better]
-        conv_out[idx] = resid_out[idx] <= tol
+        with METRICS.timer("qpn.generic.escalate"):
+            # final tier: proximal Lemke pivoting on the stragglers, which
+            # ends on an exact complementary basis where the smooth hybrid
+            # chases residuals
+            METRICS.bump("escalated_lanes", idx.numel())
+            zL, rL = lemke.lemke_escalate(M[idx], q[idx], l[idx], u[idx],
+                                          z_warm[idx], vm[idx], tol=tol)
+            better = rL < resid_out[idx]
+            z_out[idx] = torch.where(better[:, None], zL, z_out[idx])
+            resid_out[idx] = torch.where(better, rL, resid_out[idx])
+            conv_out[idx] = resid_out[idx] <= tol
     return AVIResult(z=z_out, resid=resid_out, iters=iters_out,
                      converged=conv_out)
 

@@ -46,8 +46,9 @@ import numpy as np
 import torch
 
 from ..config import CONFIG, banded_min_blocks, numeric_device
-from ..utils.metrics import METRICS
+from ..utils.metrics import METRICS, lanes_where
 from .banded import cr_factor, cr_solve, detect_banded_k, kkt_blocks
+from .linalg import cholesky_solve
 
 SOLVED = 1
 SOLVED_INACCURATE = 2
@@ -136,7 +137,7 @@ class _DenseFactor:
         self.L[idx] = other.L
 
     def solve(self, rhs):
-        return torch.cholesky_solve(rhs[:, :, None], self.L)[:, :, 0]
+        return cholesky_solve(rhs[:, :, None], self.L)[:, :, 0]
 
 
 class _BandedFactor:
@@ -249,7 +250,8 @@ def _polish(d0: _Lanes, x, z, y):
     K[:, n:, :n] = Aw
     K[:, n:, n:] = -delta * torch.eye(m, dtype=dt, device=dev)
     rhs = torch.cat([-d0.q, torch.where(act, bnd, 0.0)], 1)
-    LU, piv, _ = torch.linalg.lu_factor_ex(K)
+    # the batched LU waits on the card inside itself: a host sync
+    LU, piv, _ = METRICS.sync(torch.linalg.lu_factor_ex, K)
     sol = torch.linalg.lu_solve(LU, piv, rhs[:, :, None])[:, :, 0]
     r = rhs - _mv(K, sol)
     sol = sol + torch.linalg.lu_solve(LU, piv, r[:, :, None])[:, :, 0]
@@ -351,7 +353,7 @@ def solve_qp_batch(P, q, A, l, u, row_mask, *, max_iter=4000, eps=1e-9,
     METRICS.bump("admm_lanes", B)
 
     while True:
-        lanes = torch.nonzero((k < max_iter) & (status == MAX_ITER))[:, 0]
+        lanes = lanes_where((k < max_iter) & (status == MAX_ITER))
         if lanes.numel() == 0:
             break
         # one block: check_every iterations and a status check
@@ -380,8 +382,8 @@ def solve_qp_batch(P, q, A, l, u, row_mask, *, max_iter=4000, eps=1e-9,
         allowed = (kl % adapt_every == 0) & (kl - check_every
                                              < max_iter // 2)
         big_change = (rho_new > 5 * rl) | (rho_new < rl / 5)
-        moved = allowed & big_change & (st == MAX_ITER)
-        if bool(moved.any()):
+        moved = lanes_where(allowed & big_change & (st == MAX_ITER))
+        if moved.numel():
             mv = lanes[moved]
             rho[mv] = rho_new[moved]
             L.assign(mv, _factor(K0[mv] + rho[mv][:, None, None] * G[mv],
@@ -395,8 +397,7 @@ def solve_qp_batch(P, q, A, l, u, row_mask, *, max_iter=4000, eps=1e-9,
     d0 = _Lanes(P=P, q=q, A=A, rm=rm, rmf=rmf, lc=lc0, uc=uc0)
     z = torch.clamp(_mv(A, x), lc0, uc0)
     prim, dual = _residuals(d0, x, z, y)[:2]
-    do = torch.nonzero((status == SOLVED)
-                       | ((prim <= 1e-3) & (dual <= 1e-3)))[:, 0]
+    do = lanes_where((status == SOLVED) | ((prim <= 1e-3) & (dual <= 1e-3)))
     if polish and do.numel():
         x[do], z[do], y[do] = _polish(d0.take(do), x[do], z[do], y[do])
     prim, dual = _residuals(d0, x, z, y)[:2]

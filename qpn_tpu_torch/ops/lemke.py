@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..config import CONFIG, bucket, numeric_device
+from ..utils.metrics import METRICS, lanes_where
 
 _INF = np.inf
 
@@ -423,8 +424,8 @@ def _pivot_rows(T, row, col):
     """Batched pivot of lane b on (row[b], col[b]): a rank-1 update."""
     r = torch.arange(T.shape[0], device=T.device)
     pr = T[r, row, :] / T[r, row, col][:, None]
-    other = T[r, :, col].clone()
-    other[r, row] = 0.0
+    # a zero on the device: a Python 0.0 is copied to the card, a host sync
+    other = T[r, :, col].index_put((r, row), T.new_zeros(()))
     out = T - other[:, :, None] * pr[:, None, :]
     out[r, row, :] = pr
     return out
@@ -461,7 +462,7 @@ def _lex_refine(T, d, cand, need, piv_tol):
     n = T.shape[1]
     safe_d = torch.where(d.abs() > piv_tol, d, 1.0)
     for kk in range(n):
-        if not bool(need.any()):
+        if not METRICS.sync(bool, need.any()):
             break
         key = torch.where(cand, -T[:, :, n + kk] / safe_d, _INF)
         kmin = key.amin(1, keepdim=True)
@@ -492,7 +493,7 @@ def lemke_pivot_torch(init: LemkeInit, *, tol, piv_tol,
     status = init.status.clone()
     piv = torch.zeros(B, dtype=torch.int32, device=dev)
     for _ in range(1, max_pivots):
-        lanes = torch.nonzero(status == 0)[:, 0]
+        lanes = lanes_where(status == 0)
         if lanes.numel() == 0:
             break
         r = torch.arange(lanes.numel(), device=dev)
@@ -529,7 +530,7 @@ def lemke_pivot_torch(init: LemkeInit, *, tol, piv_tol,
                                vub[r, exiting])
         pivot = ~is_ray & ~flip & ~bad
 
-        p = torch.nonzero(pivot)[:, 0]
+        p = lanes_where(pivot)
         if p.numel():
             T[lanes[p]] = _pivot_rows(Ti[p], jstar[p], ei[p])
             basis[lanes[p], jstar[p]] = ei[p]
@@ -586,12 +587,16 @@ def solve_lemke_batch_state(M, q, l, u, z0, var_mask, *, pivot: PivotEngine,
     working precision.  Returns ``(z, status, pivots, basis, val)``: the
     pivot count includes the covering pivot (0 for lanes solved at the
     start), and ``basis``/``val`` let the caller refactorize the terminal
-    basis in f64 (:func:`refactor_batch`)."""
+    basis in f64 (:func:`refactor_batch`).  Every lane's pivots are summed
+    on the device into ``METRICS["k1_pivots"]`` and the lanes counted in
+    ``["k1_lanes"]``, whichever the engine."""
     init = lemke_setup(M, q, l, u, z0, var_mask, tol=tol,
                        synth_scale=synth_scale, cover=cover)
     res = pivot(init, tol=tol, piv_tol=piv_tol, max_pivots=max_pivots)
     z = _extract_z(res.xB, res.basis, res.val, var_mask.to(torch.bool))
     piv = torch.where(init.status == LEMKE_SUCCESS, 0, res.piv + 1)
+    METRICS.bump("k1_pivots", piv)
+    METRICS.bump("k1_lanes", piv.shape[0])
     return z, res.status, piv.to(torch.int32), res.basis, res.val
 
 
@@ -687,7 +692,9 @@ def refactor_batch(M, q, l, u, basis, val, var_mask):
     nb = val.scatter(1, basis, 0.0)
     rhs = (-qm - (Mm @ nb[:, :n, None])[:, :, 0]
            + nb[:, n:2 * n] - nb[:, 2 * n:3 * n])
-    xB, info = torch.linalg.solve_ex(Bmat, rhs[:, :, None])
+    # the batched LU waits on the card inside itself (MAGMA's device and
+    # stream synchronizations and frees, seen from 64 lanes on): a host sync
+    xB, info = METRICS.sync(torch.linalg.solve_ex, Bmat, rhs[:, :, None])
     xB = xB[:, :, 0]
     ok = t_ok & (info == 0) & torch.isfinite(xB).all(1)
     # z_i = row value where basic, snapped nonbasic value otherwise
@@ -738,7 +745,7 @@ def lemke_escalate(M, q, l, u, z0, var_mask, *, tol=1e-10,
     z_ref = z0.clone()
     for _ in range(rounds):
         for delta in deltas:
-            idx = torch.nonzero(r_best > tol)[:, 0]
+            idx = lanes_where(r_best > tol)
             if idx.numel() == 0:
                 return z_best, r_best
             Mi, qi, li, ui, vi = M[idx], q[idx], l[idx], u[idx], vm[idx]
@@ -754,8 +761,8 @@ def lemke_escalate(M, q, l, u, z0, var_mask, *, tol=1e-10,
             z_new = torch.where((r_piv < r_new)[:, None], z_piv, res.z)
             r_new = torch.minimum(r_new, r_piv)
             better = r_new < r_best[idx]
-            z_best[idx[better]] = z_new[better]
-            r_best[idx[better]] = r_new[better]
+            z_best[idx] = torch.where(better[:, None], z_new, z_best[idx])
+            r_best[idx] = torch.where(better, r_new, r_best[idx])
         z_ref = z_best.clone()
     return z_best, r_best
 
@@ -856,7 +863,6 @@ def solve_lp_host_batch(c, A, l, u, row_mask, *, tol=1e-7,
     ``broker_lp_host_waves`` and ``broker_lp_host_fused``)."""
     from . import batch_qp
     from ..utils import native
-    from ..utils.metrics import METRICS
     if not _no_broker:
         from ..parallel.lockstep import active_broker
         br = active_broker()
@@ -939,7 +945,6 @@ def solve_lp_lemke_batch(c, A, l, u, row_mask, *, tol=1e-7):
     variables are pinned and never pivot, so the port runs at exact shapes
     and sizes only the pivot budget from the buckets."""
     from . import batch_qp
-    from ..utils.metrics import METRICS
     c = np.asarray(c, dtype=np.float64)
     A = np.asarray(A, dtype=np.float64)
     l = np.asarray(l, dtype=np.float64)

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.metrics import METRICS
+
 
 def chol_solve(K: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve SPD ``K x = b`` (``b``: (..., n)) via Cholesky, batched.
@@ -21,7 +23,18 @@ def chol_solve(K: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for the whole batch."""
     L, info = torch.linalg.cholesky_ex(K)
     L = torch.where((info == 0)[..., None, None], L, torch.nan)
-    return torch.cholesky_solve(b.unsqueeze(-1), L).squeeze(-1)
+    return cholesky_solve(b.unsqueeze(-1), L).squeeze(-1)
+
+
+def cholesky_solve(b: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """``torch.cholesky_solve(b, L)``.  On the card PyTorch hands a batch of
+    more than one system to MAGMA, which waits on the card inside the call
+    (its own allocations and a stream synchronization); a single system goes
+    to cuSOLVER, which does not.  The waiting call is counted as a host sync
+    (``METRICS.sync``)."""
+    if L.shape[:-2].numel() > 1:
+        return METRICS.sync(torch.cholesky_solve, b, L)
+    return torch.cholesky_solve(b, L)
 
 
 def ridge_solve(A: torch.Tensor, b: torch.Tensor,

@@ -2,8 +2,9 @@
 (the port's counterpart of ``qpn_tpu/utils/profiling.py``).
 
 ``trace`` records host and CUDA activity over a block and writes one Chrome
-trace (``chrome://tracing`` or Perfetto) on exit; ``annotate`` adds a named
-range that shows beside the kernels in that trace.
+trace (``chrome://tracing`` or Perfetto) on exit.  The program's spans,
+``METRICS.timer(name)`` (``utils/metrics.py``), show in that trace as named
+ranges beside the kernels.
 """
 
 from __future__ import annotations
@@ -34,10 +35,3 @@ def trace(log_dir: str):
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named range inside an active trace."""
-    from torch.profiler import record_function
-    with record_function(name):
-        yield

@@ -1,6 +1,7 @@
 """The port's FLOP/byte accounting (``qpn_tpu_torch/utils/flops.py``, a copy
-of ``qpn_tpu/utils/flops.py`` with the H100's peaks) and its profiler entry
-point (``qpn_tpu_torch/utils/profiling.py`` over ``torch.profiler``)."""
+of ``qpn_tpu/utils/flops.py`` with the H100's peaks), its profiler entry
+point (``qpn_tpu_torch/utils/profiling.py`` over ``torch.profiler``) and the
+spans of ``METRICS.timer`` in the trace it writes."""
 
 import json
 import os
@@ -14,6 +15,7 @@ from qpn_tpu.utils import flops as ref_flops
 from qpn_tpu_torch.config import CONFIG
 from qpn_tpu_torch.ops import batch_qp
 from qpn_tpu_torch.utils import flops, profiling
+from qpn_tpu_torch.utils.metrics import METRICS
 
 
 @pytest.fixture(autouse=True)
@@ -43,14 +45,16 @@ def test_peaks_are_the_cards():
 
 
 def test_trace_writes_a_chrome_trace_with_the_annotation(tmp_path):
-    """trace() records the block and writes <dir>/trace.json on exit; an
-    annotate() range shows in it by name."""
+    """trace() records the block and writes <dir>/trace.json on exit; a
+    METRICS.timer() span shows in it as a range by name, and adds its
+    seconds to the span's counter."""
     P = np.eye(3)[None]
     q = np.ones((1, 3))
     A = np.eye(3)[None]
     lo, hi = -np.ones((1, 3)), np.ones((1, 3))
+    before = METRICS.counters.get("time/qpn_admm_call", 0.0)
     with profiling.trace(str(tmp_path / "tr")) as prof:
-        with profiling.annotate("qpn_admm_call"):
+        with METRICS.timer("qpn_admm_call"):
             sol = batch_qp.solve_qp_batch_padded(P, q, A, lo, hi,
                                                  np.ones((1, 3), bool))
     assert sol.status[0] == batch_qp.SOLVED
@@ -59,10 +63,20 @@ def test_trace_writes_a_chrome_trace_with_the_annotation(tmp_path):
     events = json.loads(path.read_text())["traceEvents"]
     assert any(e.get("name") == "qpn_admm_call" for e in events)
     assert any(e.key == "qpn_admm_call" for e in prof.key_averages())
+    assert METRICS.counters["time/qpn_admm_call"] > before
 
 
-def test_annotate_outside_a_trace_is_harmless():
-    with profiling.annotate("no_trace"):
+def test_annotate_outside_a_trace_is_harmless(monkeypatch):
+    """Outside a trace a METRICS.timer() span enters no profiler range and
+    writes nothing; it only adds its seconds to its counter."""
+    from qpn_tpu_torch.utils import metrics
+
+    def refuse(name):
+        raise AssertionError("a profiler range with no profiler running")
+    monkeypatch.setattr(metrics, "record_function", refuse)
+    before = METRICS.counters.get("time/no_trace", 0.0)
+    with METRICS.timer("no_trace"):
         x = torch.ones(2) + 1
     assert x.sum().item() == 4.0
     assert not os.path.exists("no_trace")
+    assert METRICS.counters["time/no_trace"] > before

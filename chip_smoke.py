@@ -33,8 +33,9 @@ Phases, one line each, with their seconds; any failure exits non-zero:
    tol=1e-8, mixed=True, onchip_eg_steps=20000)``: every lane certified,
    the extragradient kernel launched, the residual re-audited in numpy, z
    against the KKT path's on all lanes and against the port's CPU path on
-   8 lanes; solves/s (median of 7) with the kernel, with the plain
-   extragradient loop, and with ``mixed=False``;
+   8 lanes; solves/s (median of 7) with the kernels, with the plain
+   extragradient loops (the pre-pass and the hybrid stages' hop:
+   ``CONFIG.eg_kernel = "torch"``), and with ``mixed=False``;
 9. forced stragglers: far starts and one short budget stage on 16 lanes,
    so that ``lemke.lemke_escalate`` takes them and the Lemke kernel's f64
    instance runs on this path; at least one lane certified through it;
@@ -187,9 +188,23 @@ Phases, one line each, with their seconds; any failure exits non-zero:
    steps); a spread grid too large to be resident at once raises for both
    kernels with the cooperative launch's own refusal, and the next launch
    runs.
+21. the hybrid solver's extragradient hop kernel (``ops/hop_cuda.py``) on
+   the first hop of ``solve_avi_batch`` over the flagship ensemble (all 256
+   lanes, 60 steps), in f32 and in f64: z, ‖Φ‖ of the best merit and of
+   the best z's merit within ``HOP_TOL`` of the lane scale against the
+   plain loop ``avi._eg_phase``, each of its instances through the private
+   launcher equal to its g++ build's bits on 8 lanes, the kernel and the
+   plain loop timed (median of 7 between CUDA events, and the device's busy
+   time of one call from ``torch.profiler``), the bound; then the
+   generic route on the 32 pool ensembles of the benchmark cell
+   ``ra_T2o1.generic_s256`` (``qpnbench/``): every lane certified, one hop
+   kernel launch for every round run and every hop lane fused, the pass
+   over the pool timed with the kernel and with the plain hop (median of
+   3 passes).
 
 Then one JSON line for the kernels, a row for each instance (K1, K2 and
-K3: shared, register or warp, cluster, global): launches
+K3: shared, register or warp, cluster, global; the hop kernel in f32 and
+f64): launches
 on the main paths, error against the plain version, the kernel's, the plain
 version's and the bound's milliseconds: the larger of the bytes each call
 must move over 3.35 TB/s and its operations over the rate of their type
@@ -344,6 +359,13 @@ COOPERATIVE_REFUSAL = "too many blocks in cooperative launch"
 # each of the other's by this factor; a smaller edge is a tie, which keeps
 # the shipped value (the two routes tie at T=64 on some machines).
 BANDED_MARGIN = 1.25
+# Phase 21: the hop kernel against avi._eg_phase, relative to the lane's
+# scale (z, and ||Phi|| of the best merit): the same arithmetic on the same
+# values in another order of sums (tests/test_torch_hop.py's bounds), and
+# the benchmark cell whose pool the route runs.
+HOP_STEPS = 60
+HOP_TOL = {"torch.float32": 1e-5, "torch.float64": 1e-12}
+HOP_CELL = "ra_T2o1.generic_s256"
 SHARED_Z_TOL = 1e-8   # shared route vs KKT path at T=2: one solution
 SHARED_RUNGS = ("shared_kkt_chip_admm_rung", "shared_kkt_admm_escalation",
                 "shared_kkt_generic_escalation")
@@ -383,6 +405,17 @@ def eg_bound(ins, out, steps):
     multiply-adds plus 5 operations (add q, scale, subtract, two clips)."""
     B, n = out.shape
     return bound(tensor_bytes(*ins, out), B * steps * 2.0 * (2 * n * n + 5 * n))
+
+
+def hop_bound(ins, outs, steps):
+    """The hop kernel: M and the lane vectors in, z, best z and best merit
+    out; a phase is n rows of n multiply-adds, 2·steps + 1 of them, and a
+    merit's n squares and adds a step and one more at the end (the
+    elementwise work left out)."""
+    B, n = ins[5].shape
+    return bound(tensor_bytes(*ins, *outs),
+                 B * ((2.0 * steps + 1) * 2 * n * n + (steps + 1) * 2 * n),
+                 ins[5].dtype.itemsize == 8)
 
 
 def screen_bound(ins, outs, steps):
@@ -529,6 +562,24 @@ def device_timed(fn, device, repeats=REPEATS):
     return statistics.median(times)
 
 
+def busy_seconds(fn, device):
+    """Seconds of device activity of one warm call of ``fn``: the sum of
+    the self device times of its kernels and copies in ``torch.profiler``'s
+    trace (gaps between them left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(device)
+    us = 0.0
+    for e in prof.key_averages():
+        us += getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+    return us * 1e-6
+
+
 def timed_build(build):
     t0 = time.perf_counter()
     build()
@@ -667,6 +718,7 @@ def generic_path(data, batch, device, z_kkt, say, card):
     torch.cuda.synchronize(device)
     launches = METRICS.launches[eg_cuda.KERNEL]
     pivots = METRICS.launches[lemke_cuda.KERNEL]
+    hops = METRICS.launches["hybrid_hop"]
     accepted = int(METRICS.counters["eg_accepted_lanes"])
     escalated = int(METRICS.counters["escalated_lanes"])
     if launches < 1:
@@ -703,13 +755,14 @@ def generic_path(data, batch, device, z_kkt, say, card):
              f"max |dz| {dc!r}")
     say(f"generic path solve_avi_batch_adaptive S={B} tol={SOLVE_TOL} "
         f"mixed=True onchip_eg_steps={EG_STEPS}: conv {conv}, max resid "
-        f"{resid.max():.3g}, {launches} eg kernel launch(es), EG accepted on "
+        f"{resid.max():.3g}, {launches} eg kernel launch(es), {hops} hop "
+        f"kernel launch(es), EG accepted on "
         f"{accepted}/{B} lanes, {escalated} escalated ({pivots} pivot kernel "
         f"launches), iters median {float(it.median()):.0f} max "
         f"{int(it.max())}; z within {dk:.3g} of the KKT path, within "
         f"{dc:.3g} of the CPU path on 8 lanes; {B / t_kernel:.1f} solves/s "
-        f"with the kernel ({t_kernel * 1e3:.3f} ms), {B / t_plain:.1f} with "
-        f"the plain EG loop ({t_plain * 1e3:.3f} ms), {B / t_f64:.1f} with "
+        f"with the kernels ({t_kernel * 1e3:.3f} ms), {B / t_plain:.1f} with "
+        f"the plain EG loops ({t_plain * 1e3:.3f} ms), {B / t_f64:.1f} with "
         f"mixed=False ({t_f64 * 1e3:.3f} ms); median of {REPEATS} [{card}]")
     return launches
 
@@ -2302,6 +2355,175 @@ def domain_phase(device, say, card):
             for key, (name, launches, err, t_k, t_p, bnd) in rows.items()]
 
 
+def first_hop(args, dtype):
+    """The inputs of ``solve_avi_batch``'s first extragradient hop in
+    ``dtype`` (a tolerance below rounding, so that every lane hops),
+    recorded where they lie: the scaled problem and the Newton polish's
+    iterate.  ``args``: M, q, l, u, z0 and mask of the lanes."""
+    import torch
+    from qpn_tpu_torch.ops import avi
+    seen = []
+    real = avi._hop_engine
+
+    def record(device):
+        def hop(*a):
+            seen.append(tuple(t.clone() if torch.is_tensor(t) else t
+                              for t in a))
+            return avi._eg_phase(*a)
+        return hop
+    avi._hop_engine = record
+    try:
+        avi.solve_avi_batch(*(a.to(dtype) for a in args[:5]), args[5],
+                            tol=1e-300, max_iter=130)
+    finally:
+        avi._hop_engine = real
+    return seen[0][:-1]
+
+
+def same_bits(a, b) -> bool:
+    """Equal values, and NaN where the other has NaN (the card and the host
+    write NaNs of other signs and payloads)."""
+    import torch
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(torch.nan_to_num(a, 0.0), torch.nan_to_num(b, 0.0)))
+
+
+def cell_pool(cell, device):
+    """The benchmark cell's pool as its route takes it: (M, q, l, u, z0,
+    mask, mix), q and l by ensemble."""
+    from pathlib import Path
+    import numpy as np
+    import torch
+    from qpnbench import traffic
+    from qpnbench.harness import Bench, on_device
+    bench = Bench(Path(HERE))
+    _, _, mix, config = bench.cell(cell)
+    model = bench.module("models", config["model"])
+    sys_ = model.assemble(config)
+    n, S = sys_.M.shape[0], mix["lanes"]
+    draws = traffic.draw_pool(mix, sys_.shifted, n)
+    lanes = on_device(model.lanes(sys_, draws.shift, draws.jitter), device)
+    f64 = torch.float64
+    M = torch.as_tensor(np.asarray(sys_.M), dtype=f64,
+                        device=device).expand(S, n, n).contiguous()
+    return (M, lanes["q"], lanes["l"], lanes["u"],
+            torch.zeros(S, n, dtype=f64, device=device),
+            torch.ones(S, n, dtype=torch.bool, device=device), mix)
+
+
+def hop_phase(data, device, say, card):
+    """Phase 21 (the file's notes).  Returns the kernels line's rows."""
+    import numpy as np
+    import torch
+    from qpn_tpu_torch.ops import avi, hop_cuda
+    from qpn_tpu_torch.ops.avi import solve_avi_batch_adaptive
+    from qpn_tpu_torch.utils.metrics import METRICS
+    args = [data[k] for k in KEYS]
+    found = []
+    for dtype in (torch.float32, torch.float64):
+        ins = first_hop(args, dtype)
+        B, n = ins[5].shape
+        got = hop_cuda.hybrid_hop_cuda(*ins, HOP_STEPS)
+        want = avi._eg_phase(*ins, HOP_STEPS)
+        torch.cuda.synchronize(device)
+        scale = 1.0 + ins[5].abs().amax(1)
+        ez = float(((got[0] - want[0]).abs().amax(1) / scale).max())
+
+        def phi_err(a, b):
+            # ||Phi|| of two merits 1/2 ||Phi||^2, relative to the scale
+            return float(((2 * a).sqrt() - (2 * b).sqrt()).abs().div(scale)
+                         .max())
+        ephi = phi_err(got[2], want[2])
+        # the best z by its merit: where merits tie to rounding, the two
+        # orders of sums keep different iterates
+        ebest = phi_err(*(avi._merit(*ins[:4], z)[0]
+                          for z in (got[1], want[1])))
+        tol = HOP_TOL[str(dtype)]
+        if not (ez <= tol and ephi <= tol and ebest <= tol):
+            fail(f"hop kernel {dtype}: z differs by {ez!r}, ||Phi|| of the "
+                 f"best merit by {ephi!r}, of the best z's merit by "
+                 f"{ebest!r} of the lane scale, bound {tol}")
+        few = [a[:HOST_BIT_LANES].contiguous() for a in ins]
+        for inst in (hop_cuda.HOP_REGISTER, hop_cuda.HOP_SHARED,
+                     hop_cuda.HOP_GLOBAL):
+            k = hop_cuda._launch(*few, HOP_STEPS, instance=inst)
+            h = hop_cuda.hybrid_hop_host(*(a.cpu() for a in few), HOP_STEPS,
+                                         instance=inst)
+            if not all(same_bits(a.cpu(), b) for a, b in zip(k, h)):
+                fail(f"hop kernel {dtype}: instance {inst} differs from its "
+                     "host bits")
+        pick = hop_cuda.card_instance(n, dtype, device)
+        t_k = device_timed(lambda: hop_cuda.hybrid_hop_cuda(*ins, HOP_STEPS),
+                           device)
+        t_p = device_timed(lambda: avi._eg_phase(*ins, HOP_STEPS), device)
+        busy_k = busy_seconds(lambda: hop_cuda.hybrid_hop_cuda(
+            *ins, HOP_STEPS), device)
+        busy_p = busy_seconds(lambda: avi._eg_phase(*ins, HOP_STEPS), device)
+        bnd = hop_bound(ins, got, HOP_STEPS)
+        found.append((dtype, float((got[0] - want[0]).abs().max()), t_k, t_p,
+                      bnd))
+        say(f"hybrid_hop {dtype} B={B} n={n} steps={HOP_STEPS}: instance "
+            f"{pick}, z within {ez:.3g}, ||Phi|| of the best merit within "
+            f"{ephi:.3g} and of the best z's merit within {ebest:.3g} of the "
+            f"lane scale (<= {tol}); the instances equal to their host bits "
+            f"on {HOST_BIT_LANES} lanes; kernel {t_k * 1e3:.4f} ms, plain "
+            f"loop {t_p * 1e3:.4f} ms (median of {REPEATS}); device busy "
+            f"{busy_k * 1e3:.4f} ms and {busy_p * 1e3:.4f} ms (profiler); "
+            f"bound {bnd[0]:.5f} ms by {bnd[1]} [{card}]")
+
+    # the generic route on the benchmark cell's pool
+    M, q, l, u, z0, mask, mix = cell_pool(HOP_CELL, device)
+    kw = dict(tol=mix["tol"], onchip_eg_steps=mix["onchip_eg_steps"])
+
+    def one_pass():
+        return [solve_avi_batch_adaptive(M, q[e], l[e], u, z0, mask, **kw)
+                for e in range(mix["pool"])]
+    rounds = []
+    real = hop_cuda.hybrid_hop_cuda
+
+    def counted(*a):
+        rounds.append(a[0].shape[0])
+        return real(*a)
+    hop_cuda.hybrid_hop_cuda = counted
+    METRICS.reset()
+    try:
+        results = one_pass()
+        torch.cuda.synchronize(device)
+    finally:
+        hop_cuda.hybrid_hop_cuda = real
+    launches = METRICS.launches[hop_cuda.KERNEL]
+    c = METRICS.counters
+    if not rounds or launches != len(rounds) or not (
+            c["hop_lanes"] == c["hop_fused_lanes"] == sum(rounds)):
+        fail(f"generic route on {HOP_CELL}'s pool: {len(rounds)} hops, "
+             f"{launches} hop kernel launches, hop lanes {c['hop_lanes']}, "
+             f"fused {c['hop_fused_lanes']}")
+    worst = max(float(r.resid.max()) for r in results)
+    conv = all(bool(r.converged.all()) for r in results)
+    if not (conv and worst <= mix["tol"]):
+        fail(f"generic route on {HOP_CELL}'s pool: conv {conv}, max resid "
+             f"{worst!r}")
+    t_kernel = timed(one_pass, device, 3)
+    real_engine = avi._hop_engine
+    avi._hop_engine = lambda device: avi._eg_phase
+    try:
+        t_plain = timed(one_pass, device, 3)
+    finally:
+        avi._hop_engine = real_engine
+    lanes = mix["pool"] * mix["lanes"]
+    say(f"generic route on {HOP_CELL}'s pool ({mix['pool']} ensembles of "
+        f"{mix['lanes']}): every lane certified, max resid {worst:.3g}; "
+        f"{launches} hop kernel launches for {len(rounds)} rounds, "
+        f"{int(sum(rounds))} hop lanes (median {np.median(rounds):.0f} a "
+        f"hop); a pass {t_kernel:.3f} s with the hop kernel "
+        f"({lanes / t_kernel:.1f} solves/s), {t_plain:.3f} s with the plain "
+        f"hop ({lanes / t_plain:.1f} solves/s), median of 3 [{card}]")
+    return [kernel_row(f"{hop_cuda.KERNEL} {dtype}",
+                       "qpn_tpu_torch/csrc/hybrid_hop.cu", None, launches,
+                       err, t_k, t_p, bnd)
+            for dtype, err, t_k, t_p, bnd in found]
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "qpn_tpu_torch")):
         fail("the qpn_tpu_torch package is not next to chip_smoke.py")
@@ -2474,6 +2696,9 @@ def main() -> None:
     # 20. lanes past shared memory: each kernel's global instance
     domain_rows = domain_phase(device, say, card)
 
+    # 21. the hybrid hop kernel, and the generic route on the cell's pool
+    hop_rows = hop_phase(data, device, say, card)
+
     if CONFIG.device != "cuda":
         fail(f"CONFIG.device was left at {CONFIG.device!r}")
     print(json.dumps({"kernels": [
@@ -2486,7 +2711,7 @@ def main() -> None:
         kernel_row(screen_cuda.KERNEL, "qpn_tpu_torch/csrc/screen.cu",
                    "qpn_tpu/ops/pallas_kernels.py:205", scr_launches,
                    scr_err, t_scr, t_scr_plain, scr_bnd),
-        *domain_rows]}))
+        *domain_rows, *hop_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

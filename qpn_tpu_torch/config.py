@@ -46,9 +46,11 @@ class NumericConfig:
     # (ops/lemke.lemke_pivot_torch) for CPU tensors; "cuda" = the kernel
     # always (raises on CPU tensors); "torch" = the plain loop always.
     lemke_kernel: str = "auto"
-    # Fused extragradient steps of the warm start (ops/eg.py), with the same
-    # meaning: "auto" = the CUDA kernel (ops/eg_cuda.py) for CUDA tensors and
-    # the plain PyTorch loop (ops/eg.eg_steps_torch) for CPU tensors.
+    # Fused extragradient steps of the warm start (ops/eg.py) and of the
+    # hybrid solver's hop (ops/avi.py), with the same meaning: "auto" = the
+    # CUDA kernels (ops/eg_cuda.py, ops/hop_cuda.py) for CUDA tensors and the
+    # plain PyTorch loops (ops/eg.eg_steps_torch, avi._eg_phase) for CPU
+    # tensors.
     eg_kernel: str = "auto"
     # Projected-subgradient feasibility screen of geometry.is_empty_batch
     # (ops/screen.py), with the same meaning: "auto" = the CUDA kernel

@@ -20,9 +20,9 @@ extragradient solver in escalating budgets, then proximal Lemke pivoting
 against the natural residual ``Φ(z) = z − clip(z − (Mz + q), l, u)``.
 
 All batched device work follows the input tensors' device (the host
-wrappers put it on ``CONFIG.device``); the pivot loop and the extragradient
-steps run in hand-written CUDA kernels for CUDA tensors
-(``CONFIG.lemke_kernel``, ``CONFIG.eg_kernel``).
+wrappers put it on ``CONFIG.device``); the pivot loop, the extragradient
+steps and the hybrid solver's extragradient hop run in hand-written CUDA
+kernels for CUDA tensors (``CONFIG.lemke_kernel``, ``CONFIG.eg_kernel``).
 
 GAVI structures and the slack-augmentation conversion mirror avi.jl:18-39 and
 avi.jl:113-128.
@@ -440,6 +440,22 @@ def _eg_phase(M, q, l, u, tau, z, steps):
     return z, best_z, best_m
 
 
+def _hop_engine(device: torch.device):
+    """The extragradient hop ``CONFIG.eg_kernel`` selects for tensors on
+    ``device``, with :func:`_eg_phase`'s signature and results: "auto"
+    takes the CUDA kernel (``ops/hop_cuda.py``, one launch a hop, f32 or
+    f64) for CUDA tensors and :func:`_eg_phase` for CPU tensors; "torch"
+    takes :func:`_eg_phase`, "cuda" the kernel."""
+    mode = CONFIG.eg_kernel
+    if mode == "torch" or (mode == "auto" and device.type == "cpu"):
+        return _eg_phase
+    if mode in ("auto", "cuda"):
+        from .hop_cuda import hybrid_hop_cuda
+        return hybrid_hop_cuda
+    raise ValueError(f"unknown CONFIG.eg_kernel {mode!r} "
+                     "(expected 'auto', 'cuda' or 'torch')")
+
+
 def solve_avi_batch(M, q, l, u, z0, var_mask, tol=1e-10,
                     max_iter=4000) -> AVIResult:
     """Batched box-AVI solve by the hybrid semismooth-Newton / proximal /
@@ -460,7 +476,11 @@ def solve_avi_batch(M, q, l, u, z0, var_mask, tol=1e-10,
     the JAX package's vmapped ``while_loop``.  Shapes: M (B,n,n); q/l/u/z0
     (B,n); var_mask (B,n) bool, padded variables pinned at 0.  The working
     precision is q's dtype.  ``iters`` counts Newton steps plus 60 per
-    round's extragradient hop."""
+    round's extragradient hop.
+
+    The hop runs on :func:`_hop_engine`'s pick; its lanes are counted in
+    ``METRICS`` ``hop_lanes``, and in ``hop_fused_lanes`` where the kernel
+    ran it."""
     dt, dev = q.dtype, q.device
     M, l, u, z0 = (a.to(dt) for a in (M, l, u, z0))
     vm = var_mask.to(torch.bool)
@@ -486,6 +506,7 @@ def solve_avi_batch(M, q, l, u, z0, var_mask, tol=1e-10,
     delta = torch.full((B,), 1e-2, dtype=dt, device=dev)
     total_k = torch.zeros(B, dtype=torch.int64, device=dev)
     max_rounds = max(2, int(max_iter) // (40 + 30 + 60))
+    hop = _hop_engine(dev)
     for _ in range(max_rounds):
         act = lanes_where(best_m > tol_m)
         if act.numel() == 0:
@@ -501,7 +522,10 @@ def solve_avi_batch(M, q, l, u, z0, var_mask, tol=1e-10,
         bz = torch.where((qmer < bm)[:, None], qz, bz)
         bm = torch.minimum(qmer, bm)
         # extragradient hop out of repeated basins
-        ez, ebz, ebm = _eg_phase(Ma, qa, la, ua, tau[act], qz, 60)
+        ez, ebz, ebm = hop(Ma, qa, la, ua, tau[act], qz, 60)
+        METRICS.bump("hop_lanes", act.numel())
+        if hop is not _eg_phase:
+            METRICS.bump("hop_fused_lanes", act.numel())
         bz = torch.where((ebm < bm)[:, None], ebz, bz)
         bm = torch.minimum(ebm, bm)
         z[act] = torch.where((bm <= tol_m)[:, None], bz, ez)

@@ -60,8 +60,10 @@ _HOST_LIB: Optional[ctypes.CDLL] = None
 def _cuda_lib() -> ctypes.CDLL:
     global _CUDA_LIB
     if _CUDA_LIB is None:
-        lib = load_cuda_library(KERNEL, ["eg_warmstart.cu"],
-                                [*_HEADERS, "cluster_launch.cuh"])
+        # the hybrid hop's kernel (ops/hop_cuda.py) shares the library
+        lib = load_cuda_library(KERNEL, ["eg_warmstart.cu", "hybrid_hop.cu"],
+                                [*_HEADERS, "cluster_launch.cuh",
+                                 "hop_lane.cuh"])
         lib.qpn_eg_warmstart_f32.restype = ctypes.c_int
         lib.qpn_eg_warmstart_f32.argtypes = _PARAMS + [ctypes.c_void_p]
         lib.qpn_eg_warmstart_cluster_f32.restype = ctypes.c_int
@@ -87,8 +89,9 @@ def _cuda_lib() -> ctypes.CDLL:
 def _host_lib() -> ctypes.CDLL:
     global _HOST_LIB
     if _HOST_LIB is None:
-        lib = load_host_library("eg_lane_host", ["eg_lane_host.cpp"],
-                                _HEADERS)
+        lib = load_host_library("eg_lane_host",
+                                ["eg_lane_host.cpp", "hop_lane_host.cpp"],
+                                [*_HEADERS, "hop_lane.cuh"])
         lib.qpn_eg_warmstart_host_f32.restype = None
         lib.qpn_eg_warmstart_host_f32.argtypes = _PARAMS + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]

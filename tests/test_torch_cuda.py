@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from qpn_tpu_torch.config import CONFIG, banded_min_blocks
 from qpn_tpu_torch.models.robust_avoid import scenario_batch_gavis
 from qpn_tpu_torch.ops import eg, eg_cuda, lemke, screen, screen_cuda
@@ -621,6 +622,137 @@ def test_eg_kernel_setting_torch_skips_the_kernel(cuda_device):
         assert METRICS.launches[eg_cuda.KERNEL] == 0
     finally:
         CONFIG.eg_kernel = old
+
+
+# --- the hybrid hop kernel (csrc/hybrid_hop.cu) ----------------------------
+
+def _hop_random(device, n, dtype, B=4, seed=0):
+    """Monotone lanes with lower bounds 0 or -inf and upper 1 or +inf,
+    Ruiz-scaled as solve_avi_batch scales them, from random starts."""
+    from qpn_tpu_torch.ops.eg import ruiz
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, n, n)) / np.sqrt(n)
+    K = rng.standard_normal((B, n, n)) / np.sqrt(n)
+    M = (np.einsum("bij,bkj->bik", A, A) + K - K.transpose(0, 2, 1)
+         + 0.1 * np.eye(n)[None])
+    l = np.where(rng.random((B, n)) < 0.5, 0.0, -np.inf)
+    u = np.where(rng.random((B, n)) < 0.3, 1.0, np.inf)
+    M, q, l, u, z = (torch.as_tensor(a, device=device) for a in (
+        M, rng.standard_normal((B, n)), l, u, rng.standard_normal((B, n))))
+    d, e = ruiz(M)
+    Mm = d[:, :, None] * M * e[:, None, :]
+    ls = torch.where(torch.isfinite(l), l / e, l)
+    us = torch.where(torch.isfinite(u), u / e, u)
+    tau = 0.9 / (1.0 + Mm.abs().sum(2).amax(1))
+    return tuple(a.to(dtype).contiguous() for a in (
+        Mm, d * q, ls, us, tau, torch.clamp(z / e, ls, us)))
+
+
+HOP_DTYPES = [torch.float32, torch.float64]
+# the kernel against the plain loop, relative to the lane's scale: z, and
+# ||Phi|| of the best merit (tests/test_torch_hop.py's bounds: the same
+# arithmetic, other orders of sums)
+HOP_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _hop_close(got, want, z0):
+    scale = 1.0 + z0.abs().amax(1)
+    tol = HOP_TOL[z0.dtype]
+    assert float(((got[0] - want[0]).abs().amax(1) / scale).max()) <= tol
+    err = ((2 * got[2]).sqrt() - (2 * want[2]).sqrt()).abs() / scale
+    assert float(err.max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("instance", [0, 1, 2],
+                         ids=["register", "shared", "global"])
+@pytest.mark.parametrize("dtype", HOP_DTYPES, ids=["f32", "f64"])
+def test_hop_instances_give_the_host_bits(cuda_device, dtype, instance):
+    """Each instance through the private launcher on the flagship's first
+    hop (n=38, 16 lanes, 60 steps): the g++ build's bits in that
+    instance's order of sums, and the plain loop's results within
+    HOP_TOL; one launch counted."""
+    from qpn_tpu_torch.ops import avi, hop_cuda
+    t = _data(cuda_device, S=16)
+    ins = chip_smoke.first_hop([t[k] for k in chip_smoke.KEYS], dtype)
+    METRICS.reset()
+    got = hop_cuda._launch(*ins, 60, instance=instance)
+    torch.cuda.synchronize()
+    assert METRICS.launches[hop_cuda.KERNEL] == 1
+    host = hop_cuda.hybrid_hop_host(*(a.cpu() for a in ins), 60,
+                                    instance=instance)
+    assert all(chip_smoke.same_bits(g.cpu(), h) for g, h in zip(got, host))
+    _hop_close(got, avi._eg_phase(*ins, 60), ins[5])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("steps", [0, 1, 60])
+@pytest.mark.parametrize("n", [5, 38, 64, 100, 200, 240])
+@pytest.mark.parametrize("dtype", HOP_DTYPES, ids=["f32", "f64"])
+def test_hop_picked_instance_matches_host_bits_and_plain_loop(
+        cuda_device, dtype, n, steps):
+    """The wrapper's pick for n and the precision (register up to 64 in
+    f32 and 40 in f64, shared, and M read in place at f64 n=200 and at
+    n=240) against the g++ build's bits at the card's limit, and the plain
+    loop within HOP_TOL."""
+    from qpn_tpu_torch.ops import avi, hop_cuda
+    ins = _hop_random(cuda_device, n, dtype, seed=n)
+    got = hop_cuda.hybrid_hop_cuda(*ins, steps)
+    torch.cuda.synchronize()
+    host = hop_cuda.hybrid_hop_host(*(a.cpu() for a in ins), steps,
+                                    optin=eg_cuda.card_optin(cuda_device))
+    assert all(chip_smoke.same_bits(g.cpu(), h) for g, h in zip(got, host))
+    _hop_close(got, avi._eg_phase(*ins, steps), ins[5])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", HOP_DTYPES, ids=["f32", "f64"])
+def test_hop_kernel_keeps_nan_as_the_host(cuda_device, dtype):
+    """A lane that overflows to inf, then NaN, beside a finite one: the
+    host's bits and NaNs (a NaN merit takes over the best merit, the best z
+    stays finite)."""
+    from qpn_tpu_torch.ops import hop_cuda
+    ins = list(_hop_random(cuda_device, 6, dtype, B=2, seed=1))
+    ins[4] = ins[4].clone()
+    ins[4][1] = 1e6             # far past 1 / ||M||: the lane diverges
+    got = hop_cuda.hybrid_hop_cuda(*ins, 60)
+    torch.cuda.synchronize()
+    host = hop_cuda.hybrid_hop_host(*(a.cpu() for a in ins), 60)
+    assert all(chip_smoke.same_bits(g.cpu(), h) for g, h in zip(got, host))
+    assert bool(torch.isnan(got[2][1])) and bool(torch.isfinite(got[2][0]))
+    assert bool(torch.isfinite(got[1]).all())
+
+
+@pytest.mark.gpu
+def test_generic_route_on_the_cells_pool_runs_every_hop_in_the_kernel(
+        cuda_device, monkeypatch):
+    """The benchmark cell ra_T2o1.generic_s256's 32 pool ensembles through
+    solve_avi_batch_adaptive as the cell calls it: every lane at or below
+    1e-8 (the route's residual and a numpy audit), one hop kernel launch
+    for every round of every precision pass, and every hop lane fused."""
+    from qpn_tpu_torch.ops import hop_cuda
+    M, q, l, u, z0, mask, mix = chip_smoke.cell_pool("ra_T2o1.generic_s256",
+                                                     cuda_device)
+    rounds = []
+    real = hop_cuda.hybrid_hop_cuda
+
+    def counted(*a):
+        rounds.append(a[0].shape[0])
+        return real(*a)
+    monkeypatch.setattr(hop_cuda, "hybrid_hop_cuda", counted)
+    METRICS.reset()
+    for e in range(mix["pool"]):
+        res = solve_avi_batch_adaptive(M, q[e], l[e], u, z0, mask,
+                                       tol=mix["tol"],
+                                       onchip_eg_steps=mix["onchip_eg_steps"])
+        assert float(res.resid.max()) <= mix["tol"]
+        F = (M @ res.z[:, :, None])[:, :, 0] + q[e]
+        phi = res.z - torch.minimum(torch.maximum(res.z - F, l[e]), u)
+        assert float(phi.abs().max()) <= mix["tol"]
+    torch.cuda.synchronize()
+    assert rounds and METRICS.launches[hop_cuda.KERNEL] == len(rounds)
+    c = METRICS.counters
+    assert c["hop_lanes"] == c["hop_fused_lanes"] == sum(rounds)
 
 
 # --------------------------------------------------------------------------

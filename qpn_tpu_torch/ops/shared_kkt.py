@@ -41,6 +41,23 @@ analytic operation and byte counts of the device phases and the wall time of
 each phase (``phase_t``).  With ``QPN_SHARED_DEBUG`` set in the environment
 the route prints each pre-pass chunk and each policy round.
 
+Observability (``utils/metrics.py``), inside the entry's ``qpn.kkt.shared``
+span: spans ``qpn.shared.eg`` (the pre-pass, its per-chunk reads and the
+fetch of Z), ``.round0``, ``.ladder`` (the δ-ladder rounds), ``.rungs``
+(everything after the ladder before the final audit; inside it ``.admm``,
+the ADMM rung's device calls, and ``.polish``, :func:`_structured_polish`)
+and ``.audit``; every blocking device-to-host read through
+``METRICS.sync``, the batched LU too (MAGMA waits inside it); counters
+``shared_eg_steps`` (pre-pass steps, ``stats["eg_iters"]``),
+``shared_eg_gemms`` (the pre-pass's (lanes, n) @ (n, n) products),
+``shared_round0_left`` (lanes round 0 left uncertified),
+``shared_polish_lanes`` (lanes of each :func:`_structured_polish` call) and
+``shared_host_solves`` (``stats["host_solves"]``), beside the rung counters
+``shared_kkt_*``.  Each ``phase_t`` entry is a span of its own (``eg`` is
+``qpn.shared.eg.steps``, ``chip_admm_rung`` ``qpn.shared.rungs.chip_admm``,
+and so on, :func:`_phase`), and ``chip_admm_t`` reads ``.admm`` and
+``.polish``: the route has one clock.
+
 Against the JAX package, as the rules of the port say: all device work runs
 on one device (that of the inputs, or ``CONFIG.device`` for numpy inputs);
 the JAX package's 128-lane chunks and lane buckets of the ADMM rung, the
@@ -64,6 +81,7 @@ decisions.  The mesh is ignored when S is not a multiple of its size.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import threading
 import time
@@ -158,8 +176,8 @@ def _eg_run(Mt, Q, L, U, Z0, tau, steps, max_chunks, band, switch,
     while k < max_chunks:
         Z, r, at_l, at_u, changed = _eg_chunk(Mt, Q, L, U, Z, tau, steps,
                                               band, at_l, at_u, method)
-        rmax, changed = torch.stack([r.max().double(),
-                                     changed.double()]).tolist()
+        rmax, changed = METRICS.sync(torch.stack([r.max().double(),
+                                                  changed.double()]).tolist)
         if mesh is not None:
             from ..parallel.mesh import all_reduce
             rmax = all_reduce(mesh, [rmax], "max")[0]
@@ -215,7 +233,7 @@ def _prox_eg_rung(M32, M64, Q64, L64, U64, Z0, delta, tau, tol, inner_steps,
         F = zref @ Mt64 + Q64
         rn = (zref - torch.clamp(zref - F, L64, U64)).abs().amax(1)
         k += 1
-        if float(rn.max()) <= tol:
+        if METRICS.sync(float, rn.max()) <= tol:
             break
     return zref, rn, k
 
@@ -260,7 +278,9 @@ def _lu_refine(buf, rhs0, residual, refines):
         S, n = rhs0.shape
         piv = torch.empty(S, n, dtype=torch.int32, device=buf.device)
         info = torch.empty(S, dtype=torch.int32, device=buf.device)
-        lu, piv, info = torch.linalg.lu_factor_ex(A, out=(A, piv, info))
+        # MAGMA's batched factorization waits on the card inside itself
+        lu, piv, info = METRICS.sync(functools.partial(
+            torch.linalg.lu_factor_ex, out=(A, piv, info)), A)
         # after an exactly zero pivot the rest of a lane's factors and pivot
         # indices may be anything: give the solves a valid permutation there
         # and report the lane non-finite
@@ -516,7 +536,9 @@ def _chip_admm_rung(M0, q, l64, u64, todo, structure, tol, scale,
     at the f64 natural-residual audit, device_flops the nominal operation
     count of the ADMM work on the device.  ``seconds`` (a dict, if given)
     gains the wall time of the ADMM calls ("admm", device work and its
-    fetch) and of the host polish ("polish")."""
+    fetch; span ``qpn.shared.admm``) and of the host polish ("polish";
+    span ``qpn.shared.polish``, its lanes counted in
+    ``shared_polish_lanes``)."""
     nd, m = structure["nd"], structure["m"]
     C = todo.size
     f64 = torch.float64
@@ -539,16 +561,15 @@ def _chip_admm_rung(M0, q, l64, u64, todo, structure, tol, scale,
         # started at x = 0, y = 0 (which also starts z at the projection of
         # 0 onto the bounds): the JAX package measured a start from the
         # extragradient iterate worse, so the rung runs cold
-        t0 = time.perf_counter()
-        sol = _admm_shared_call(
-            Qd, Ad, dev(q[idx, :nd]),
-            dev(l64[idx, nd + m:nd + 2 * m] - off),
-            dev(u64[idx, nd + m:nd + 2 * m] - off),
-            torch.zeros(idx.size, nd, dtype=f64, device=device),
-            torch.zeros(idx.size, m, dtype=f64, device=device), eps, mi)
-        x = sol.x.cpu().numpy()
-        it_l = sol.iters.cpu().numpy().astype(np.int64)
-        t1 = time.perf_counter()
+        with METRICS.timer("qpn.shared.admm") as admm:
+            sol = _admm_shared_call(
+                Qd, Ad, dev(q[idx, :nd]),
+                dev(l64[idx, nd + m:nd + 2 * m] - off),
+                dev(u64[idx, nd + m:nd + 2 * m] - off),
+                torch.zeros(idx.size, nd, dtype=f64, device=device),
+                torch.zeros(idx.size, m, dtype=f64, device=device), eps, mi)
+            x = METRICS.sync(sol.x.cpu).numpy()
+            it_l = METRICS.sync(sol.iters.cpu).numpy().astype(np.int64)
         stats_iters[idx] += it_l
         # nominal operations: per iteration two (m, nd) matvecs and the
         # solve (~5 nd² multiply-adds), per 25-iteration block one
@@ -556,12 +577,13 @@ def _chip_admm_rung(M0, q, l64, u64, todo, structure, tol, scale,
         its = float(it_l.sum())
         dev_fl += (its * (4.0 * m * nd + 10.0 * nd * nd)
                    + its / 25.0 * (4.0 / 3.0) * nd ** 3)
-        z, rn = _structured_polish(M0, nd, m, q[idx], l64[idx], u64[idx],
-                                   x, tol, scale)
+        METRICS.bump("shared_polish_lanes", idx.size)
+        with METRICS.timer("qpn.shared.polish") as polish:
+            z, rn = _structured_polish(M0, nd, m, q[idx], l64[idx],
+                                       u64[idx], x, tol, scale)
         if seconds is not None:
-            seconds["admm"] = seconds.get("admm", 0.0) + t1 - t0
-            seconds["polish"] = (seconds.get("polish", 0.0)
-                                 + time.perf_counter() - t1)
+            seconds["admm"] = seconds.get("admm", 0.0) + admm.seconds
+            seconds["polish"] = seconds.get("polish", 0.0) + polish.seconds
         better = rn < rn_out[pend]
         z_out[pend[better]] = z[better]
         rn_out[pend[better]] = rn[better]
@@ -582,17 +604,25 @@ def _escalate_generic(M0, q, l, u, z0, tol, device):
     res = solve_avi_batch_adaptive(
         dev(M0)[None].expand(B, -1, -1), dev(q), dev(l), dev(u), dev(z0),
         torch.ones(B, n, dtype=torch.bool, device=device), tol=tol)
-    rg = res.resid.cpu().numpy()
-    ok = res.converged.cpu().numpy() & np.isfinite(rg)
-    return (res.z.cpu().numpy(), ok,
-            res.iters.cpu().numpy().astype(np.int64))
+    rg, conv, z, it = (METRICS.sync(a.cpu).numpy() for a in (
+        res.resid, res.converged, res.z, res.iters))
+    return z, conv & np.isfinite(rg), it.astype(np.int64)
 
 
 def _host64(a):
-    """numpy f64 copy of a tensor or array."""
+    """numpy f64 copy of a tensor (a counted read) or array."""
     if isinstance(a, torch.Tensor):
-        a = a.detach().cpu().numpy()
+        a = METRICS.sync(a.detach().cpu).numpy()
     return np.asarray(a, dtype=np.float64)
+
+
+@contextlib.contextmanager
+def _phase(phase_t, key, name):
+    """Span ``name`` (``METRICS.timer``) whose seconds also add to
+    ``phase_t[key]``: one clock reading serves both."""
+    with METRICS.timer(name) as span:
+        yield
+    phase_t[key] = phase_t.get(key, 0.0) + span.seconds
 
 
 @contextlib.contextmanager
@@ -707,22 +737,23 @@ def solve_kkt_avi_shared(M, q, l, u, var_mask, tol: float = 1e-8, *,
         # ensembles keep the exact-stability rule
         eg_stable_tol = max(0, S // 128)
     phase_t = {}
-    _t = time.perf_counter()
-
-    max_chunks = max(1, eg_budget // eg_chunk)
-    with _matmul_precision(eg_prec):
-        Z, _, at_l_d, at_u_d, k = _eg_run(
-            Mt32, Q32, L32, U32, Z, tau, eg_chunk, max_chunks, band32,
-            switch, eg_stable_tol, method=eg_method, mesh=mesh)
-    eg_iters = int(k) * eg_chunk
-
-    phase_t["eg"] = time.perf_counter() - _t
-    _t = time.perf_counter()
-    if mesh is not None:
-        Z = gather(mesh, Z)
-    Z64 = Z.cpu().numpy().astype(np.float64)
-    phase_t["eg_fetch"] = time.perf_counter() - _t
-    _t = time.perf_counter()
+    with METRICS.timer("qpn.shared.eg"):
+        with _phase(phase_t, "eg", "qpn.shared.eg.steps"):
+            max_chunks = max(1, eg_budget // eg_chunk)
+            with _matmul_precision(eg_prec):
+                Z, _, at_l_d, at_u_d, k = _eg_run(
+                    Mt32, Q32, L32, U32, Z, tau, eg_chunk, max_chunks,
+                    band32, switch, eg_stable_tol, method=eg_method,
+                    mesh=mesh)
+            eg_iters = int(k) * eg_chunk
+        with _phase(phase_t, "eg_fetch", "qpn.shared.eg.fetch"):
+            if mesh is not None:
+                Z = gather(mesh, Z)
+            Z64 = METRICS.sync(Z.cpu).numpy().astype(np.float64)
+    METRICS.bump("shared_eg_steps", eg_iters)
+    # the (lanes, n) @ (n, n) products: one or two a step and one a chunk
+    METRICS.bump("shared_eg_gemms", int(k) * (
+        (1 if eg_method == "popov" else 2) * eg_chunk + 1))
 
     z_out = Z64.copy()
     done = np.zeros(S, dtype=bool)
@@ -831,223 +862,233 @@ def solve_kkt_avi_shared(M, q, l, u, var_mask, tol: float = 1e-8, *,
     # audited f64 results.  This is the round that solves ~all lanes.  Under
     # a mesh it runs as one call: each rank factorizes its own S/size lanes
     # and every rank gets all of them back.
-    sing0: list = []
-    r0_chunk = S if mesh is not None else lane_chunk
-    for ofs in range(0, S, r0_chunk):
-        sel = np.arange(ofs, min(ofs + r0_chunk, S))
-        sl = slice(ofs, ofs + sel.size)
-        _t0 = time.perf_counter()
-        if mesh is None:
-            zc_d, rn_d, h_d = _round0_solve(
-                M32_d, M64_d, at_l_d[sl], at_u_d[sl], Q64_d[sl], L64_d[sl],
-                U64_d[sl], REFINES)
-        else:
-            zc_d, rn_d, h_d = (gather(mesh, a) for a in _round0_solve(
-                M32_d, M64_d, at_l_d, at_u_d, Q64_d, L64_d, U64_d, REFINES))
-        lu_factored += sel.size
-        refine_gemms += (REFINES + 1) * sel.size
-        iters_out[sel] += 1
-        rn = rn_d.cpu().numpy()      # blocks on the compute
-        phase_t["round0_compute"] = (
-            phase_t.get("round0_compute", 0.0) + time.perf_counter() - _t0)
-        _t0 = time.perf_counter()
-        fin = np.isfinite(rn)
-        adv = fin & (rn > tol)
-        zc, hs = zc_d.cpu().numpy(), h_d.cpu().numpy()
-        # a lane that advances through the δ ladder classifies next from its
-        # own basis solution: its natural map, for those lanes only
-        Fchunk = np.zeros_like(zc)
-        Fchunk[adv] = zc[adv] @ M0.T + q[sel[adv]]
-        sing0.extend(sel[~fin].tolist())
-        _absorb(sel, zc, Fchunk, rn, rn, 0)  # δ=0 ⇒ prox resid = rn
-        phase_t["round0_fetch"] = (
-            phase_t.get("round0_fetch", 0.0) + time.perf_counter() - _t0)
-        # record the round-0 fingerprints so a lane re-presenting the same
-        # classification later counts as cycling: the device hash and the
-        # host loop's _label_hash are the same function
-        for k, lane in enumerate(sel):
-            seen_cls[lane].add(int(hs[k]))
-    # lanes whose round-0 factorization was singular keep the EG iterate as
-    # their classification point: fill their natural map now
-    ladder = np.ones(S, dtype=bool)
-    # newton_rounds from here on covers the δ-ladder only
-    _t = time.perf_counter()
-    if sing0:
-        s0 = np.asarray(sing0, dtype=np.int64)
-        Fc[s0] = Zc[s0] @ M0.T + q[s0]
-        if structure is not None:
-            # round-0-singular lanes are the dual-degenerate class: the δ
-            # ladder is the wrong tool for them, so they skip it and go
-            # straight to the structured-QP rung
-            ladder[s0] = False
-            _dbg(f"{s0.size} round-0-singular lanes routed ADMM-first")
-
-    for rd in range(1, newton_rounds):
-        todo = np.flatnonzero(~done & active & ladder)
-        if todo.size == 0:
-            break
-        if rd - progress_rd[0] >= 8:
-            # stall: no lane has certified for 8 consecutive rounds; the
-            # remaining lanes are ladder-cyclers: hand them to the rungs
-            _dbg(f"newton stall at rd={rd}: {todo.size} lanes to rungs")
-            break
-        # classify from the prox natural map s = z − (F + δ(z − z_ref));
-        # for δ=0 lanes this is the original map
-        Fp = Fc[todo] + delta_lane[todo, None] * (Zc[todo] - zref[todo])
-        at_l, at_u = _classify(Zc[todo], Fp, l64[todo], u64[todo],
-                               band_lane[todo, None])
-        free = ~(at_l | at_u)
-        bval = np.where(at_l, l_fin[todo], u_fin[todo])
-        # cycling inside one (δ, z_ref) context: escalate the ladder
-        # (fingerprints from the same hash stream as the device round 0)
-        fps = _label_hash(at_l, at_u, hash_w)
-        fresh = np.ones(todo.size, dtype=bool)
-        for k, lane in enumerate(todo):
-            fp = int(fps[k])
-            if fp in seen_cls[lane]:
-                fresh[k] = False
-                _bump_rung(lane)
-            else:
-                seen_cls[lane].add(fp)
-        todo = todo[fresh]
-        if todo.size == 0:
-            continue
-        free, bval = free[fresh], bval[fresh]
-        for ofs in range(0, todo.size, lane_chunk):
-            sel = todo[ofs:ofs + lane_chunk]
+    with METRICS.timer("qpn.shared.round0"):
+        sing0: list = []
+        r0_chunk = S if mesh is not None else lane_chunk
+        for ofs in range(0, S, r0_chunk):
+            sel = np.arange(ofs, min(ofs + r0_chunk, S))
             sl = slice(ofs, ofs + sel.size)
-            if sel.size <= 24:
-                # straggler tail on host f64 LAPACK: exact f64 needs no
-                # refinement and no f32 singularity handling, and the δ
-                # ladder converges in fewer rounds
-                zc, Fchunk, rn, rp = _host_basis_solve(
-                    M0, free[sl], bval[sl], q[sel], l64[sel], u64[sel],
-                    delta_lane[sel], zref[sel])
-                host_solves += sel.size
-                iters_out[sel] += 1
-            else:
-                outs = _basis_solve_refine(
-                    M32_d, M64_d, dev(free[sl], torch.bool), dev(bval[sl]),
-                    dev(q[sel]), dev(l64[sel]), dev(u64[sel]),
-                    dev(delta_lane[sel]), dev(zref[sel]), REFINES)
+            with _phase(phase_t, "round0_compute",
+                        "qpn.shared.round0.compute"):
+                if mesh is None:
+                    zc_d, rn_d, h_d = _round0_solve(
+                        M32_d, M64_d, at_l_d[sl], at_u_d[sl], Q64_d[sl],
+                        L64_d[sl], U64_d[sl], REFINES)
+                else:
+                    zc_d, rn_d, h_d = (gather(mesh, a) for a in _round0_solve(
+                        M32_d, M64_d, at_l_d, at_u_d, Q64_d, L64_d, U64_d,
+                        REFINES))
                 lu_factored += sel.size
                 refine_gemms += (REFINES + 1) * sel.size
                 iters_out[sel] += 1
-                zc, Fchunk, rn, rp = (a.cpu().numpy() for a in outs)
-            _absorb(sel, zc, Fchunk, rn, rp, rd)
+                rn = METRICS.sync(rn_d.cpu).numpy()   # blocks on the compute
+            with _phase(phase_t, "round0_fetch", "qpn.shared.round0.fetch"):
+                fin = np.isfinite(rn)
+                adv = fin & (rn > tol)
+                zc = METRICS.sync(zc_d.cpu).numpy()
+                hs = METRICS.sync(h_d.cpu).numpy()
+                # a lane that advances through the δ ladder classifies next
+                # from its own basis solution: its natural map, for those
+                # lanes only
+                Fchunk = np.zeros_like(zc)
+                Fchunk[adv] = zc[adv] @ M0.T + q[sel[adv]]
+                sing0.extend(sel[~fin].tolist())
+                _absorb(sel, zc, Fchunk, rn, rn, 0)  # δ=0 ⇒ prox resid = rn
+            # record the round-0 fingerprints so a lane re-presenting the
+            # same classification later counts as cycling: the device hash
+            # and the host loop's _label_hash are the same function
+            for k, lane in enumerate(sel):
+                seen_cls[lane].add(int(hs[k]))
+    METRICS.bump("shared_round0_left", S - int(done.sum()))
+    with _phase(phase_t, "newton_rounds", "qpn.shared.ladder"):
+        # lanes whose round-0 factorization was singular keep the EG iterate
+        # as their classification point: fill their natural map now
+        ladder = np.ones(S, dtype=bool)
+        # newton_rounds from here on covers the δ-ladder only
+        if sing0:
+            s0 = np.asarray(sing0, dtype=np.int64)
+            Fc[s0] = Zc[s0] @ M0.T + q[s0]
+            if structure is not None:
+                # round-0-singular lanes are the dual-degenerate class: the δ
+                # ladder is the wrong tool for them, so they skip it and go
+                # straight to the structured-QP rung
+                ladder[s0] = False
+                _dbg(f"{s0.size} round-0-singular lanes routed ADMM-first")
 
-    phase_t["newton_rounds"] = time.perf_counter() - _t
-    _t = time.perf_counter()
+        for rd in range(1, newton_rounds):
+            todo = np.flatnonzero(~done & active & ladder)
+            if todo.size == 0:
+                break
+            if rd - progress_rd[0] >= 8:
+                # stall: no lane has certified for 8 consecutive rounds; the
+                # remaining lanes are ladder-cyclers: hand them to the rungs
+                _dbg(f"newton stall at rd={rd}: {todo.size} lanes to rungs")
+                break
+            # classify from the prox natural map s = z − (F + δ(z − z_ref));
+            # for δ=0 lanes this is the original map
+            Fp = Fc[todo] + delta_lane[todo, None] * (Zc[todo]
+                                                      - zref[todo])
+            at_l, at_u = _classify(Zc[todo], Fp, l64[todo], u64[todo],
+                                   band_lane[todo, None])
+            free = ~(at_l | at_u)
+            bval = np.where(at_l, l_fin[todo], u_fin[todo])
+            # cycling inside one (δ, z_ref) context: escalate the ladder
+            # (fingerprints from the same hash stream as the device round 0)
+            fps = _label_hash(at_l, at_u, hash_w)
+            fresh = np.ones(todo.size, dtype=bool)
+            for k, lane in enumerate(todo):
+                fp = int(fps[k])
+                if fp in seen_cls[lane]:
+                    fresh[k] = False
+                    _bump_rung(lane)
+                else:
+                    seen_cls[lane].add(fp)
+            todo = todo[fresh]
+            if todo.size == 0:
+                continue
+            free, bval = free[fresh], bval[fresh]
+            for ofs in range(0, todo.size, lane_chunk):
+                sel = todo[ofs:ofs + lane_chunk]
+                sl = slice(ofs, ofs + sel.size)
+                if sel.size <= 24:
+                    # straggler tail on host f64 LAPACK: exact f64 needs no
+                    # refinement and no f32 singularity handling, and the δ
+                    # ladder converges in fewer rounds
+                    zc, Fchunk, rn, rp = _host_basis_solve(
+                        M0, free[sl], bval[sl], q[sel], l64[sel], u64[sel],
+                        delta_lane[sel], zref[sel])
+                    host_solves += sel.size
+                    iters_out[sel] += 1
+                else:
+                    outs = _basis_solve_refine(
+                        M32_d, M64_d, dev(free[sl], torch.bool),
+                        dev(bval[sl]), dev(q[sel]), dev(l64[sel]),
+                        dev(u64[sel]), dev(delta_lane[sel]), dev(zref[sel]),
+                        REFINES)
+                    lu_factored += sel.size
+                    refine_gemms += (REFINES + 1) * sel.size
+                    iters_out[sel] += 1
+                    zc, Fchunk, rn, rp = (METRICS.sync(a.cpu).numpy()
+                                          for a in outs)
+                _absorb(sel, zc, Fchunk, rn, rp, rd)
 
-    # structured rung first, for any straggler count: ADMM on the underlying
-    # QPs on the device and the small active-set host polish.  One path
-    # keeps the straggler population's resolution deterministic.
-    todo = np.flatnonzero(~done)
-    chip_admm_flops = 0.0
-    rung_t = {}
-    if todo.size and structure is not None:
-        METRICS.bump("shared_kkt_chip_admm_rung", todo.size)
-        zc, ok, chip_admm_flops = _chip_admm_rung(
-            M0, q, l64, u64, todo, structure, tol, scale, iters_out, device,
-            rung_t)
-        z_out[todo[ok]] = zc[ok]
-        done[todo[ok]] = True
-        _dbg(f"chip ADMM rung lanes={todo.size} ok={int(ok.sum())}")
-    phase_t["chip_admm_rung"] = time.perf_counter() - _t
-    _t = time.perf_counter()
+    # everything after the ladder and before the final audit: the ADMM rung,
+    # the ADMM route, the host lstsq, the prox-EG rung, the generic
+    # escalation
+    with METRICS.timer("qpn.shared.rungs"):
+        # structured rung first, for any straggler count: ADMM on the
+        # underlying QPs on the device and the small active-set host polish.
+        # One path keeps the straggler population's resolution
+        # deterministic.
+        chip_admm_flops = 0.0
+        rung_t = {}
+        with _phase(phase_t, "chip_admm_rung", "qpn.shared.rungs.chip_admm"):
+            todo = np.flatnonzero(~done)
+            if todo.size and structure is not None:
+                METRICS.bump("shared_kkt_chip_admm_rung", todo.size)
+                zc, ok, chip_admm_flops = _chip_admm_rung(
+                    M0, q, l64, u64, todo, structure, tol, scale, iters_out,
+                    device, rung_t)
+                z_out[todo[ok]] = zc[ok]
+                done[todo[ok]] = True
+                _dbg(f"chip ADMM rung lanes={todo.size} ok={int(ok.sum())}")
 
-    # the ADMM route of the structured solve (ADMM with its own polish,
-    # dual reconstruction, Newton polish) for the remnants
-    todo = np.flatnonzero(~done)
-    if todo.size and structure is not None:
-        from .avi import _solve_kkt_avi_admm
-        METRICS.bump("shared_kkt_admm_escalation", todo.size)
-        sub = _solve_kkt_avi_admm(
-            M64_d[None].expand(todo.size, -1, -1), dev(q[todo]),
-            dev(l64[todo]), dev(u64[todo]),
-            torch.ones(todo.size, n, dtype=torch.bool, device=device),
-            structure, tol)
-        ok = sub.converged.cpu().numpy()
-        z_out[todo[ok]] = sub.z.cpu().numpy()[ok]
-        done[todo[ok]] = True
-        iters_out[todo] += sub.iters.cpu().numpy().astype(np.int64)
-        _dbg(f"ADMM structured rung lanes={todo.size} ok={int(ok.sum())}")
-    phase_t["admm_rung"] = time.perf_counter() - _t
-    _t = time.perf_counter()
+        # the ADMM route of the structured solve (ADMM with its own polish,
+        # dual reconstruction, Newton polish) for the remnants
+        with _phase(phase_t, "admm_rung", "qpn.shared.rungs.admm_route"):
+            todo = np.flatnonzero(~done)
+            if todo.size and structure is not None:
+                from .avi import _solve_kkt_avi_admm
+                METRICS.bump("shared_kkt_admm_escalation", todo.size)
+                sub = _solve_kkt_avi_admm(
+                    M64_d[None].expand(todo.size, -1, -1), dev(q[todo]),
+                    dev(l64[todo]), dev(u64[todo]),
+                    torch.ones(todo.size, n, dtype=torch.bool,
+                               device=device),
+                    structure, tol)
+                ok = METRICS.sync(sub.converged.cpu).numpy()
+                z_out[todo[ok]] = METRICS.sync(sub.z.cpu).numpy()[ok]
+                done[todo[ok]] = True
+                iters_out[todo] += METRICS.sync(
+                    sub.iters.cpu).numpy().astype(np.int64)
+                _dbg(f"ADMM structured rung lanes={todo.size} "
+                     f"ok={int(ok.sum())}")
 
-    # exact host f64 min-norm solve for lanes whose f32 factorization could
-    # not be refined: degenerate classifications give singular but
-    # consistent basis systems (the solution face is an affine set), and
-    # lstsq picks a valid point where np.linalg.solve returns garbage
-    # without raising.  Two classification bands tried per lane.
-    for band in (1e-4 * scale, 1e-2 * scale):
-        todo = np.flatnonzero(~done)
-        if todo.size == 0:
-            break
-        at_l, at_u = _classify(Zc[todo], Fc[todo], l64[todo], u64[todo],
-                               band)
-        free = ~(at_l | at_u)
-        bval = np.where(at_l, l_fin[todo], u_fin[todo])
-        A = np.where(free[:, :, None], M0[None], np.eye(n)[None])
-        rhs = np.where(free, -q[todo], bval)
-        # gelsy (pivoted QR) over the default gelsd (SVD): the same
-        # min-norm answer for these consistent systems at less cost
-        import scipy.linalg as sla
-        zc = np.stack([sla.lstsq(A[i], rhs[i], lapack_driver="gelsy",
-                                 check_finite=False)[0]
-                       for i in range(todo.size)])
-        host_solves += todo.size
-        iters_out[todo] += 1
-        rn, _ = _nat_resid_shared(M0, q[todo], l64[todo], u64[todo], zc)
-        ok = np.isfinite(rn) & (rn <= tol)
-        z_out[todo[ok]] = zc[ok]
-        done[todo[ok]] = True
-        _dbg(f"host lstsq solve band={band:.1e} lanes={todo.size} "
-             f"ok={int(ok.sum())}")
+        # exact host f64 min-norm solve for lanes whose f32 factorization
+        # could not be refined: degenerate classifications give singular but
+        # consistent basis systems (the solution face is an affine set), and
+        # lstsq picks a valid point where np.linalg.solve returns garbage
+        # without raising.  Two classification bands tried per lane.
+        with _phase(phase_t, "host_lstsq", "qpn.shared.rungs.lstsq"):
+            for band in (1e-4 * scale, 1e-2 * scale):
+                todo = np.flatnonzero(~done)
+                if todo.size == 0:
+                    break
+                at_l, at_u = _classify(Zc[todo], Fc[todo], l64[todo],
+                                       u64[todo], band)
+                free = ~(at_l | at_u)
+                bval = np.where(at_l, l_fin[todo], u_fin[todo])
+                A = np.where(free[:, :, None], M0[None], np.eye(n)[None])
+                rhs = np.where(free, -q[todo], bval)
+                # gelsy (pivoted QR) over the default gelsd (SVD): the same
+                # min-norm answer for these consistent systems at less cost
+                import scipy.linalg as sla
+                zc = np.stack([sla.lstsq(A[i], rhs[i], lapack_driver="gelsy",
+                                         check_finite=False)[0]
+                               for i in range(todo.size)])
+                host_solves += todo.size
+                iters_out[todo] += 1
+                rn, _ = _nat_resid_shared(M0, q[todo], l64[todo], u64[todo],
+                                          zc)
+                ok = np.isfinite(rn) & (rn <= tol)
+                z_out[todo[ok]] = zc[ok]
+                done[todo[ok]] = True
+                _dbg(f"host lstsq solve band={band:.1e} lanes={todo.size} "
+                     f"ok={int(ok.sum())}")
 
-    phase_t["host_lstsq"] = time.perf_counter() - _t
-    _t = time.perf_counter()
+        # opt-in batched proximal-point rung on the device: it solves mildly
+        # degenerate monotone-dominant ensembles without host work, but
+        # first-order methods crawl on robust_avoid's heavily skew,
+        # rank-deficient lane class, so it is off the default path
+        with _phase(phase_t, "prox_eg_rung", "qpn.shared.rungs.prox_eg"):
+            todo = np.flatnonzero(~done)
+            if enable_prox_eg and todo.size >= 8:
+                METRICS.bump("shared_kkt_prox_eg_rung", todo.size)
+                delta_p = 0.05 * max(Lip, 1e-12)
+                tau_p = np.float32(0.9 / (Lip + delta_p))
+                zp_d, rnp_d, kp = _prox_eg_rung(
+                    M32_d, M64_d, dev(q[todo]), dev(l64[todo]),
+                    dev(u64[todo]), dev(Zc[todo]), np.float32(delta_p),
+                    tau_p, tol, 1000, 40)
+                zp = METRICS.sync(zp_d.cpu).numpy()
+                rnp = METRICS.sync(rnp_d.cpu).numpy()
+                ok = np.isfinite(rnp) & (rnp <= tol)
+                z_out[todo[ok]] = zp[ok]
+                done[todo[ok]] = True
+                iters_out[todo] += int(kp) * 1000
+                _dbg(f"prox-EG rung lanes={todo.size} outers={int(kp)} "
+                     f"ok={int(ok.sum())}")
 
-    # opt-in batched proximal-point rung on the device: it solves mildly
-    # degenerate monotone-dominant ensembles without host work, but
-    # first-order methods crawl on robust_avoid's heavily skew,
-    # rank-deficient lane class, so it is off the default path
-    todo = np.flatnonzero(~done)
-    if enable_prox_eg and todo.size >= 8:
-        METRICS.bump("shared_kkt_prox_eg_rung", todo.size)
-        delta_p = 0.05 * max(Lip, 1e-12)
-        tau_p = np.float32(0.9 / (Lip + delta_p))
-        zp_d, rnp_d, kp = _prox_eg_rung(
-            M32_d, M64_d, dev(q[todo]), dev(l64[todo]), dev(u64[todo]),
-            dev(Zc[todo]), np.float32(delta_p), tau_p, tol, 1000, 40)
-        zp, rnp = zp_d.cpu().numpy(), rnp_d.cpu().numpy()
-        ok = np.isfinite(rnp) & (rnp <= tol)
-        z_out[todo[ok]] = zp[ok]
-        done[todo[ok]] = True
-        iters_out[todo] += int(kp) * 1000
-        _dbg(f"prox-EG rung lanes={todo.size} outers={int(kp)} "
-             f"ok={int(ok.sum())}")
-    phase_t["prox_eg_rung"] = time.perf_counter() - _t
-    _t = time.perf_counter()
-
-    # last resort: the generic adaptive per-lane solver (audited like
-    # everything else); scenario stragglers here are genuinely hard lanes
-    todo = np.flatnonzero(~done)
-    if todo.size:
-        METRICS.bump("shared_kkt_generic_escalation", todo.size)
-        zg, ok, it_g = _escalate_generic(M0, q[todo], l64[todo], u64[todo],
-                                         Z64[todo], tol, device)
-        z_out[todo[ok]] = zg[ok]
-        done[todo[ok]] = True
-        iters_out[todo] += it_g
-        _dbg(f"generic escalation lanes={todo.size} ok={int(ok.sum())}")
-
-    phase_t["escalations"] = time.perf_counter() - _t
-    _t = time.perf_counter()
-    resid, _ = _nat_resid_shared(M0, q, l64, u64, z_out)
-    phase_t["final_audit"] = time.perf_counter() - _t
+        # last resort: the generic adaptive per-lane solver (audited like
+        # everything else); scenario stragglers here are genuinely hard
+        # lanes
+        with _phase(phase_t, "escalations", "qpn.shared.rungs.generic"):
+            todo = np.flatnonzero(~done)
+            if todo.size:
+                METRICS.bump("shared_kkt_generic_escalation", todo.size)
+                zg, ok, it_g = _escalate_generic(M0, q[todo], l64[todo],
+                                                 u64[todo], Z64[todo], tol,
+                                                 device)
+                z_out[todo[ok]] = zg[ok]
+                done[todo[ok]] = True
+                iters_out[todo] += it_g
+                _dbg(f"generic escalation lanes={todo.size} "
+                     f"ok={int(ok.sum())}")
+    with _phase(phase_t, "final_audit", "qpn.shared.audit"):
+        resid, _ = _nat_resid_shared(M0, q, l64, u64, z_out)
     converged = resid <= tol
     METRICS.bump("shared_kkt_solves", int(converged.sum()))
+    METRICS.bump("shared_host_solves", host_solves)
 
     if stats is not None:
         # device operation ledger (host LAPACK solves and the escalation

@@ -38,14 +38,17 @@ SYNC_TIME = "time/qpn.sync"
 
 
 class _Span:
-    """One span of :meth:`Metrics.timer`."""
+    """One span of :meth:`Metrics.timer`.  After the block, ``seconds``
+    holds the host seconds it added to its counter, for a caller that
+    reports the same block elsewhere from the same clock reading."""
 
-    __slots__ = ("_metrics", "_name", "_range", "_t0")
+    __slots__ = ("_metrics", "_name", "_range", "_t0", "seconds")
 
     def __init__(self, metrics: "Metrics", name: str):
         self._metrics = metrics
         self._name = name
         self._range = None
+        self.seconds = 0.0
 
     def __enter__(self):
         if _profiler._is_profiler_enabled:
@@ -55,7 +58,7 @@ class _Span:
         return self
 
     def __exit__(self, *exc):
-        dt = time.perf_counter() - self._t0
+        dt = self.seconds = time.perf_counter() - self._t0
         if self._range is not None:
             self._range.__exit__(*exc)
             self._range = None

@@ -1129,3 +1129,109 @@ def test_dryrun_multichip_two_gloo_ranks_on_one_card(cuda_device):
             np.testing.assert_allclose(r["x_opts"][k], s.x_opt, rtol=0,
                                        atol=1e-6)
             assert r["pieces"][k] == _pieces(s)
+
+
+@pytest.mark.gpu
+def test_shared_route_certifies_the_trajectory_cell_ensemble(cuda_device,
+                                                             monkeypatch):
+    """The first pool ensemble of the benchmark's cell
+    ``ra_T8o4.shared_s1024`` (robust_avoid T=8, num_obj=4: n=608, 1024
+    scenarios) through ``solve_kkt_avi_batch`` on the card: the shared-matrix
+    route certifies every lane, each answer's natural residual on the
+    benchmark's plain statement is at most 1e-8, the route's spans and
+    counters are recorded, and no tensor is read into the host outside
+    ``METRICS.sync``."""
+    import json
+    from pathlib import Path
+
+    from _torch_reads import uncounted_reads
+    from qpnbench import traffic
+    from qpnbench.models import robust_avoid as model
+    from qpnbench.reference import check
+    from qpnbench.reference import robust_avoid as ref
+    bench = Path(__file__).resolve().parents[1] / "qpnbench"
+    config = json.loads((bench / "configs" / "robust_avoid_T8_o4.json")
+                        .read_text())
+    mix = json.loads((bench / "mixes" / "shared_s1024.json").read_text())
+    sys_ = model.assemble(config)
+    n, S = sys_.M.shape[0], mix["lanes"]
+    assert (n, S) == (608, 1024)
+    draws = traffic.draw_pool(dict(mix, pool=1), sys_.shifted, n)
+    q, l, u = (a[0] for a in model.lanes(sys_, draws.shift, draws.jitter))
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a),  # noqa: E731
+                                  dtype=torch.float64, device=cuda_device)
+    M = t(sys_.M).expand(S, n, n).contiguous()
+    mask = torch.ones(S, n, dtype=torch.bool, device=cuda_device)
+
+    def run():
+        return solve_kkt_avi_batch(M, t(q), t(l), t(u), mask,
+                                   sys_.structure, tol=mix["tol"])
+    run()                           # cuBLAS and cuSOLVER warm
+    stray = uncounted_reads(monkeypatch)
+    before = dict(METRICS.counters)
+    del stray[:]
+    res = run()
+    uncounted = list(stray)
+    monkeypatch.undo()
+    d = {k: v - before.get(k, 0.0) for k, v in METRICS.counters.items()}
+    assert uncounted == []
+    assert d["kkt_shared_route"] == S
+    assert bool(res.converged.all())
+    prob = ref.problem(config)
+    rq, rl, ru = ref.lanes(prob, draws.shift[0], draws.jitter[0])
+    z = res.z.cpu().numpy()
+    assert check.residuals(prob.M, rq, rl, ru, z).max() <= mix["tol"]
+    for span in ("eg", "round0", "ladder", "rungs", "audit"):
+        assert 0 < d[f"time/qpn.shared.{span}"] <= d["time/qpn.kkt.shared"]
+    assert d["shared_eg_steps"] > 0
+    assert d["host_syncs"] > d["shared_eg_steps"] / 2000
+    for name in ("shared_round0_left", "shared_host_solves"):
+        assert d[name] >= 0
+    assert d.get("shared_polish_lanes", 0.0) >= d.get(
+        "shared_kkt_chip_admm_rung", 0.0)
+
+
+@pytest.mark.gpu
+def test_shared_prepass_products_are_the_f32_gemms_on_the_card(cuda_device):
+    """A call of the shared-matrix route at the benchmark cell's shapes (n=608,
+    1024 scenarios), traced as the benchmark traces it: the kernels that the
+    cell's roofline reader takes for the pre-pass's products
+    (``qpnbench/work_shared.eg_gemm_kernels``) are each launched once for
+    each product the program counts (``shared_eg_gemms``)."""
+    import json
+    from pathlib import Path
+
+    from qpnbench import trace as tracing
+    from qpnbench import traffic, work_shared
+    from qpnbench.models import robust_avoid as model
+    bench = Path(__file__).resolve().parents[1] / "qpnbench"
+    config = json.loads((bench / "configs" / "robust_avoid_T8_o4.json")
+                        .read_text())
+    mix = json.loads((bench / "mixes" / "shared_s1024.json").read_text())
+    sys_ = model.assemble(config)
+    n, S = sys_.M.shape[0], mix["lanes"]
+    draws = traffic.draw_pool(dict(mix, pool=1), sys_.shifted, n)
+    q, l, u = (a[0] for a in model.lanes(sys_, draws.shift, draws.jitter))
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a),  # noqa: E731
+                                  dtype=torch.float64, device=cuda_device)
+    M = t(sys_.M).expand(S, n, n).contiguous()
+    mask = torch.ones(S, n, dtype=torch.bool, device=cuda_device)
+
+    def run():
+        return solve_kkt_avi_batch(M, t(q), t(l), t(u), mask,
+                                   sys_.structure, tol=mix["tol"])
+    run()                           # cuBLAS and cuSOLVER warm
+    before = METRICS.counters.get("shared_eg_gemms", 0.0)
+    _, trace = tracing.profile(run, 1)
+    gemms = METRICS.counters["shared_eg_gemms"] - before
+    picked = work_shared.eg_gemm_kernels(trace)
+    others = {}
+    for name, _, d in trace.ops:
+        if work_shared.is_f32_gemm(name) and name not in picked:
+            k, s = others.get(name, (0, 0.0))
+            others[name] = (k + 1, s + d)
+    least = work_shared.eg_least_s(n, S, gemms)
+    print("products", gemms, "picked", picked, "other float32 GEMMs", others,
+          "share %", least / work_shared.eg_gemm_seconds(trace) * 100)
+    assert gemms > 0 and picked
+    assert all(k == gemms for k, _ in picked.values())

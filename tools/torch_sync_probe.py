@@ -5,8 +5,9 @@ cost.
 
 On a CUDA card.  For one call of each route (the KKT route at n=38 and
 n=190 and with every straggler branch forced, the generic route at n=38
-with 20000 extragradient steps; robust_avoid ensembles of
-``models/robust_avoid.scenario_batch_gavis``):
+with 20000 extragradient steps, the KKT entry's shared-matrix route at
+n=608 on 1024 lanes, whose replicated M takes 3 GB of the card; robust_avoid
+ensembles of ``models/robust_avoid.scenario_batch_gavis``):
 
 1. the sync warnings of ``torch.cuda.set_sync_debug_mode("warn")`` against
    the rise of ``METRICS`` ``host_syncs``, each warning by the line of the
@@ -78,7 +79,8 @@ def routes(device):
             "kkt_n190_s256": kkt(d190, 1e-8),
             "kkt_n38_s16_stragglers": kkt(d38, 1e-300),
             "generic_n38_s16": generic(d38),
-            "generic_n38_s256": generic(d38w)}
+            "generic_n38_s256": generic(d38w),
+            "kkt_n608_s1024_shared": kkt(data(1024, 8, 4), 1e-8)}
 
 
 def counters():
@@ -234,7 +236,8 @@ def main() -> int:
     report["costs"] = costs()
     print("costs", json.dumps(report["costs"]), flush=True)
     fns = routes(dev)
-    calls = {name: 3 if "stragglers" in name or "generic" in name else 30
+    calls = {name: 3 if any(k in name for k in ("stragglers", "generic",
+                                                 "shared")) else 30
              for name in fns}
     for name, fn in fns.items():
         fn()

@@ -201,15 +201,23 @@ Phases, one line each, with their seconds; any failure exits non-zero:
    kernel launch for every round run and every hop lane fused, the pass
    over the pool timed with the kernel and with the plain hop (median of
    3 passes).
+22. the batched ADMM's block kernel (``ops/admm_cuda.py``) on the shared
+   route's hard seed (phase 14's ensemble): the launch counter zeroed, one
+   call with every lane certified and one kernel launch for every ADMM
+   block (``admm_fused_blocks == admm_blocks``); then the blocks of that
+   call's ADMM rung at n=96, m=256, the largest batch and one lane: the
+   kernel equal to its g++ build's bits and within ``ADMM_TOL`` of the lane
+   scale of the plain loop ``batch_qp._iterate``, both timed (median of 7
+   between CUDA events), the bound.
 
 Then one JSON line for the kernels, a row for each instance (K1, K2 and
 K3: shared, register or warp, cluster, global; the hop kernel in f32 and
-f64): launches
+f64; the ADMM block kernel at its two batches): launches
 on the main paths, error against the plain version, the kernel's, the plain
 version's and the bound's milliseconds: the larger of the bytes each call
 must move over 3.35 TB/s and its operations over the rate of their type
-outside the tensor cores (f32 67 TFLOP/s; 34 for K1's global row, whose
-lanes are f64), counted from this run's shapes, steps and pivots.  K3's
+outside the tensor cores (f32 67 TFLOP/s; f64 34 for K1's global row and
+the ADMM block's rows), counted from this run's shapes, steps and pivots.  K3's
 comparison lines (not the JSON line) also print the chain floor of their
 shape: the dependent adds of its fixed order of sums, (steps + 1)·n +
 steps·m, at 4 cycles an add and the card's largest SM clock, a yardstick
@@ -366,6 +374,12 @@ BANDED_MARGIN = 1.25
 HOP_STEPS = 60
 HOP_TOL = {"torch.float32": 1e-5, "torch.float64": 1e-12}
 HOP_CELL = "ra_T2o1.generic_s256"
+# Phase 22: the ADMM block kernel against the plain loop batch_qp._iterate,
+# relative to the lane's scale (1 + the largest |x|, |z|, |y|): f64 sums in
+# another order (tests/test_torch_admm_block.py's bound), on the blocks of
+# the hard seed's ADMM rung, whose QPs have this shape.
+ADMM_TOL = 1e-12
+ADMM_SHAPE = (96, 256)
 SHARED_Z_TOL = 1e-8   # shared route vs KKT path at T=2: one solution
 SHARED_RUNGS = ("shared_kkt_chip_admm_rung", "shared_kkt_admm_escalation",
                 "shared_kkt_generic_escalation")
@@ -416,6 +430,15 @@ def hop_bound(ins, outs, steps):
     return bound(tensor_bytes(*ins, *outs),
                  B * ((2.0 * steps + 1) * 2 * n * n + (steps + 1) * 2 * n),
                  ins[5].dtype.itemsize == 8)
+
+
+def admm_bound(tensors, iters):
+    """The ADMM block kernel: A, L and the lane vectors in, the state out;
+    an iteration is two products with A (2·m·n operations each) and two
+    triangular solves (n² each), in f64 (the elementwise work left out)."""
+    B, m, n = tensors[0].shape
+    return bound(tensor_bytes(*tensors, *tensors[7:]),
+                 iters * B * (4.0 * m * n + 2.0 * n * n), f64=True)
 
 
 def screen_bound(ins, outs, steps):
@@ -2524,6 +2547,112 @@ def hop_phase(data, device, say, card):
             for dtype, err, t_k, t_p, bnd in found]
 
 
+def admm_plain(tensors, sigma, alpha, iters):
+    """``iters`` calls of ``batch_qp._iterate`` on a block's inputs: the
+    state (x, z, y, dx, dy) after them."""
+    from qpn_tpu_torch.ops import batch_qp
+    A, L, R, q, lc, uc, loose, *state = tensors
+    d = batch_qp._Lanes(A=A, q=q, lc=lc, uc=uc, loose=loose)
+    for _ in range(iters):
+        state = batch_qp._iterate(d, batch_qp._DenseFactor(L), R, *state,
+                                  sigma=sigma, alpha=alpha)
+    return state
+
+
+def admm_phase(device, say, card):
+    """Phase 22 (the file's notes).  Returns the kernels line's rows."""
+    import torch
+    from qpn_tpu_torch.models.robust_avoid import scenario_batch_gavis
+    from qpn_tpu_torch.ops import admm_cuda, batch_qp, shared_kkt
+    from qpn_tpu_torch.ops.avi import batch_from_numpy
+    from qpn_tpu_torch.utils.metrics import METRICS
+    hard = batch_from_numpy(scenario_batch_gavis(**HARD))
+
+    def route():
+        res = shared_kkt.solve_kkt_avi_shared(
+            hard["M"], hard["q"], hard["l"], hard["u"], hard["mask"],
+            tol=SOLVE_TOL, structure=hard["structure"])
+        torch.cuda.synchronize(device)
+        if not bool(res.converged.all()):
+            fail(f"admm phase: {int((~res.converged).sum())} lanes of the "
+                 "hard seed not certified")
+
+    # the main path's own run: every ADMM block in the kernel
+    METRICS.reset()
+    route()
+    launches = METRICS.launches[admm_cuda.KERNEL]
+    c = METRICS.counters
+    if not (launches > 0 and launches == c["admm_fused_blocks"]
+            == c["admm_blocks"]):
+        fail(f"admm phase: {launches} admm_block launches, "
+             f"{c['admm_fused_blocks']} fused blocks of {c['admm_blocks']}")
+    # the same run, each block's inputs recorded before the kernel runs
+    seen = []
+    real = batch_qp._fused_block
+
+    def recording(n, m, dev, banded_k):
+        block = real(n, m, dev, banded_k)
+        if block is None:
+            return None
+
+        def record(*tensors, sigma, alpha, iters):
+            seen.append(([t.clone() for t in tensors], sigma, alpha, iters))
+            return block(*tensors, sigma=sigma, alpha=alpha, iters=iters)
+        return record
+    batch_qp._fused_block = recording
+    try:
+        route()
+    finally:
+        batch_qp._fused_block = real
+    rung = [b for b in seen if tuple(b[0][0].shape[2:0:-1]) == ADMM_SHAPE]
+    if not rung:
+        fail(f"admm phase: no block at n, m = {ADMM_SHAPE} among "
+             f"{len(seen)} blocks")
+    big = max(rung, key=lambda b: b[0][0].shape[0])
+    ones = [b for b in rung if b[0][0].shape[0] == 1]
+    one = ones[0] if ones else ([t[:1] for t in big[0]], *big[1:])
+    rows = []
+    for tensors, sigma, alpha, iters in (big, one):
+        kw = dict(sigma=sigma, alpha=alpha, iters=iters)
+        B, m, n = tensors[0].shape
+        got = admm_cuda.admm_block_cuda(*(t.clone() for t in tensors), **kw)
+        want = admm_plain(tensors, **kw)
+        host = admm_cuda.admm_block_host(*(t.cpu() for t in tensors), **kw)
+        torch.cuda.synchronize(device)
+        if not all(same_bits(g.cpu(), h) for g, h in zip(got, host)):
+            fail(f"admm_block B={B}: the kernel differs from its host bits")
+        scale = 1.0 + torch.stack([v.nan_to_num(0.0).abs().amax(1)
+                                   for v in want[:3]], 1).amax(1)
+        if not all(torch.equal(g.isnan(), w.isnan())
+                   for g, w in zip(got, want)):
+            fail(f"admm_block B={B}: NaN where the plain loop has none")
+        err = max(float(((g - w).nan_to_num(0.0).abs().amax(1) / scale)
+                        .max()) for g, w in zip(got, want))
+        if not err <= ADMM_TOL:
+            fail(f"admm_block B={B}: {err!r} of the lane scale from the "
+                 f"plain loop, bound {ADMM_TOL}")
+        ins = [t.clone() for t in tensors]
+        t_k = device_timed(lambda: admm_cuda.admm_block_cuda(*ins, **kw),
+                           device)
+        t_p = device_timed(lambda: admm_plain(tensors, **kw), device)
+        bnd = admm_bound(tensors, iters)
+        abs_err = max(float((g - w).nan_to_num(0.0).abs().max())
+                      for g, w in zip(got, want))
+        rows.append(kernel_row(f"{admm_cuda.KERNEL} B={B}",
+                               "qpn_tpu_torch/csrc/admm_block.cu", None,
+                               launches, abs_err, t_k, t_p, bnd))
+        say(f"admm_block B={B} n={n} m={m} iters={iters} (the hard seed's "
+            f"ADMM rung, {len(rung)} blocks at this shape): the host bits, "
+            f"within {err:.3g} of the lane scale of the plain loop (<= "
+            f"{ADMM_TOL}); kernel {t_k * 1e3:.4f} ms, plain loop "
+            f"{t_p * 1e3:.4f} ms (median of {REPEATS}); bound "
+            f"{bnd[0]:.5f} ms by {bnd[1]} [{card}]")
+    say(f"admm_block on the shared route (hard seed S={HARD['num_scenarios']}"
+        f"): every lane certified, {launches} launches = fused blocks = ADMM "
+        f"blocks [{card}]")
+    return rows
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "qpn_tpu_torch")):
         fail("the qpn_tpu_torch package is not next to chip_smoke.py")
@@ -2699,6 +2828,9 @@ def main() -> None:
     # 21. the hybrid hop kernel, and the generic route on the cell's pool
     hop_rows = hop_phase(data, device, say, card)
 
+    # 22. the ADMM block kernel on the shared route's rung
+    admm_rows = admm_phase(device, say, card)
+
     if CONFIG.device != "cuda":
         fail(f"CONFIG.device was left at {CONFIG.device!r}")
     print(json.dumps({"kernels": [
@@ -2711,7 +2843,7 @@ def main() -> None:
         kernel_row(screen_cuda.KERNEL, "qpn_tpu_torch/csrc/screen.cu",
                    "qpn_tpu/ops/pallas_kernels.py:205", scr_launches,
                    scr_err, t_scr, t_scr_plain, scr_bnd),
-        *domain_rows, *hop_rows]}))
+        *domain_rows, *hop_rows, *admm_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -165,6 +165,17 @@ def _factor(K, banded_k: int):
     return _DenseFactor(_cholesky(K))
 
 
+def _fused_block(n: int, m: int, device: torch.device, banded_k: int):
+    """The hand-written block (``ops/admm_cuda.py``: the ``check_every``
+    iterations of :func:`_iterate` in one launch) where it takes these
+    lanes: a dense factor, CUDA tensors and an (n, m) whose lane fits the
+    kernel's shared memory.  None for the plain loop."""
+    if banded_k or device.type != "cuda":
+        return None
+    from . import admm_cuda
+    return admm_cuda.block_for(n, m, device)
+
+
 def _iterate(d: _Lanes, L, R, x, z, y, dx, dy, *, sigma, alpha):
     """One ADMM iteration on every lane of ``d`` (``iter_once``)."""
     rhs = sigma * x - d.q + _mtv(d.A, R * z - y)
@@ -295,9 +306,14 @@ def solve_qp_batch(P, q, A, l, u, row_mask, *, max_iter=4000, eps=1e-9,
     are block-tridiagonal in the given variable order
     (``banded.detect_banded_k``); 0 takes the dense Cholesky.
 
-    Counts ``admm_calls``, ``admm_lanes`` and ``admm_blocks`` (blocks of
-    ``check_every`` iterations, each a host read of the masks) in
-    ``METRICS``."""
+    The iterations between two status checks run as one launch of the
+    hand-written block (:func:`_fused_block`) where it takes the lanes,
+    else as the plain loop of :func:`_iterate`.
+
+    Counts ``admm_calls``, ``admm_lanes``, ``admm_blocks`` (blocks of
+    ``check_every`` iterations, each a host read of the masks) and
+    ``admm_fused_blocks`` (those the hand-written block ran; the counter is
+    made at 0 by every call) in ``METRICS``."""
     f64 = torch.float64
     P, q, A, l, u = (t.to(f64) for t in (P, q, A, l, u))
     rm = row_mask.to(torch.bool)
@@ -351,6 +367,14 @@ def solve_qp_batch(P, q, A, l, u, row_mask, *, max_iter=4000, eps=1e-9,
     L = _factor(K0 + rho[:, None, None] * G, banded_k)
     METRICS.bump("admm_calls")
     METRICS.bump("admm_lanes", B)
+    METRICS.bump("admm_fused_blocks", 0.0)
+    block = _fused_block(n, m, dev, banded_k)
+    if block is not None:
+        # the kernel reads each lane's rows in place, row after row (the
+        # caller's A or bounds may be transposed views)
+        for key in ("A", "q", "lc", "uc", "loose", "base_r"):
+            setattr(d, key, getattr(d, key).contiguous())
+        x, z, y = x.contiguous(), z.contiguous(), y.contiguous()
 
     while True:
         lanes = lanes_where((k < max_iter) & (status == MAX_ITER))
@@ -363,9 +387,15 @@ def solve_qp_batch(P, q, A, l, u, row_mask, *, max_iter=4000, eps=1e-9,
         R = rho[lanes][:, None] * ds.base_r
         xs, zs, ys, dxs, dys = x[lanes], z[lanes], y[lanes], dx[lanes], \
             dy[lanes]
-        for _ in range(check_every):
-            xs, zs, ys, dxs, dys = _iterate(ds, Ls, R, xs, zs, ys, dxs, dys,
-                                            sigma=sigma, alpha=alpha)
+        if block is None:
+            for _ in range(check_every):
+                xs, zs, ys, dxs, dys = _iterate(ds, Ls, R, xs, zs, ys, dxs,
+                                                dys, sigma=sigma, alpha=alpha)
+        else:
+            # in place on the lanes' copies
+            block(ds.A, Ls.L, R, ds.q, ds.lc, ds.uc, ds.loose, xs, zs, ys,
+                  dxs, dys, sigma=sigma, alpha=alpha, iters=check_every)
+            METRICS.bump("admm_fused_blocks")
         st, prs = _check_status(ds, xs, zs, ys, dxs, dys, eps)
         x[lanes], z[lanes], y[lanes], dx[lanes], dy[lanes] = (xs, zs, ys,
                                                               dxs, dys)

@@ -1189,6 +1189,7 @@ def test_shared_route_certifies_the_trajectory_cell_ensemble(cuda_device,
         assert d[name] >= 0
     assert d.get("shared_polish_lanes", 0.0) >= d.get(
         "shared_kkt_chip_admm_rung", 0.0)
+    assert d.get("admm_fused_blocks", 0.0) == d.get("admm_blocks", 0.0)
 
 
 @pytest.mark.gpu
@@ -1235,3 +1236,194 @@ def test_shared_prepass_products_are_the_f32_gemms_on_the_card(cuda_device):
           "share %", least / work_shared.eg_gemm_seconds(trace) * 100)
     assert gemms > 0 and picked
     assert all(k == gemms for k, _ in picked.values())
+
+
+# --- the batched ADMM's block kernel (csrc/admm_block.cu) -----------------
+# kernel against the plain loop on the card: x, z, y, dx, dy after one
+# block, relative to the lane's scale, 1 + the largest |x|, |z|, |y|
+# (tests/test_torch_admm_block.py's bound: f64 sums in another order)
+ADMM_RTOL = 1e-12
+
+
+def _admm_close(got, want):
+    scale = 1.0 + torch.stack([v.abs().amax(1) for v in want[:3]],
+                              1).amax(1, keepdim=True)
+    for g, w in zip(got, want):
+        assert bool(((g - w).abs() <= ADMM_RTOL * scale).all())
+
+
+def _admm_blocks(device, S, **kw):
+    from _torch_admm import capture_blocks, shared_qps
+    return capture_blocks(shared_qps(S, device), **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [20, 1])
+def test_admm_block_matches_plain_loop_and_host_bits(cuda_device, S):
+    """The rung's blocks (robust_avoid T=8: n=96, m=256, eps 1e-4), the
+    first and the last: one launch gives the host build's bits and the
+    plain loop's iterates within f64 rounding."""
+    from _torch_admm import plain_block
+    from qpn_tpu_torch.ops import admm_cuda
+    _, seen = _admm_blocks(cuda_device, S, eps=1e-4, polish=False)
+    assert admm_cuda.card_fits(96, 256, cuda_device)
+    for tensors, sigma, alpha, iters in (seen[0], seen[-1]):
+        kw = dict(sigma=sigma, alpha=alpha, iters=iters)
+        before = METRICS.launches[admm_cuda.KERNEL]
+        got = admm_cuda.admm_block_cuda(*(t.clone() for t in tensors), **kw)
+        torch.cuda.synchronize()
+        assert METRICS.launches[admm_cuda.KERNEL] == before + 1
+        host = admm_cuda.admm_block_host(*(t.cpu() for t in tensors), **kw)
+        assert all(chip_smoke.same_bits(g.cpu(), h) for g, h in zip(got, host))
+        _admm_close(got, plain_block(*(t.clone() for t in tensors), **kw))
+
+
+def _admm_random(device, B, m, n, seed):
+    """A block's inputs on random QPs with loose, equality and one-sided
+    rows (through solve_qp_batch's own scaling), the first block's."""
+    from _torch_admm import capture_blocks
+    _, seen = capture_blocks({k: v.to(device) for k, v in
+                              _admm_qps(B, m, n, seed).items()}, max_iter=25)
+    return seen[0]
+
+
+def _admm_qps(B, m, n, seed):
+    """Random QPs with loose, equality and one-sided rows, on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    A = torch.randn(B, m, n, generator=g, dtype=torch.float64)
+    R = torch.randn(B, n, n, generator=g, dtype=torch.float64)
+    ax = (A @ torch.randn(B, n, 1, generator=g, dtype=torch.float64))[..., 0]
+    l = ax - torch.rand(B, m, generator=g, dtype=torch.float64)
+    u = ax + torch.rand(B, m, generator=g, dtype=torch.float64)
+    l[:, 0], u[:, 0] = -torch.inf, torch.inf
+    u[:, 1] = l[:, 1]
+    l[:, 2] = -torch.inf
+    return dict(P=R @ R.transpose(1, 2) / n,
+                q=torch.randn(B, n, generator=g, dtype=torch.float64),
+                A=A, l=l, u=u, row_mask=torch.ones(B, m, dtype=torch.bool))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,m,n", [(8, 40, 12), (4, 100, 50), (4, 256, 96),
+                                   (2, 64, 120), (2, 64, 158)],
+                         ids=["rows-1", "rows-2", "rows-3", "rows-4",
+                              "rows-5"])
+def test_admm_row_counts_give_the_host_bits(cuda_device, B, m, n):
+    """Each row count of the solving warp's threads (the kernel's template
+    instances, n up to 160), on a factor column-major as cholesky_ex gives
+    it and row-major, lane 0's factor NaN and lane 1's x past 2^900: the
+    host build's bits."""
+    from qpn_tpu_torch.ops import admm_cuda
+    assert admm_cuda.card_fits(n, m, cuda_device)
+    tensors, sigma, alpha, iters = _admm_random(cuda_device, B, m, n, n)
+    tensors[1][0] = torch.nan
+    tensors[7][1] *= 1e300
+    kw = dict(sigma=sigma, alpha=alpha, iters=iters)
+    host = admm_cuda.admm_block_host(*(t.cpu() for t in tensors), **kw)
+    assert bool(host[0][0].isnan().all()) and bool(host[0][2:].isfinite().all())
+    for L in (tensors[1], tensors[1].contiguous()):
+        ins = [t.clone() for t in tensors]
+        ins[1] = L
+        got = admm_cuda.admm_block_cuda(*ins, **kw)
+        torch.cuda.synchronize()
+        assert all(chip_smoke.same_bits(g.cpu(), h)
+                   for g, h in zip(got, host))
+
+
+@pytest.mark.gpu
+def test_admm_shapes_past_the_kernel_keep_the_plain_loop(cuda_device):
+    """Lanes whose factor and vectors do not fit one block's shared memory
+    (n=155, m=256) or past the solving warp's rows (n=200): solve_qp_batch
+    runs its plain loop on the card, and the checked entry refuses them."""
+    from qpn_tpu_torch.ops import admm_cuda, batch_qp
+    for n, m in ((155, 256), (200, 8)):
+        assert not admm_cuda.card_fits(n, m, cuda_device)
+        assert batch_qp._fused_block(n, m, cuda_device, 0) is None
+    tensors, sigma, alpha, iters = _admm_random(cuda_device, 2, 256, 155, 1)
+    with pytest.raises(ValueError, match="do not fit"):
+        admm_cuda.admm_block_cuda(*tensors, sigma=sigma, alpha=alpha,
+                                  iters=iters)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [20, 1])
+def test_admm_solve_through_the_kernel_matches_the_plain_loop(cuda_device,
+                                                               monkeypatch,
+                                                               S):
+    """solve_qp_batch on the rung's QPs (eps 1e-4 and 1e-6, no polish) and
+    the ADMM route's (eps 1e-9, polished) with the kernel against the plain
+    loop on the card: the same statuses, x and y within the batched engine's
+    1e-7 (tests/test_torch_batch_qp.py), every block in the kernel."""
+    from _torch_admm import shared_qps
+    from qpn_tpu_torch.ops import batch_qp
+    qps = shared_qps(S, cuda_device)
+    for kw in (dict(eps=1e-4, polish=False), dict(eps=1e-6, polish=False),
+               dict(eps=1e-9)):
+        c0 = dict(METRICS.counters)
+        got = batch_qp.solve_qp_batch(**qps, **kw)
+        c = {k: METRICS.counters[k] - c0.get(k, 0.0)
+             for k in ("admm_blocks", "admm_fused_blocks")}
+        assert c["admm_blocks"] > 0
+        assert c["admm_fused_blocks"] == c["admm_blocks"]
+        with monkeypatch.context() as mp:
+            mp.setattr(batch_qp, "_fused_block", lambda *a: None)
+            want = batch_qp.solve_qp_batch(**qps, **kw)
+        assert torch.equal(got.status, want.status)
+        for f in ("x", "y"):
+            assert float((getattr(got, f) - getattr(want, f)).abs().max()) \
+                <= 1e-7
+
+
+@pytest.mark.gpu
+def test_admm_solve_of_transposed_inputs_matches_the_plain_loop(
+        cuda_device, monkeypatch):
+    """solve()'s QPs can arrive as transposed views: solve_qp_batch hands
+    the kernel row-major copies, and its solve ends as the plain loop's on
+    the card (statuses; x and y within 1e-7 on the solved lanes, the others
+    holding certificates of infeasibility); the unchecked launch refuses a
+    transposed A."""
+    from qpn_tpu_torch.ops import admm_cuda, batch_qp
+    qps = {k: (v.transpose(-2, -1).contiguous().transpose(-2, -1)
+               if v.dim() > 1 else v).to(cuda_device)
+           for k, v in _admm_qps(8, 40, 12, 4).items()}
+    assert not qps["A"].is_contiguous()
+    c0 = METRICS.counters.get("admm_fused_blocks", 0.0)
+    got = batch_qp.solve_qp_batch(**qps)
+    assert METRICS.counters["admm_fused_blocks"] > c0
+    with monkeypatch.context() as mp:
+        mp.setattr(batch_qp, "_fused_block", lambda *a: None)
+        want = batch_qp.solve_qp_batch(**qps)
+    assert torch.equal(got.status, want.status)
+    solved = want.status == batch_qp.SOLVED
+    assert int(solved.sum()) >= 4
+    for f in ("x", "y"):
+        assert float((getattr(got, f) - getattr(want, f))[solved].abs()
+                     .max()) <= 1e-7
+    tensors, sigma, alpha, iters = _admm_random(cuda_device, 2, 40, 12, 3)
+    tensors[0] = tensors[0].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="A is not contiguous"):
+        admm_cuda._launch(*tensors, sigma=sigma, alpha=alpha, iters=iters)
+
+
+@pytest.mark.gpu
+def test_shared_route_certifies_a_t8_ensemble_with_every_block_fused(
+        cuda_device):
+    """solve_kkt_avi_shared on a T=8 ensemble whose lanes reach the ADMM
+    rung (the hard seed 2): every lane certified at 1e-8 (the route's
+    residual and a numpy audit), and every ADMM block of the call run by
+    the kernel."""
+    from qpn_tpu_torch.ops import shared_kkt
+    b = scenario_batch_gavis(num_scenarios=64, T=8, num_obj=4,
+                             num_poly_faces=4, seed=2)
+    t = batch_from_numpy(b, cuda_device)
+    c0 = dict(METRICS.counters)
+    res = shared_kkt.solve_kkt_avi_shared(t["M"][0], t["q"], t["l"], t["u"],
+                                          None, tol=1e-8,
+                                          structure=b["structure"])
+    c = {k: v - c0.get(k, 0.0) for k, v in METRICS.counters.items()}
+    assert bool(res.converged.all())
+    z = res.z.cpu().numpy()
+    F = z @ b["M"][0].T + b["q"]
+    assert np.abs(z - np.clip(z - F, b["l"], b["u"])).max() <= 1e-8
+    assert c.get("admm_blocks", 0) > 0
+    assert c["admm_fused_blocks"] == c["admm_blocks"]

@@ -159,7 +159,7 @@ def old_lemke_engine(lib):
         fn.restype, fn.argtypes = ctypes.c_int, params
 
     def run(init, *, tol, piv_tol, max_pivots):
-        lemke_cuda._check(init)
+        lemke_cuda._INPUTS(init, "cuda")
         out = lemke_cuda._outputs(init)
         fn = (lib.qpn_lemke_pivot_f32 if init.T.dtype == torch.float32
               else lib.qpn_lemke_pivot_f64)
@@ -177,7 +177,7 @@ def old_eg_engine(lib):
     lib.qpn_eg_warmstart_f32.argtypes = eg_cuda._PARAMS + [ctypes.c_void_p]
 
     def run(M, q, l, u, z0, tau, steps):
-        eg_cuda._check(M, q, l, u, z0, tau, steps)
+        eg_cuda._INPUTS((M, q, l, u, z0, tau), "cuda", steps=steps)
         out = torch.empty_like(z0)
         rc = lib.qpn_eg_warmstart_f32(
             *eg_cuda._args(M, q, l, u, z0, tau, out, steps),
@@ -194,7 +194,7 @@ def old_screen_engine(lib):
     lib.qpn_screen_f32.argtypes = screen_cuda._PARAMS + [ctypes.c_void_p]
 
     def run(A, l, u, x0, steps, lr):
-        screen_cuda._check(A, l, u, x0, steps)
+        screen_cuda._INPUTS((A, l, u, x0), "cuda", steps=steps)
         x_out = torch.empty_like(x0)
         v_out = torch.empty(A.shape[0], dtype=torch.float32, device=A.device)
         rc = lib.qpn_screen_f32(

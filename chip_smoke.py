@@ -1813,7 +1813,7 @@ def k1_host_bits(data, dtype, kw, say, label):
     rk = lemke_cuda.lemke_pivot_cuda(init, **kw)
     rh = lemke_cuda.lemke_pivot_host(lemke.LemkeInit(*(a.cpu() for a in
                                                        init)),
-                                     optin=lemke_cuda.card_optin(q.device),
+                                     optin=lemke_cuda.LIB.optin(q.device),
                                      **kw)
     host_bits(f"K1 cluster {label}", [rk.status, rk.piv, rk.basis, rk.val,
                                       rk.xB],
@@ -1913,7 +1913,7 @@ def midsize_generic(device, say, card):
         f"{B / t_warm:.1f} solves/s [{card}]")
     p = eg.eg_prepare(*(a[:HOST_BIT_LANES] for a in args))
     ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
-    optin = eg_cuda.card_optin(device)
+    optin = eg_cuda.LIB.optin(device)
     if eg_cuda.host_instance(n, optin) != eg_cuda.EG_CLUSTER:
         fail(f"K2: n={n} does not take the cluster instance")
     zk = eg_cuda.eg_warmstart_cuda(*ins, 300)
@@ -2012,7 +2012,7 @@ def k1_spread_ab(data, lanes, device, say, card):
     k = SPREAD_HOST_LANES
     rh = lemke_cuda.lemke_pivot_host(
         lemke.LemkeInit(*(a[:k].cpu() for a in init)), ranks=ranks,
-        optin=lemke_cuda.card_optin(device), **F64)
+        optin=lemke_cuda.LIB.optin(device), **F64)
     host_bits(f"K1 global f64 n={n} at {ranks} ranks",
               [t[:k] for t in (rs.status, rs.piv, rs.basis, rs.val, rs.xB)],
               [rh.status, rh.piv, rh.basis, rh.val, rh.xB])
@@ -2044,7 +2044,7 @@ def k2_spread_ab(data, device, say, card):
     zk = eg_cuda.eg_warmstart_cuda(*(a[:k] for a in ins), 300)
     _, ranks_k = eg_cuda.card_instance(n, device, lanes=k)
     zh = eg_cuda.eg_steps_host(*(a[:k].cpu() for a in ins), 300,
-                               optin=eg_cuda.card_optin(device),
+                               optin=eg_cuda.LIB.optin(device),
                                ranks=ranks_k)
     host_bits(f"K2 global n={n} at {ranks_k} ranks", [zk], [zh])
 
@@ -2171,7 +2171,7 @@ def large_generic(device, say, card):
     k = SPREAD_HOST_LANES
     zk = eg_cuda.eg_warmstart_cuda(*ins, 300)
     zh = eg_cuda.eg_steps_host(*(a[:k].cpu() for a in ins), 300,
-                               optin=eg_cuda.card_optin(device), ranks=1)
+                               optin=eg_cuda.LIB.optin(device), ranks=1)
     host_bits(f"K2 global n={n} on {B} lanes at R = 1", [zk[:k]], [zh])
     say(f"K2 global n={n} on {B} lanes at R = 1: z after 300 steps equal to "
         f"the g++ host emulation's of one block a lane bit for bit on {k} "
@@ -2238,7 +2238,7 @@ def k3_host_bits(ins, label, say):
                                                  SCREEN_LR)
     xh, vh = screen_cuda.screen_steps_host(
         *(a.cpu() for a in ins), SCREEN_STEPS, SCREEN_LR,
-        optin=screen_cuda.card_optin(device))
+        optin=screen_cuda.LIB.optin(device))
     host_bits(f"K3 {label}", [xk, vk], [xh, vh])
     moved = (xk != ins[3]).any(1)
     if not bool(moved.all()):
@@ -2268,7 +2268,8 @@ def k3_ab(polys, device, say, card):
                                                    SCREEN_LR)
 
     def glob():
-        return screen_cuda._launch_global(*ins, SCREEN_STEPS, SCREEN_LR)
+        return screen_cuda._launch(*ins, SCREEN_STEPS, SCREEN_LR,
+                                  instance=screen_cuda.SCREEN_GLOBAL)
 
     (xc, vc), (xg, vg) = cluster(), glob()
     torch.cuda.synchronize(device)

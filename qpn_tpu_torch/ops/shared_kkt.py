@@ -38,8 +38,7 @@ problem:
 
 Every acceptance is the f64 natural-residual audit.  ``stats`` returns the
 analytic operation and byte counts of the device phases and the wall time of
-each phase (``phase_t``).  With ``QPN_SHARED_DEBUG`` set in the environment
-the route prints each pre-pass chunk and each policy round.
+each phase (``phase_t``).
 
 Observability (``utils/metrics.py``), inside the entry's ``qpn.kkt.shared``
 span: spans ``qpn.shared.eg`` (the pre-pass, its per-chunk reads and the
@@ -82,9 +81,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import os
 import threading
-import time
 from typing import Optional
 
 import numpy as np
@@ -93,15 +90,6 @@ import torch
 from ..config import numeric_device
 from ..utils.metrics import METRICS
 from .avi import AVIResult
-
-_DEBUG = bool(os.environ.get("QPN_SHARED_DEBUG"))
-_T0 = time.perf_counter()
-
-
-def _dbg(msg):
-    if _DEBUG:
-        print(f"[shared_kkt +{time.perf_counter() - _T0:.2f}s] {msg}",
-              flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -186,8 +174,6 @@ def _eg_run(Mt, Q, L, U, Z0, tau, steps, max_chunks, band, switch,
         plateau = k >= 3 and rmax > f32(0.9) * rh[0]
         stop = (rmax < f32(switch) or (k >= 1 and changed <= stable_tol)
                 or plateau)
-        _dbg(f"eg chunk {k}: max resid {rmax:.3e} (switch {switch:.1e}), "
-             f"labels changed {int(changed)}")
         rh = [rh[1], rh[2], rmax]
         k += 1
         if stop:
@@ -710,7 +696,6 @@ def solve_kkt_avi_shared(M, q, l, u, var_mask, tol: float = 1e-8, *,
         return torch.as_tensor(a, dtype=dtype, device=device)
 
     if mesh is not None and S % mesh.size != 0:
-        _dbg(f"mesh ignored: S={S} not divisible by {mesh.size}")
         mesh = None
     # the lanes of this rank's pre-pass and round 0: all of them, or its
     # block of the scenario axis
@@ -851,10 +836,6 @@ def solve_kkt_avi_shared(M, q, l, u, var_mask, tol: float = 1e-8, *,
         # singular factorization even with this δ: escalate the ladder
         for lane_i in sel[~ok & ~fin]:
             _bump_rung(lane_i)
-        _dbg(f"newton rd={rd} lanes={sel.size} ok={int(ok.sum())} "
-             f"adv={int(adv.sum())} recenter={int(rec.sum())} "
-             f"sing={int((~ok & ~fin).sum())} "
-             f"dmax={delta_lane[sel].max():.1e}")
 
     # --- fused first policy round (δ = 0, all lanes) -------------------
     # Labels, masks and bound values stay on the device: the EG
@@ -913,7 +894,6 @@ def solve_kkt_avi_shared(M, q, l, u, var_mask, tol: float = 1e-8, *,
                 # ladder is the wrong tool for them, so they skip it and go
                 # straight to the structured-QP rung
                 ladder[s0] = False
-                _dbg(f"{s0.size} round-0-singular lanes routed ADMM-first")
 
         for rd in range(1, newton_rounds):
             todo = np.flatnonzero(~done & active & ladder)
@@ -922,7 +902,6 @@ def solve_kkt_avi_shared(M, q, l, u, var_mask, tol: float = 1e-8, *,
             if rd - progress_rd[0] >= 8:
                 # stall: no lane has certified for 8 consecutive rounds; the
                 # remaining lanes are ladder-cyclers: hand them to the rungs
-                _dbg(f"newton stall at rd={rd}: {todo.size} lanes to rungs")
                 break
             # classify from the prox natural map s = z − (F + δ(z − z_ref));
             # for δ=0 lanes this is the original map
@@ -991,7 +970,6 @@ def solve_kkt_avi_shared(M, q, l, u, var_mask, tol: float = 1e-8, *,
                     device, rung_t)
                 z_out[todo[ok]] = zc[ok]
                 done[todo[ok]] = True
-                _dbg(f"chip ADMM rung lanes={todo.size} ok={int(ok.sum())}")
 
         # the ADMM route of the structured solve (ADMM with its own polish,
         # dual reconstruction, Newton polish) for the remnants
@@ -1011,8 +989,6 @@ def solve_kkt_avi_shared(M, q, l, u, var_mask, tol: float = 1e-8, *,
                 done[todo[ok]] = True
                 iters_out[todo] += METRICS.sync(
                     sub.iters.cpu).numpy().astype(np.int64)
-                _dbg(f"ADMM structured rung lanes={todo.size} "
-                     f"ok={int(ok.sum())}")
 
         # exact host f64 min-norm solve for lanes whose f32 factorization
         # could not be refined: degenerate classifications give singular but
@@ -1043,8 +1019,6 @@ def solve_kkt_avi_shared(M, q, l, u, var_mask, tol: float = 1e-8, *,
                 ok = np.isfinite(rn) & (rn <= tol)
                 z_out[todo[ok]] = zc[ok]
                 done[todo[ok]] = True
-                _dbg(f"host lstsq solve band={band:.1e} lanes={todo.size} "
-                     f"ok={int(ok.sum())}")
 
         # opt-in batched proximal-point rung on the device: it solves mildly
         # degenerate monotone-dominant ensembles without host work, but
@@ -1066,8 +1040,6 @@ def solve_kkt_avi_shared(M, q, l, u, var_mask, tol: float = 1e-8, *,
                 z_out[todo[ok]] = zp[ok]
                 done[todo[ok]] = True
                 iters_out[todo] += int(kp) * 1000
-                _dbg(f"prox-EG rung lanes={todo.size} outers={int(kp)} "
-                     f"ok={int(ok.sum())}")
 
         # last resort: the generic adaptive per-lane solver (audited like
         # everything else); scenario stragglers here are genuinely hard
@@ -1082,8 +1054,6 @@ def solve_kkt_avi_shared(M, q, l, u, var_mask, tol: float = 1e-8, *,
                 z_out[todo[ok]] = zg[ok]
                 done[todo[ok]] = True
                 iters_out[todo] += it_g
-                _dbg(f"generic escalation lanes={todo.size} "
-                     f"ok={int(ok.sum())}")
     with _phase(phase_t, "final_audit", "qpn.shared.audit"):
         resid, _ = _nat_resid_shared(M0, q, l64, u64, z_out)
     converged = resid <= tol

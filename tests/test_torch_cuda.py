@@ -118,7 +118,7 @@ def test_kernel_takes_a_lane_too_large_for_shared_memory(cuda_device, dtype,
     counted under its own name, the plain loop's status and pivot counts,
     and the bits of the host emulation of its ranks."""
     from qpn_tpu_torch.ops.lemke_cuda import (KERNEL_CLUSTER, KERNEL_GLOBAL,
-                                              card_optin, lemke_pivot_host)
+                                              LIB, lemke_pivot_host)
     b = scenario_batch_gavis(num_scenarios=8, T=4, num_obj=2,
                              num_poly_faces=4, seed=0)
     t = batch_from_numpy(b, cuda_device)
@@ -136,7 +136,7 @@ def test_kernel_takes_a_lane_too_large_for_shared_memory(cuda_device, dtype,
     assert torch.equal(rk.piv, rp.piv)
     assert (rk.status == lemke.LEMKE_SUCCESS).all()
     rh = lemke_pivot_host(lemke.LemkeInit(*(a.cpu() for a in init)),
-                          max_pivots=1024, optin=card_optin(cuda_device),
+                          max_pivots=1024, optin=LIB.optin(cuda_device),
                           **kw)
     for name in ("status", "piv", "basis", "val", "xB"):
         assert torch.equal(getattr(rk, name).cpu(), getattr(rh, name)), name
@@ -249,7 +249,8 @@ def test_a_refused_cluster_launch_raises(cuda_device):
     ins = [torch.as_tensor(a, device=cuda_device)
            for a in screen.screen_prepare(polys)]
     with pytest.raises(RuntimeError, match="launch failed"):
-        screen_cuda._launch_cluster(*ins, 10, 0.05, ranks=16)
+        screen_cuda._launch(*ins, 10, 0.05, ranks=16,
+                            instance=screen_cuda.SCREEN_CLUSTER)
     torch.cuda.synchronize()
     assert sum(METRICS.launches.values()) == 0
     # the refusal leaves no error behind for the next launches to report
@@ -302,7 +303,7 @@ def test_k1_spread_global_instance_against_one_block_and_host(cuda_device,
     assert (rk.status == lemke.LEMKE_SUCCESS).all()
     rh = lemke_cuda.lemke_pivot_host(
         lemke.LemkeInit(*(a[:4].cpu() for a in init)), max_pivots=1024,
-        optin=lemke_cuda.card_optin(cuda_device), ranks=ranks, **F64)
+        optin=lemke_cuda.LIB.optin(cuda_device), ranks=ranks, **F64)
     for name in rk._fields:
         assert torch.equal(getattr(rk, name)[:4].cpu(),
                            getattr(rh, name)), name
@@ -320,7 +321,7 @@ def test_k2_spread_global_instance_against_one_block_and_host(cuda_device,
     scale."""
     p = _eg_random(cuda_device, 684, B=4, seed=684)
     ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
-    optin = eg_cuda.card_optin(cuda_device)
+    optin = eg_cuda.LIB.optin(cuda_device)
     instance, picked = eg_cuda.card_instance(684, cuda_device, lanes=4)
     assert instance == eg_cuda.EG_GLOBAL and picked > 1
     METRICS.reset()
@@ -362,7 +363,7 @@ def test_k2_global_instance_on_a_full_batch(cuda_device):
     assert METRICS.launches[eg_cuda.KERNEL_GLOBAL] == 1
     assert METRICS.counters[eg_cuda.GLOBAL_RANKS] == 1
     zh = eg_cuda.eg_steps_host(*(a[:4].cpu() for a in ins), 300,
-                               optin=eg_cuda.card_optin(cuda_device),
+                               optin=eg_cuda.LIB.optin(cuda_device),
                                ranks=1)
     assert torch.equal(zk[:4].cpu(), zh)
     zp = eg.eg_steps_torch(*ins, 300)
@@ -534,7 +535,7 @@ def test_eg_kernel_takes_a_lane_too_large_for_shared_memory(cuda_device, n):
     scale = 1.0 + float(zp.abs().max())
     assert float((zk - zp).abs().max()) <= 1e-5 * scale
     zh = eg_cuda.eg_steps_host(*(a.cpu() for a in ins), 300,
-                               optin=eg_cuda.card_optin(cuda_device))
+                               optin=eg_cuda.LIB.optin(cuda_device))
     assert torch.equal(zk.cpu(), zh)
     zg = eg_cuda._launch(*ins, 300, instance=eg_cuda.EG_GLOBAL)
     assert float((zk - zg).abs().max()) <= 1e-5 * scale
@@ -556,7 +557,7 @@ def test_k2_cluster_instance_gives_the_host_bits(cuda_device, n):
     torch.cuda.synchronize()
     assert METRICS.launches[eg_cuda.KERNEL_CLUSTER] == 1
     zh = eg_cuda.eg_steps_host(*(a.cpu() for a in ins), 300,
-                               optin=eg_cuda.card_optin(cuda_device))
+                               optin=eg_cuda.LIB.optin(cuda_device))
     assert torch.equal(zk.cpu(), zh)
 
 
@@ -700,7 +701,7 @@ def test_hop_picked_instance_matches_host_bits_and_plain_loop(
     got = hop_cuda.hybrid_hop_cuda(*ins, steps)
     torch.cuda.synchronize()
     host = hop_cuda.hybrid_hop_host(*(a.cpu() for a in ins), steps,
-                                    optin=eg_cuda.card_optin(cuda_device))
+                                    optin=eg_cuda.LIB.optin(cuda_device))
     assert all(chip_smoke.same_bits(g.cpu(), h) for g, h in zip(got, host))
     _hop_close(got, avi._eg_phase(*ins, steps), ins[5])
 
@@ -893,9 +894,10 @@ def test_screen_kernel_takes_a_block_too_large_for_shared_memory(
     assert METRICS.launches[screen_cuda.KERNEL] == 0
     xh, vh = screen_cuda.screen_steps_host(
         *(a.cpu() for a in ins), 120, 0.05,
-        optin=screen_cuda.card_optin(cuda_device))
+        optin=screen_cuda.LIB.optin(cuda_device))
     assert torch.equal(xk.cpu(), xh) and torch.equal(vk.cpu(), vh)
-    xg, vg = screen_cuda._launch_global(*ins, 120, 0.05)
+    xg, vg = screen_cuda._launch(*ins, 120, 0.05,
+                                 instance=screen_cuda.SCREEN_GLOBAL)
     torch.cuda.synchronize()
     assert torch.equal(xk, xg) and torch.equal(vk, vg)
     xp, vp = screen.screen_steps_torch(*ins, 120, 0.05)
@@ -915,7 +917,8 @@ def test_screen_cluster_instance_at_other_sizes(cuda_device, ranks):
     cpu = _ragged_screen(9, m, n, seed=ranks)
     ins = [a.to(cuda_device) for a in cpu]
     METRICS.reset()
-    xk, vk = screen_cuda._launch_cluster(*ins, 120, 0.05, ranks=ranks)
+    xk, vk = screen_cuda._launch(*ins, 120, 0.05, ranks=ranks,
+                                 instance=screen_cuda.SCREEN_CLUSTER)
     torch.cuda.synchronize()
     assert METRICS.launches[screen_cuda.KERNEL_CLUSTER] == 1
     xh, vh = screen_cuda.screen_steps_host(*cpu, 120, 0.05, ranks=ranks)

@@ -252,11 +252,12 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
         lemke_pivot_cuda(init, max_pivots=16, **HOT)
     from qpn_tpu_torch.ops import lemke_cuda
     with pytest.raises(ValueError, match="basis"):
-        lemke_cuda._check(init._replace(basis=init.basis.long()))
+        lemke_cuda._INPUTS(init._replace(basis=init.basis.long()), "cpu")
     with pytest.raises(ValueError, match="not contiguous"):
-        lemke_cuda._check(init._replace(val=init.val.t().contiguous().t()))
+        lemke_cuda._INPUTS(init._replace(val=init.val.t().contiguous().t()),
+                           "cpu")
     with pytest.raises(TypeError, match="dtype"):
-        lemke_cuda._check(init._replace(T=init.T.half()))
+        lemke_cuda._INPUTS(init._replace(T=init.T.half()), "cpu")
 
 
 # Natural-residual bounds of solve_lemke_batch's z, set from the dtype:

@@ -111,7 +111,7 @@ def _ptr(a):
 def test_scan_min_matches_numpy(name, values):
     """min under `<` from +inf: NaN is skipped (numpy's nanmin, +inf where
     every entry is NaN)."""
-    lib = lemke_cuda.host_scans()
+    lib = lemke_cuda.LIB.host()
     v = np.asarray(values, dtype=np.float64)
     want = np.inf if np.isnan(v).all() else min(np.nanmin(v), np.inf)
     assert lib.qpn_lk_scan_min_f64(_ptr(v), len(v)) == want
@@ -125,7 +125,7 @@ def test_scan_min_matches_numpy(name, values):
 def test_scan_ties_matches_numpy(name, values, thr):
     """The tie set (ballot and ordered compaction) and the first tagged tie
     (first-index argmin) against numpy's flatnonzero."""
-    lib = lemke_cuda.host_scans()
+    lib = lemke_cuda.LIB.host()
     v = np.asarray(values, dtype=np.float64)
     n = len(v)
     rng = np.random.default_rng(n)
@@ -145,7 +145,7 @@ def test_scan_ties_matches_numpy(name, values, thr):
 
 
 def test_tableau_row_stride_is_odd():
-    lib = lemke_cuda.host_scans()
+    lib = lemke_cuda.LIB.host()
     for n in (1, 2, 3, 8, 38, 40, 129):
         ld = lib.qpn_lemke_lane_stride(n)
         assert ld % 2 == 1 and 3 * n + 2 <= ld <= 3 * n + 3

@@ -260,7 +260,7 @@ def parent_ab(parent: Path, device, say, card) -> None:
         jobs = [pool.submit(build, f"parent_{s.split('.')[0]}", csrc, s)
                 for s in ("lemke_pivot.cu", "eg_warmstart.cu")]
         old_lk, old_eg = (j.result() for j in jobs)
-    new_lk, new_eg = lemke_cuda._cuda_lib(), eg_cuda._cuda_lib()
+    new_lk, new_eg = lemke_cuda.LIB.cuda(), eg_cuda.LIB.cuda()
     # K2's cluster instance: another partition, so within K2_TOL
     ins = k2_inputs(K2_T, K2_LANES, device)
     n = ins[0].shape[1]
@@ -275,7 +275,7 @@ def parent_ab(parent: Path, device, say, card) -> None:
     sub = tuple(a[:chip_smoke.HOST_BIT_LANES] for a in ins)
     zk = run_eg(eg_entry(new_eg), sub, 300, ranks)
     zh = eg_cuda.eg_steps_host(*(a.cpu() for a in sub), 300,
-                               optin=eg_cuda.card_optin(device))
+                               optin=eg_cuda.LIB.optin(device))
     chip_smoke.host_bits("K2 cluster (probe)", [zk], [zh])
     _, t_new = turns(
         f"K2 cluster B={K2_LANES} n={n} steps={K2_STEPS} ({ranks} blocks a "
@@ -363,7 +363,7 @@ def variants(device, say, card) -> None:
     ins = k2_inputs(K2_T, K2_LANES, device)
     n = ins[0].shape[1]
     _, ranks = eg_cuda.card_instance(n, device)
-    shipped = eg_entry(eg_cuda._cuda_lib())
+    shipped = eg_entry(eg_cuda.LIB.cuda())
     want = run_eg(shipped, ins, K2_STEPS, ranks)
     dirs = {v: variant_csrc(v) for v in VARIANTS}
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
@@ -375,7 +375,7 @@ def variants(device, say, card) -> None:
         lib = libs[v]
         lib.qpn_eg_cluster_ranks.restype = ctypes.c_int
         lib.qpn_eg_cluster_ranks.argtypes = [ctypes.c_int, ctypes.c_longlong]
-        r = lib.qpn_eg_cluster_ranks(n, eg_cuda.card_optin(device))
+        r = lib.qpn_eg_cluster_ranks(n, eg_cuda.LIB.optin(device))
         fn = eg_entry(lib)
         z = run_eg(fn, ins, K2_STEPS, r)
         torch.cuda.synchronize()

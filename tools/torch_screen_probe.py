@@ -84,7 +84,8 @@ def cluster_checks(device, say, card) -> None:
     chip_smoke.k3_host_bits(ins, "cluster", say)
     for ranks, shape in ((2, (120, 100)), (8, (260, 240))):
         sub = ins if shape == (260, 240) else ragged(4, *shape, 7, device)
-        xk, vk = screen_cuda._launch_cluster(*sub, STEPS, LR, ranks=ranks)
+        xk, vk = screen_cuda._launch(*sub, STEPS, LR, ranks=ranks,
+                                     instance=screen_cuda.SCREEN_CLUSTER)
         xh, vh = screen_cuda.screen_steps_host(*(a.cpu() for a in sub),
                                                STEPS, LR, ranks=ranks)
         chip_smoke.host_bits(f"K3 cluster R={ranks} {shape}", [xk, vk],
@@ -94,7 +95,8 @@ def cluster_checks(device, say, card) -> None:
         f"[{card}]")
     METRICS.reset()
     try:
-        screen_cuda._launch_cluster(*ins, 10, LR, ranks=16)
+        screen_cuda._launch(*ins, 10, LR, ranks=16,
+                            instance=screen_cuda.SCREEN_CLUSTER)
     except RuntimeError as e:
         message = str(e)
     else:
@@ -176,7 +178,7 @@ def parent_ab(parent: Path, device, say, card) -> None:
     """The parent's K3 against this checkout's, each through its C entry."""
     from qpn_tpu_torch.ops import screen_cuda
     old_picked, old_global = parent_library(parent)
-    lib = screen_cuda._cuda_lib()
+    lib = screen_cuda.LIB.cuda()
     ins = ragged(4, 260, 240, chip_smoke.SEED, device)
     ranks = screen_cuda.card_instance(260, 240, device)[1]
     turns("260 x 240 B=4, the parent's global instance",

@@ -29,6 +29,16 @@ Phases, one line each, with their seconds; any failure exits non-zero:
    the natural residual of the unscaled output within the stated bounds,
    the same lanes accepted by the residual audit; the kernel timed as the
    median of 7 runs, the plain loop as the median of 3 at 20000 steps;
+   then its block instance (n = 129-238): the generic route of phase 8 at
+   T=5, num_obj=2 (n=190, S=256), whose pre-pass launches it and no other
+   instance, every lane sent to K2 counted in ``eg_block_lanes``, every lane
+   certified and re-audited in numpy; then at B=256 on seeded box AVIs of
+   n = 190 and 238: nvcc -Xptxas -v's registers and spills of each
+   instantiated chunk (a spill fails), 300 steps within 1e-5 of the lane
+   scale of the plain loop and bit for bit the host build's on 8 lanes,
+   the plain loop's time at 300 steps, and the kernel's at 300 and 20000
+   steps (median of 3 between CUDA events) beside its bound and its
+   computed f32 issue floor;
 8. the generic main path, ``ops.avi.solve_avi_batch_adaptive(...,
    tol=1e-8, mixed=True, onchip_eg_steps=20000)``: every lane certified,
    the extragradient kernel launched, the residual re-audited in numpy, z
@@ -355,6 +365,11 @@ DOMAIN_SCREEN_B, DOMAIN_SCREEN_M, DOMAIN_SCREEN_N = 4, 260, 240
 SCREEN_AB_B = 128
 SCREEN_GLOBAL_MN = (520, 500)
 HOST_BIT_LANES = 8
+# K2's block instance (n = 129-238 on an H100): cell 5's n, and the last n
+# of the domain, where part of M sits in shared memory; 256 lanes each; and
+# the generic route whose pre-pass it runs (T, num_obj; n = 190)
+K2_BLOCK_N = (190, 238)
+K2_BLOCK_ROUTE = MIDSIZE[-1]
 # Timed calls of phase 20 (the plain loops take 1-3 s a call there).
 DOMAIN_REPEATS = 3
 # (g)'s and (h)'s spread global lanes held to their g++ emulation
@@ -721,6 +736,177 @@ def compare_eg(data, device, say, card, repeats=REPEATS):
             f"kernel {t_k * 1e3:.4f} ms (median of {repeats}), plain "
             f"{t_p * 1e3:.4f} ms (median of {plain_repeats}) [{card}]")
     return max_abs, t_k, t_p, eg_bound(ins, zk, EG_STEPS)
+
+
+def k2_block_ptxas(say):
+    """nvcc -Xptxas -v on csrc/eg_warmstart.cu as the library is built
+    (sm_90a, -O3, -fmad=false): each instance of the block kernel's
+    registers and spill bytes, printed; a spill fails.  Returns {chunk:
+    (registers, spill bytes)}."""
+    import re
+    from qpn_tpu_torch.utils import cuda_build
+    flags = [f for f in cuda_build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    out = os.path.join(HERE, "build", "eg_warmstart_ptxas.o")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    src = cuda_build.CSRC_DIR / "eg_warmstart.cu"
+    proc = subprocess.run([cuda_build.nvcc_path(), *flags, "-Xptxas", "-v",
+                           "-c", "-o", out, str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        fail(f"nvcc -Xptxas -v {src}: {proc.stderr}")
+    report, name = {}, None
+    for line in proc.stderr.splitlines():
+        m = re.search(r"Compiling entry function '\S*eg_block_kernelILi(\d+)E",
+                      line)
+        if m:
+            name = int(m.group(1))
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+            report[name] = (report.get(name, (0, 0))[0], spill)
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[name] = (int(m.group(1)), report.get(name, (0, 0))[1])
+            name = None
+    if not report:
+        fail(f"nvcc -Xptxas -v {src}: no eg_block_kernel in its report")
+    say("ptxas eg_block_kernel: " + ", ".join(
+        f"C={c}: {r} registers, {sp} bytes spilled"
+        for c, (r, sp) in sorted(report.items())))
+    spilled = {c: sp for c, (_, sp) in report.items() if sp}
+    if spilled:
+        fail(f"eg_block_kernel spills at chunks {spilled}")
+    return report
+
+
+def block_route(device, say, card):
+    """The generic route at K2_BLOCK_ROUTE (n = 190, S lanes) with the EG
+    pre-pass of phase 8, which runs in K2's block instance and no other:
+    every lane sent to K2 counted as a block lane, every lane certified,
+    the numpy re-audit.  Returns the launches of K2 in the call."""
+    import numpy as np
+    import torch
+    from qpn_tpu_torch.models.robust_avoid import scenario_batch_gavis
+    from qpn_tpu_torch.ops import eg_cuda
+    from qpn_tpu_torch.ops.avi import batch_from_numpy, solve_avi_batch_adaptive
+    from qpn_tpu_torch.utils.metrics import METRICS
+    T, num_obj = K2_BLOCK_ROUTE
+    batch = scenario_batch_gavis(num_scenarios=S, T=T, num_obj=num_obj,
+                                 num_poly_faces=FACES, seed=SEED)
+    data = batch_from_numpy(batch)
+    B, n = data["q"].shape
+    METRICS.reset()
+    t0 = time.perf_counter()
+    res = solve_avi_batch_adaptive(*(data[k] for k in KEYS), tol=SOLVE_TOL,
+                                   mixed=True, onchip_eg_steps=EG_STEPS)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = METRICS.launches[eg_cuda.KERNEL]
+    others = (METRICS.launches[eg_cuda.KERNEL_CLUSTER]
+              + METRICS.launches[eg_cuda.KERNEL_GLOBAL])
+    lanes = int(METRICS.counters[eg_cuda.LANES])
+    block = int(METRICS.counters[eg_cuda.BLOCK_LANES])
+    if launches < 1 or others != 0 or lanes != B * launches \
+            or block != lanes:
+        fail(f"generic n={n}: {launches} launches of {eg_cuda.KERNEL}, "
+             f"{others} of the others, {lanes} lanes, {block} block lanes")
+    z = res.z.cpu().numpy()
+    conv = float(res.converged.double().mean())
+    if z.shape != (B, n) or not np.isfinite(z).all() or conv != 1.0:
+        fail(f"generic n={n}: z shape {z.shape}, conv {conv}")
+    resid = numpy_audit(batch, z)
+    if not resid.max() <= SOLVE_TOL:
+        fail(f"generic n={n}, numpy audit: max natural residual "
+             f"{resid.max()!r}")
+    say(f"block generic solve_avi_batch_adaptive S={B} T={T} "
+        f"num_obj={num_obj} n={n} mixed=True onchip_eg_steps={EG_STEPS}: "
+        f"conv {conv}, max resid {resid.max():.3g}, {launches} launch(es) "
+        f"of {eg_cuda.KERNEL} (block instance), {block}/{lanes} lanes in "
+        f"it, none of the cluster or global instances; {wall:.3f} s "
+        f"[{card}]")
+    return launches
+
+
+def k2_block_phase(device, say, card):
+    """Phase 7's second part: the generic route whose pre-pass runs in K2's
+    block instance (block_route), then that instance on S lanes of seeded
+    box AVIs at each n of K2_BLOCK_N, through the public wrapper.  Returns
+    the kernel row of the JSON line: the route's launches, the first n at
+    300 steps, beside the plain loop."""
+    import numpy as np
+    import torch
+    from qpn_tpu_torch.ops import eg, eg_cuda
+    from qpn_tpu_torch.utils.metrics import METRICS
+    launches = block_route(device, say, card)
+    ptx = k2_block_ptxas(say)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    row = None
+    for n in K2_BLOCK_N:
+        if eg_cuda.card_instance(n, device) != (eg_cuda.EG_SHARED, 1):
+            fail(f"K2: n={n} does not take the block instance")
+        rng = np.random.default_rng(n)
+        A = rng.standard_normal((S, n, n)) / np.sqrt(n)
+        arrays = (np.einsum("bij,bkj->bik", A, A) + 0.1 * np.eye(n)[None],
+                  rng.standard_normal((S, n)),
+                  np.where(rng.random((S, n)) < 0.5, 0.0, -np.inf),
+                  np.where(rng.random((S, n)) < 0.3, 1.0, np.inf),
+                  np.zeros((S, n)))
+        p = eg.eg_prepare(*(torch.as_tensor(a, device=device)
+                            for a in arrays),
+                          torch.ones(S, n, dtype=torch.bool, device=device))
+        ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
+        METRICS.reset()
+        zk = eg_cuda.eg_warmstart_cuda(*ins, 300)
+        zp = eg.eg_steps_torch(*ins, 300)
+        torch.cuda.synchronize(device)
+        if (METRICS.launches[eg_cuda.KERNEL] != 1
+                or METRICS.counters[eg_cuda.BLOCK_LANES] != S):
+            fail(f"K2 block n={n}: {dict(METRICS.launches)} launches, "
+                 f"{METRICS.counters[eg_cuda.BLOCK_LANES]} block lanes")
+        err = float(((zk - zp).abs().amax(1)
+                     / (1.0 + zp.abs().amax(1))).max())
+        if not err <= EG_TOL[300]:
+            fail(f"K2 block n={n}: z after 300 steps differs from the plain "
+                 f"loop's by {err!r} of the lane scale")
+        k = HOST_BIT_LANES
+        host_bits(f"K2 block n={n}", [zk[:k]], [eg_cuda.eg_steps_host(
+            *(a[:k].cpu() for a in ins), 300,
+            optin=eg_cuda.LIB.optin(device))])
+        t_p = device_timed(lambda: eg.eg_steps_torch(*ins, 300), device,
+                           DOMAIN_REPEATS)
+        t_300 = device_timed(lambda: eg_cuda.eg_warmstart_cuda(*ins, 300),
+                             device, DOMAIN_REPEATS)
+        t_k = device_timed(
+            lambda: eg_cuda.eg_warmstart_cuda(*ins, EG_STEPS), device,
+            DOMAIN_REPEATS)
+        zk = eg_cuda.eg_warmstart_cuda(*ins, EG_STEPS)
+        bnd = eg_bound(ins, zk, EG_STEPS)
+        C = eg_cuda.host_cluster_chunk(n)
+        # the f32 issue floor: 2 instructions a product of a padded row
+        # (4C columns) on an SM's 128 lanes, one lane an SM at a time
+        waves = -(-S // sms)
+        issue = cycles_ms(waves * 2 * EG_STEPS * 2 * n * 4 * C / 128)
+        say(f"K2 block B={S} n={n} (chunk {C}, {ptx[C][0]} registers, "
+            f"{eg_cuda.host_block_threads(n)} threads, "
+            f"{eg_cuda.host_block_bytes(n)} bytes of shared memory): 300 "
+            f"steps within {err:.3g} of the lane scale of the plain loop "
+            f"(bound {EG_TOL[300]}) and the host build's bits on {k} lanes; "
+            f"kernel {t_300 * 1e3:.4f} ms at 300 steps, {t_k * 1e3:.4f} ms "
+            f"at {EG_STEPS} (median of {DOMAIN_REPEATS}); plain loop "
+            f"{t_p * 1e3:.4f} ms at 300 steps; bound {bnd[0]:.5f} ms by "
+            f"{bnd[1]}, share {bnd[0] / (t_k * 1e3) * 100:.2f} %; computed "
+            f"f32 issue floor {issue:.3f} ms ({waves} waves) [{card}]")
+        if row is None:
+            row = kernel_row("eg_block_kernel",
+                             "qpn_tpu_torch/csrc/eg_warmstart.cu",
+                             "qpn_tpu/ops/pallas_kernels.py:57", launches,
+                             err, t_300, t_p, eg_bound(ins, zk, 300))
+    return row
 
 
 def generic_path(data, batch, device, z_kkt, say, card):
@@ -2778,8 +2964,9 @@ def main() -> None:
           f"plain loop ({t_plain * 1e3:.3f} ms); CPU reference z within "
           f"{dz.max():.3g} on {int(same.sum())}/8 lanes [{card}]")
 
-    # 7. extragradient kernel vs plain loop
+    # 7. extragradient kernel vs plain loop; its block instance
     eg_err, t_eg, t_eg_plain, eg_bnd = compare_eg(data, device, say, card)
+    k2_block_row = k2_block_phase(device, say, card)
 
     # 8. the generic main path
     eg_launches = generic_path(data, batch, device, z_kkt, say, card)
@@ -2844,7 +3031,7 @@ def main() -> None:
         kernel_row(screen_cuda.KERNEL, "qpn_tpu_torch/csrc/screen.cu",
                    "qpn_tpu/ops/pallas_kernels.py:205", scr_launches,
                    scr_err, t_scr, t_scr_plain, scr_bnd),
-        *domain_rows, *hop_rows, *admm_rows]}))
+        k2_block_row, *domain_rows, *hop_rows, *admm_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

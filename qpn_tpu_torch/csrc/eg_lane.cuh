@@ -18,13 +18,13 @@
 //     and joins with xor shuffles;
 //   * eg_row_sum: a loop over the same partition and the same butterfly,
 //     for the host instance.  The generic kernel's partition is (1, n): one
-//     chunk, plain column order (eg_row), whether the lane's M sits in one
-//     block's shared memory, is spread over blocks on any SMs, or stays in
-//     device memory (eg_instance picks).  The cluster instance's is
-//     (kEgGroup, eg_cluster_chunk(n)), the register kernel's order on rows
-//     too long for its instances: a group of G threads on two rows, each
-//     thread holding the first kEgClusterRegs entries of its chunk of each
-//     in registers and the rest in shared memory (eg_warmstart.cu).
+//     chunk, plain column order (eg_row), whether the lane's M is spread
+//     over blocks on any SMs or stays in device memory (the global
+//     instance).  The block and cluster instances' is (kEgGroup,
+//     eg_cluster_chunk(n)), the register kernel's order on rows too long for
+//     its instances: a group of G threads on a few rows, each thread holding
+//     the first entries of its chunk of each in registers and the rest in
+//     shared memory (eg_warmstart.cu).
 // Floating-point addition commutes, so every thread of a group ends the
 // butterfly with the same bits, and the loop reproduces them.  A chunk's sum
 // starts from +0, so it is never -0, and the zeros past column n add
@@ -139,10 +139,10 @@ QPN_EG_HD float eg_row_sum(const float* Mi, const float* x, int n, int C) {
 
 // ---- the lane in memory: the generic kernels and the host instance ------
 
-// One lane's working set, or one rank's part of it.  In the shared instance
-// all of it sits in shared memory, the rows of M ld = n | 1 floats apart (an
-// odd stride puts the rows that neighbouring threads read on different
-// banks); in the host's emulated cluster each rank's buffer does.  In the global
+// One lane's working set, or one rank's part of it, as the host instance
+// carves it: all of it in one buffer, the rows of M ld = n | 1 floats apart
+// (an odd stride puts the rows that neighbouring threads read on different
+// banks); in the host's emulated cluster each rank's buffer.  In the global
 // instance, for lanes whose M fits no cluster, a rank's band of M sits in
 // its shared memory where it fits (eg_global_band_fits), else in the lane's
 // column-major copy in device memory, which eg_lane_load writes and every
@@ -174,7 +174,7 @@ QPN_EG_HD int eg_ld(int n) { return n | 1; }
 QPN_EG_HD int eg_band_height(int n, int R) { return (n + R - 1) / R; }
 
 // Floats rounded up to a multiple of 4 (16 bytes).
-QPN_EG_HD size_t eg_align4(size_t k) { return (k + 3) & ~size_t(3); }
+QPN_EG_HD constexpr size_t eg_align4(size_t k) { return (k + 3) & ~size_t(3); }
 
 // Floats of the vectors: z and z½ first, each 16-byte aligned (eg_row reads
 // them four at a time), then the band's q, l and u.
@@ -183,7 +183,8 @@ QPN_EG_HD size_t eg_vector_floats(int n, int nb) {
 }
 
 // Shared memory of one rank of a lane whose bands are nb rows high, of the
-// shared instance's lane (one band), and of the global one's.
+// lane in one buffer (one band: the bound of the block instance's domain),
+// and of the global one's.
 QPN_EG_HD size_t eg_band_bytes(int n, int nb) {
     return (eg_align4((size_t)nb * eg_ld(n)) + eg_vector_floats(n, nb))
            * sizeof(float);
@@ -273,13 +274,16 @@ QPN_EG_HD EGLane eg_lane_carve_global(const EGBatch& bt, size_t b,
 }
 
 // The kernel that takes rows of n columns: the register kernel where an
-// instance of it does (eg_pick_chunk), else the generic kernel with the
-// lane in one block's shared memory while eg_lane_bytes(n) fits the
-// block's opt-in limit `smem_optin` (232448 bytes on an H100: n up to 238),
-// else the cluster instance while a band of M's rows fits the limit at 8
-// ranks or fewer (8: the portable cluster size; n up to 671 on an H100),
-// spread over eg_cluster_ranks(n) blocks, else with M in device memory.  A
-// choice by shape alone.
+// instance of it does (eg_pick_chunk), else the block instance (EG_SHARED:
+// one block a lane, M in its threads' registers and shared memory) while
+// its chunk is one the launcher instantiates (eg_cluster_chunk(n) up to
+// kEgBlockMaxChunk: n up to 240) and eg_lane_bytes(n) fits the block's
+// opt-in limit `smem_optin` (232448 bytes on an H100: n up to 238, the
+// boundary with the cluster instance), else the cluster instance while a
+// band of M's rows fits the limit at 8 ranks or fewer (8: the portable
+// cluster size; n up to 671 on an H100), spread over eg_cluster_ranks(n)
+// blocks, else the generic kernel with M in device memory.  A choice by
+// shape alone, the same on the card and in the host build.
 enum { EG_REGISTER = 0, EG_SHARED = 1, EG_GLOBAL = 2, EG_CLUSTER = 3 };
 constexpr int kEgMaxRanks = 8;
 
@@ -294,7 +298,7 @@ constexpr int kEgClusterRegs = 60;
 
 // The cluster instance's chunk: ceil(n / kEgGroup) columns, rounded up to
 // a multiple of 4 (a chunk is read 16 bytes a load).
-QPN_EG_HD int eg_cluster_chunk(int n) {
+QPN_EG_HD constexpr int eg_cluster_chunk(int n) {
     return (int)eg_align4((size_t)((n + kEgGroup - 1) / kEgGroup));
 }
 
@@ -317,6 +321,43 @@ QPN_EG_HD size_t eg_cluster_rank_bytes(int n, int nb) {
     const int rest = C > kEgClusterRegs ? C - kEgClusterRegs : 0;
     return (2 * (size_t)kEgGroup * eg_cluster_stride(n)
             + (size_t)eg_cluster_threads(nb) * kEgClusterRows * rest)
+           * sizeof(float);
+}
+
+// The block instance (eg_warmstart.cu::eg_block_kernel), the cluster
+// instance's design on one block, for chunks of C columns: the entries of
+// its chunk of a row that a thread holds in registers for all steps, the
+// whole chunk up to kEgBlockRegs; and the rows a thread sums (one chunk of
+// each, against the same entries of z), three while the registers hold
+// the whole chunks, two past that.  nvcc -Xptxas -v on an H100 reports
+// each instantiated chunk (36 to kEgBlockMaxChunk columns) without spill
+// at these.
+constexpr int kEgBlockRegs = 48;
+constexpr int kEgBlockMaxChunk = 60;
+
+QPN_EG_HD constexpr int eg_block_regs(int C) {
+    return C < kEgBlockRegs ? C : kEgBlockRegs;
+}
+
+QPN_EG_HD constexpr int eg_block_rows(int C) {
+    return C <= kEgBlockRegs ? 3 : 2;
+}
+
+// Threads of the block instance's lane of n rows: a group of kEgGroup on
+// every eg_block_rows rows, whole warps.
+QPN_EG_HD constexpr int eg_block_threads(int n) {
+    const int rows = eg_block_rows(eg_cluster_chunk(n));
+    return ((n + rows - 1) / rows * kEgGroup + 31) / 32 * 32;
+}
+
+// Shared memory of the block instance's lane: z and z½ in chunks (as the
+// cluster instance's), and what its threads do not hold of their rows'
+// chunks in registers, 16 bytes a thread at a time.
+QPN_EG_HD size_t eg_block_bytes(int n) {
+    const int C = eg_cluster_chunk(n);
+    return (2 * (size_t)kEgGroup * eg_cluster_stride(n)
+            + (size_t)eg_block_threads(n) * eg_block_rows(C)
+                  * (C - eg_block_regs(C)))
            * sizeof(float);
 }
 
@@ -347,7 +388,9 @@ QPN_EG_HD int eg_cluster_ranks(int n, long long smem_optin) {
 QPN_EG_HD int eg_instance(int n, long long smem_optin) {
     if (eg_pick_chunk(n) != 0) return EG_REGISTER;
     if (smem_optin < 0) return EG_GLOBAL;
-    if (eg_lane_bytes(n) <= (size_t)smem_optin) return EG_SHARED;
+    if (eg_cluster_chunk(n) <= kEgBlockMaxChunk
+        && eg_lane_bytes(n) <= (size_t)smem_optin)
+        return EG_SHARED;
     return eg_cluster_ranks(n, smem_optin) != 0 ? EG_CLUSTER : EG_GLOBAL;
 }
 

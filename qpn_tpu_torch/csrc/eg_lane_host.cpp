@@ -2,8 +2,8 @@
 // built with plain g++ and loaded with ctypes by the CPU tests: each lane
 // runs the step loop as thread 0 of 1 with no-op barriers, every row summed
 // by the loop that walks the partition of the kernel that takes this n, on
-// a lane carved as the generic kernel carves it (the cluster instance's
-// registers hold what its carving holds here: only the order of the sums
+// a lane carved in one buffer (the register, block and cluster instances'
+// registers hold what this carving holds here: only the order of the sums
 // matters for the bits).  A lane of R ranks is R buffers
 // carved as the cluster's blocks are, or as the global instance's blocks
 // are (each band in its buffer where it fits the limit, else in the lane's
@@ -21,23 +21,21 @@ extern "C" {
 
 // The kernel is the one the card's launcher picks from n under the opt-in
 // limit `smem_optin` (eg_instance): the register kernel's partition
-// (kEgGroup, chunk); the cluster instance's (kEgGroup,
-// eg_cluster_chunk(n)), spread over its ranks; else the generic kernel's
-// one chunk of n columns with M copied (shared instance) or, in the global
-// instance, spread over the ranks that eg_global_ranks picks for B lanes on
-// a card that holds `resident` of its blocks at once.  ranks > 0 spreads
-// the lane over that many ranks whatever the limit picks (1: one block's
-// lane), in the partition of the instance the limit picks.
+// (kEgGroup, chunk); the block and cluster instances' (kEgGroup,
+// eg_cluster_chunk(n)), at one rank or spread over the cluster's; else the
+// generic kernel's one chunk of n columns (the global instance), spread
+// over the ranks that eg_global_ranks picks for B lanes on a card that
+// holds `resident` of its blocks at once.  ranks > 0 spreads the lane over
+// that many ranks whatever the limit picks (1: one block's lane), in the
+// partition of the instance the limit picks.
 void qpn_eg_warmstart_host_f32(QPN_EG_PARAMS, long long smem_optin,
                                int ranks, long long resident) {
     const qpn::EGBatch bt = QPN_EG_BATCH;
     const int instance = qpn::eg_instance(bt.n, smem_optin);
     const bool global = instance == qpn::EG_GLOBAL;
-    const int G = instance == qpn::EG_REGISTER || instance == qpn::EG_CLUSTER
-        ? qpn::kEgGroup : 1;
+    const int G = global ? 1 : qpn::kEgGroup;
     const int C = instance == qpn::EG_REGISTER ? qpn::eg_pick_chunk(bt.n)
-                  : instance == qpn::EG_CLUSTER ? qpn::eg_cluster_chunk(bt.n)
-                                                : bt.n;
+                  : global ? bt.n : qpn::eg_cluster_chunk(bt.n);
     int R = ranks;
     if (R <= 0)
         R = instance == qpn::EG_CLUSTER
@@ -119,6 +117,13 @@ long long qpn_eg_cluster_rank_bytes(int n, int ranks) {
 
 int qpn_eg_cluster_reach(int n, long long smem_optin) {
     return qpn::eg_cluster_reach(n, smem_optin);
+}
+
+// The block instance's threads and shared memory for a lane of n.
+int qpn_eg_block_threads(int n) { return qpn::eg_block_threads(n); }
+
+long long qpn_eg_block_bytes(int n) {
+    return (long long)qpn::eg_block_bytes(n);
 }
 
 }  // extern "C"

@@ -23,12 +23,35 @@
 // G = 4 (eg_lane.cuh::kEgGroup; 8 threads a row measured no faster on an
 // H100), and the launcher picks the instance's C from n
 // (eg_lane.cuh::eg_pick_chunk).  Rows beyond the instances (n > 128) take
-// the generic kernel: one thread per row, every row summed in column order.
-// It has three instances, which the wrapper picks from n and the card's
-// opt-in limit before the launch (eg_lane.cuh::eg_instance):
-//   * shared: the matrix in one block's dynamic shared memory (n up to 238
-//     on an H100); bound by the latency of a row's chain of n dependent
-//     adds a half-step;
+// one of three more instances, which the wrapper picks from n and the
+// card's opt-in limit before the launch (eg_lane.cuh::eg_instance):
+//   * block (eg_block_kernel<C>, EG_SHARED; n = 129-238 on an H100): the
+//     cluster instance's design below on one block.  A row is split over a
+//     group of G = 4 neighbouring threads in the partition (kEgGroup,
+//     C = eg_cluster_chunk(n)): 36 columns a chunk at n = 129, 48 at 190,
+//     60 at 238.  A thread sums eg_block_rows(C) rows, s + h·P (P the
+//     block's groups), and holds the first eg_block_regs(C) entries of its
+//     chunk of each in registers for all steps: the whole chunk of three
+//     rows up to C = kEgBlockRegs = 48 (256 threads at n = 190, all of M
+//     in registers), past it the first 48 entries of two rows, the rest in
+//     shared memory, 16 bytes a thread, neighbouring threads on
+//     neighbouring addresses (480 threads at n = 238).  z and z½
+//     are a ping-pong pair in shared memory by chunks, eg_cluster_stride
+//     apart (the four chunks a warp reads lie on different banks), and
+//     each 16-byte load of z feeds every row of the thread.  A half-step is
+//     the chunks' multiply-adds, the butterfly, the clip, the store of each
+//     row's new entry and one __syncthreads.  What bounds it: the f32
+//     issue, 2·n·4C instructions a half-step with -fmad=false (a product
+//     and its sum are two) on the SM's 128 f32 lanes, one lane a block and
+//     one block an SM (its threads take the register file), so 256 lanes
+//     run in two waves on 132 SMs; then the chain of a chunk's C dependent
+//     adds, and the butterfly, clip, store and barrier that end each
+//     half-step.  Tuned with -Xptxas -v and the card's clock at n =
+//     129-238: four rows a thread, or two lanes an SM with more of M in
+//     shared memory, measured slower; three rows past 48 columns spill
+//     (times: PERF.md §6, "K2 shared").  Its lanes sum in the 4-chunk
+//     partition, not in column order: their z lies within 1e-5 of the
+//     lane scale of the plain loop's after 300 steps;
 //   * cluster (eg_cluster_kernel): the lane spread over a cluster of
 //     R = 2-8 blocks on neighbouring SMs, for n = 239-671 on an H100
 //     (eg_cluster_ranks: the fewest whose rank fits 320 threads and the
@@ -78,9 +101,10 @@
 //     wrapper's private launcher also runs it at cluster sizes, and at
 //     R = 1 where the pick spreads it, to hold the instances against each
 //     other on the card.
-// Every row sums in plain column order in the generic kernel's instances,
-// so they give the same bits; the cluster instance sums in its partition
-// (kEgGroup, eg_cluster_chunk(n)), and the host loop walks it too.
+// Every row sums in plain column order in the generic kernel (the global
+// instance) at any ranks, so its carvings give the same bits; the block and
+// cluster instances sum in the partition (kEgGroup, eg_cluster_chunk(n)),
+// and the host loop walks it too.
 //
 // The order of every sum is defined in eg_lane.cuh, where a loop walks the
 // same partition for the host instance.  Built with nvcc -O3 -fmad=false,
@@ -88,10 +112,11 @@
 // separately, as in the plain PyTorch version.
 //
 // C interface (ctypes): qpn_eg_warmstart_f32 (the register kernel or the
-// shared instance, picked from n), qpn_eg_warmstart_cluster_f32 and
+// block instance, picked from n), qpn_eg_warmstart_cluster_f32 and
 // qpn_eg_warmstart_global_f32 (given their ranks) return 0 or a
 // cudaError_t; qpn_eg_instance, qpn_eg_cluster_ranks and
-// qpn_eg_global_ranks are the pure choice, qpn_eg_smem_optin and
+// qpn_eg_global_ranks (and qpn_eg_pick_chunk) are the pure choice,
+// qpn_eg_smem_optin and
 // qpn_eg_global_resident what it takes from the current card.
 
 #include <cooperative_groups.h>
@@ -117,45 +142,142 @@ namespace cg = cooperative_groups;
 constexpr int kGenericMaxThreads = 256;
 constexpr int G = qpn::kEgGroup;
 
-// The steps of rank `rank` of lane b, every thread of the block.
-template <int kInstance>
+// The steps of rank `rank` of lane b of the global instance, every thread
+// of the block.
 __device__ __forceinline__ void run_rank(const qpn::EGBatch& bt, float* smem,
                                          int R, int rank, size_t b, int copy,
                                          float* xg, unsigned* bars,
                                          float* mt) {
     const bool spread = R > 1;
-    const qpn::EGLane L = kInstance == qpn::EG_GLOBAL
-        ? qpn::eg_lane_carve_global(
-              bt, b, smem, R, rank, copy != 0,
-              spread ? xg + b * qpn::eg_exchange_floats(bt.n) : nullptr,
-              spread ? bars + 2 * b : nullptr,
-              copy ? nullptr : mt + b * (size_t)bt.n * bt.n)
-        : qpn::eg_lane_carve(smem, bt.n, R, rank);
+    const qpn::EGLane L = qpn::eg_lane_carve_global(
+        bt, b, smem, R, rank, copy != 0,
+        spread ? xg + b * qpn::eg_exchange_floats(bt.n) : nullptr,
+        spread ? bars + 2 * b : nullptr,
+        copy ? nullptr : mt + b * (size_t)bt.n * bt.n);
     qpn::eg_lane_load(L, bt, b, threadIdx.x, blockDim.x);
     qpn::eg_lane_run<1>(L, bt.tau[b], bt.steps, bt.n, threadIdx.x,
                         blockDim.x);
     qpn::eg_lane_store(L, bt, b, threadIdx.x, blockDim.x);
 }
 
-// EG_SHARED: M copied to the block's shared memory; EG_GLOBAL: R blocks a
-// lane on any SMs, rank k's band of M in its shared memory (`copy`) or in
-// the lane's column-major copy at mt + b · n², the lane's z and z½ at
-// xg + b · eg_exchange_floats(n) and its barrier at bars + 2b (R > 1).
-template <int kInstance>
+// EG_GLOBAL: R blocks a lane on any SMs, rank k's band of M in its shared
+// memory (`copy`) or in the lane's column-major copy at mt + b · n², the
+// lane's z and z½ at xg + b · eg_exchange_floats(n) and its barrier at
+// bars + 2b (R > 1).
 __global__ void __launch_bounds__(kGenericMaxThreads)
 eg_generic_kernel(qpn::EGBatch bt, int R, int copy, float* xg,
                   unsigned* bars, float* mt) {
     extern __shared__ __align__(16) float smem[];
-    if (kInstance == qpn::EG_SHARED || R == 1) {
-        // one block a lane: R = 1 known to the compiler (the global
-        // instance's launch at R = 1 takes this path, the code it had
-        // before it spread)
-        run_rank<kInstance>(bt, smem, 1, 0, blockIdx.x, 0, nullptr, nullptr,
-                            mt);
+    if (R == 1) {
+        // one block a lane: R = 1 known to the compiler (the launch at
+        // R = 1 takes this path, the code it had before it spread)
+        run_rank(bt, smem, 1, 0, blockIdx.x, 0, nullptr, nullptr, mt);
         return;
     }
-    run_rank<kInstance>(bt, smem, R, (int)(blockIdx.x % R), blockIdx.x / R,
-                        copy, xg, bars, mt);
+    run_rank(bt, smem, R, (int)(blockIdx.x % R), blockIdx.x / R, copy, xg,
+             bars, mt);
+}
+
+// EG_SHARED: one block a lane, its rows split between the threads'
+// registers and the block's shared memory (the file's notes).  C is the
+// chunk, eg_cluster_chunk(n).  Thread tid is chunk g = tid % 4 of rows
+// s + h·P, h < eg_block_rows(C), s = tid / 4, P the block's groups; every
+// row's sum reads the same entries of z (or z½).
+template <int C>
+__global__ void __launch_bounds__(qpn::eg_block_threads(G * C), 1)
+eg_block_kernel(qpn::EGBatch bt) {
+    constexpr int K = qpn::eg_block_regs(C), NR = qpn::eg_block_rows(C);
+    constexpr int CS = C | 4;                      // eg_cluster_stride(n)
+    constexpr int quads = (C - K) / 4;             // 16-byte groups in smem
+    static_assert(C % 4 == 0 && K % 4 == 0, "whole 16-byte groups");
+    extern __shared__ __align__(16) float smem[];
+    const size_t b = blockIdx.x;
+    const int n = bt.n, tid = threadIdx.x, nthr = blockDim.x;
+    const int g = tid % G, P = nthr / G;
+    float* zs = smem;                              // z, G chunks CS apart
+    float* zhs = zs + G * CS;                      // z½
+    // (quads, NR, nthr): what the registers do not hold
+    float4* ms = reinterpret_cast<float4*>(zhs + G * CS);
+
+    bool on[NR];
+    int r[NR], put[NR];
+    float m[NR][K], q[NR], lo[NR], hi[NR], z[NR];
+#pragma unroll
+    for (int h = 0; h < NR; ++h) {
+        const int i = tid / G + h * P;
+        on[h] = i < n;
+        r[h] = on[h] ? i : 0;
+        // where the row's entry lies in the chunked vectors
+        put[h] = (r[h] / C) * CS + r[h] % C;
+        const float* Mi = bt.M + (b * n + r[h]) * (size_t)n + g * C;
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+            m[h][k] = on[h] && g * C + k < n ? Mi[k] : 0.0f;
+#pragma unroll
+        for (int p = 0; p < quads; ++p) {
+            float v[4];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                const int k = K + 4 * p + c;
+                v[c] = on[h] && g * C + k < n ? Mi[k] : 0.0f;
+            }
+            ms[(p * NR + h) * nthr + tid] = make_float4(v[0], v[1], v[2], v[3]);
+        }
+        const size_t at = b * n + r[h];
+        q[h] = on[h] ? bt.q[at] : 0.0f;
+        lo[h] = on[h] ? bt.l[at] : 0.0f;
+        hi[h] = on[h] ? bt.u[at] : 0.0f;
+        z[h] = on[h] ? bt.z0[at] : 0.0f;
+    }
+    const float tau = bt.tau[b];
+    // z0 into z by chunks, zeros past column n and in the gaps; z½ zeroed
+    for (int p = tid; p < G * CS; p += nthr) {
+        const int c = p / CS, k = p - c * CS, j = c * C + k;
+        zs[p] = k < C && j < n ? bt.z0[b * n + j] : 0.0f;
+        zhs[p] = 0.0f;
+    }
+    __syncthreads();
+    for (int s = 0; s < 2 * bt.steps; ++s) {
+        const float* x = (s & 1 ? zhs : zs) + g * CS;
+        float* y = s & 1 ? zs : zhs;
+        float acc[NR];
+#pragma unroll
+        for (int h = 0; h < NR; ++h) acc[h] = 0.0f;
+#pragma unroll
+        for (int k = 0; k < K; k += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(x + k);
+#pragma unroll
+            for (int h = 0; h < NR; ++h) {
+                acc[h] = acc[h] + m[h][k] * v.x;
+                acc[h] = acc[h] + m[h][k + 1] * v.y;
+                acc[h] = acc[h] + m[h][k + 2] * v.z;
+                acc[h] = acc[h] + m[h][k + 3] * v.w;
+            }
+        }
+#pragma unroll
+        for (int p = 0; p < quads; ++p) {
+            const float4 v = *reinterpret_cast<const float4*>(x + K + 4 * p);
+#pragma unroll
+            for (int h = 0; h < NR; ++h) {
+                const float4 w = ms[(p * NR + h) * nthr + tid];
+                acc[h] = acc[h] + w.x * v.x;
+                acc[h] = acc[h] + w.y * v.y;
+                acc[h] = acc[h] + w.z * v.z;
+                acc[h] = acc[h] + w.w * v.w;
+            }
+        }
+#pragma unroll
+        for (int h = 0; h < NR; ++h) {
+            const float F = qpn::eg_tree<G>(acc[h]) + q[h];
+            const float znew = qpn::eg_clip(z[h] - tau * F, lo[h], hi[h]);
+            if (on[h] && g == 0) y[put[h]] = znew;
+            if (s & 1) z[h] = znew;         // the second half-step moves z
+        }
+        __syncthreads();
+    }
+#pragma unroll
+    for (int h = 0; h < NR; ++h)
+        if (on[h] && g == 0) bt.z_out[b * n + r[h]] = z[h];
 }
 
 // EG_CLUSTER: one cluster of R blocks a lane, rank k's band of M's rows
@@ -348,17 +470,19 @@ int generic_threads(int n) {
     return threads > kGenericMaxThreads ? kGenericMaxThreads : threads;
 }
 
-int launch_shared(const qpn::EGBatch& bt, cudaStream_t stream) {
-    const size_t bytes = qpn::eg_lane_bytes(bt.n);
-    auto kernel = eg_generic_kernel<qpn::EG_SHARED>;
+template <int C>
+int launch_block(const qpn::EGBatch& bt, cudaStream_t stream) {
+    const size_t bytes = qpn::eg_block_bytes(bt.n);
+    auto kernel = eg_block_kernel<C>;
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
-    kernel<<<bt.B, generic_threads(bt.n), bytes, stream>>>(bt, 1, 0, nullptr,
-                                                           nullptr, nullptr);
+    kernel<<<bt.B, qpn::eg_block_threads(bt.n), bytes, stream>>>(bt);
     return cudaGetLastError();
 }
 
+// The register kernel where an instance of it takes n, else the block
+// instance where one takes the chunk (n up to 240), else refused.
 int launch(const qpn::EGBatch& bt, cudaStream_t stream) {
     if (bt.B <= 0 || bt.n <= 0) return 0;
     switch (qpn::eg_pick_chunk(bt.n)) {
@@ -367,7 +491,16 @@ int launch(const qpn::EGBatch& bt, cudaStream_t stream) {
     case 16: return launch_register<16>(bt, stream);
     case 32: return launch_register<32>(bt, stream);
     }
-    return launch_shared(bt, stream);
+    switch (qpn::eg_cluster_chunk(bt.n)) {
+    case 36: return launch_block<36>(bt, stream);
+    case 40: return launch_block<40>(bt, stream);
+    case 44: return launch_block<44>(bt, stream);
+    case 48: return launch_block<48>(bt, stream);
+    case 52: return launch_block<52>(bt, stream);
+    case 56: return launch_block<56>(bt, stream);
+    case 60: return launch_block<60>(bt, stream);
+    }
+    return cudaErrorInvalidValue;
 }
 
 // Floats a lane of the column-major copy of M that the global instance at
@@ -389,7 +522,7 @@ int launch_global(const qpn::EGBatch& bt, int R, float* xg, unsigned* bars,
         return cudaErrorInvalidValue;
     const bool copy = global_copy_floats(bt.n, R) == 0;
     if (!copy && mt == nullptr) return cudaErrorInvalidValue;
-    auto kernel = eg_generic_kernel<qpn::EG_GLOBAL>;
+    auto kernel = eg_generic_kernel;
     if (R == 1) {
         const size_t bytes = qpn::eg_global_lane_bytes(bt.n);
         cudaError_t e = cudaFuncSetAttribute(
@@ -458,6 +591,8 @@ int qpn_eg_instance(int n, long long smem_optin) {
     return qpn::eg_instance(n, smem_optin);
 }
 
+int qpn_eg_pick_chunk(int n) { return qpn::eg_pick_chunk(n); }
+
 int qpn_eg_cluster_ranks(int n, long long smem_optin) {
     return qpn::eg_cluster_ranks(n, smem_optin);
 }
@@ -481,7 +616,7 @@ long long qpn_eg_smem_optin(void) { return qpn::smem_optin(); }
 long long qpn_eg_global_resident(void) {
     const long long optin = qpn::smem_optin();
     if (optin < 0) return optin;
-    return qpn::resident_blocks(eg_generic_kernel<qpn::EG_GLOBAL>,
+    return qpn::resident_blocks(eg_generic_kernel,
                                 kGenericMaxThreads, (size_t)optin);
 }
 

@@ -12,8 +12,10 @@ first use and launched on the current stream through its declared library
 (``ops/hop_cuda.py``) shares.
 Before the launch the wrapper picks the instance from n alone
 (``csrc/eg_lane.cuh::eg_instance`` against the card's shared-memory opt-in
-limit): M in registers (n <= 128) or in shared memory (up to n = 238 on an
-H100), counted in ``METRICS.launches["eg_warmstart"]``; M spread over a
+limit): M in registers (n <= 128), or one block a lane with a row over four
+threads that hold it in registers and, past 48 columns a thread, in shared
+memory (the block instance, up to n = 238 on an H100), counted in
+``METRICS.launches["eg_warmstart"]``; M spread over a
 cluster of 2-8 blocks (``eg_cluster_ranks``; n = 239-671 on an H100), a row
 over four threads that hold part of it in registers and the rest in shared
 memory, counted in ``METRICS.launches["eg_warmstart_cluster"]``; or, past
@@ -25,8 +27,10 @@ of M in its shared memory where it fits, meeting at a barrier in device
 memory; R = 1, where the batch fills the card, reads M every half-step from
 a column-major copy that the kernel writes at its start); the ranks
 of its launches are summed in ``METRICS.counters["eg_warmstart_global_ranks"]``.
-A launch the card refuses raises ``RuntimeError`` with CUDA's message; no
-other instance is tried.
+Every launch adds its lanes to ``METRICS.counters["eg_lanes"]``, and a
+launch of the block instance to ``["eg_block_lanes"]`` too.  A launch the
+card refuses raises ``RuntimeError`` with CUDA's message; no other instance
+is tried.
 
 :func:`eg_steps_host` runs the same lane code built with g++ on CPU
 tensors — the CPU tests' window on the kernel's logic — with the lane
@@ -48,6 +52,8 @@ KERNEL = "eg_warmstart"
 KERNEL_GLOBAL = "eg_warmstart_global"
 KERNEL_CLUSTER = "eg_warmstart_cluster"
 GLOBAL_RANKS = "eg_warmstart_global_ranks"
+LANES = "eg_lanes"
+BLOCK_LANES = "eg_block_lanes"
 _HEADERS = ["eg_lane.cuh", "lane_barrier.cuh"]
 # csrc/eg_lane.cuh::eg_instance
 EG_REGISTER, EG_SHARED, EG_GLOBAL, EG_CLUSTER = 0, 1, 2, 3
@@ -72,17 +78,19 @@ LIB = KernelLibrary(
                [*_HEADERS, "hop_lane.cuh"], {
         "qpn_eg_warmstart_host_f32": (None, [*_PARAMS, c_longlong, c_int,
                                              c_longlong]),
-        "qpn_eg_pick_chunk": (c_int, [c_int]),
         "qpn_eg_global_band_fits": (c_int, [c_int, c_int, c_longlong]),
         "qpn_eg_band_bytes": (c_longlong, [c_int, c_int]),
         "qpn_eg_cluster_chunk": (c_int, [c_int]),
         "qpn_eg_cluster_rank_bytes": (c_longlong, [c_int, c_int]),
         "qpn_eg_cluster_reach": (c_int, [c_int, c_longlong]),
+        "qpn_eg_block_threads": (c_int, [c_int]),
+        "qpn_eg_block_bytes": (c_longlong, [c_int]),
         **{f"qpn_hybrid_hop_host_{t}": (c_int, [*_HOP_PARAMS, c_longlong,
                                                 c_int])
            for t in ("f32", "f64")}}),
     shape={
         "qpn_eg_instance": (c_int, [c_int, c_longlong]),
+        "qpn_eg_pick_chunk": (c_int, [c_int]),
         "qpn_eg_cluster_ranks": (c_int, [c_int, c_longlong]),
         "qpn_eg_global_ranks": (c_int, [c_int, c_int, c_longlong,
                                         c_longlong]),
@@ -98,8 +106,8 @@ build = LIB.build
 def card_instance(n: int, device: torch.device, lanes: int = 1
                   ) -> tuple[int, int]:
     """(instance, ranks) that the launcher picks for ``lanes`` lanes of
-    rows of ``n`` on the CUDA ``device``: ranks 1 for the register and
-    shared instances."""
+    rows of ``n`` on the CUDA ``device``: ranks 1 for the register kernel
+    and the block instance."""
     lib, n, optin = LIB.cuda(), int(n), LIB.optin(device)
     instance = lib.qpn_eg_instance(n, optin)
     if instance == EG_CLUSTER:
@@ -121,9 +129,9 @@ def eg_warmstart_cuda(M, q, l, u, z0, tau, steps: int) -> torch.Tensor:
     """Run ``steps`` extragradient steps of every lane in the CUDA kernel
     (one launch).  M (B,n,n); q/l/u/z0 (B,n); tau (B,); all f32 on one CUDA
     device (CPU tensors go to ``eg.eg_steps_torch``).  The instance is
-    picked from n: the register kernel up to n = 128, beyond that the
-    generic kernel with M in shared memory while it fits, then spread over
-    a cluster's shared memory, else with M read from device memory."""
+    picked from n: the register kernel up to n = 128, beyond that the block
+    instance while the lane fits one block's shared memory, then M spread
+    over a cluster's blocks, else read from device memory."""
     return _launch(M, q, l, u, z0, tau, steps)
 
 
@@ -132,8 +140,10 @@ def _launch(M, q, l, u, z0, tau, steps: int, *,
     """One launch on inputs checked here: of the instance and ranks that
     the shape picks, or of ``instance`` (EG_CLUSTER and EG_GLOBAL over
     ``ranks`` blocks a lane; EG_REGISTER and EG_SHARED: the kernel the
-    launcher picks from n), counted under its name.  ``chip_smoke.py`` and
-    the GPU tests force an instance to run the global instance at cluster
+    launcher picks from n, the register kernel or the block instance),
+    counted under its name, its lanes in ``eg_lanes`` (and in
+    ``eg_block_lanes`` for the block instance).  ``chip_smoke.py`` and the
+    GPU tests force an instance to run the global instance at cluster
     sizes or at R = 1, and sizes the card refuses."""
     _INPUTS((M, q, l, u, z0, tau), "cuda", steps=steps)
     out = torch.empty_like(z0)
@@ -167,8 +177,11 @@ def _launch(M, q, l, u, z0, tau, steps: int, *,
                    *args, int(ranks))
     elif instance in (EG_REGISTER, EG_SHARED):
         LIB.launch(KERNEL, "qpn_eg_warmstart_f32", device, *args)
+        if LIB.cuda().qpn_eg_pick_chunk(n) == 0:
+            METRICS.bump(BLOCK_LANES, B)
     else:
         raise ValueError(f"eg kernel: no instance {instance}")
+    METRICS.bump(LANES, B)
     return out
 
 
@@ -192,7 +205,7 @@ def eg_steps_host(M, q, l, u, z0, tau, steps: int,
 
 def host_pick_chunk(n: int) -> int:
     """Columns per thread of the register kernel's instance for rows of
-    ``n`` columns (0: none, the generic kernel), from the kernel's header."""
+    ``n`` columns (0: none, another instance), from the kernel's header."""
     return LIB.host().qpn_eg_pick_chunk(int(n))
 
 
@@ -244,6 +257,19 @@ def host_cluster_chunk(n: int) -> int:
     """Columns of a row that each of its four threads sums in the cluster
     instance (the partition of its order of sums)."""
     return LIB.host().qpn_eg_cluster_chunk(int(n))
+
+
+def host_block_threads(n: int) -> int:
+    """Threads of the block instance's lane of rows of ``n``: a group of
+    four on every three rows (two past chunks of 48 columns), whole
+    warps."""
+    return LIB.host().qpn_eg_block_threads(int(n))
+
+
+def host_block_bytes(n: int) -> int:
+    """Shared memory of the block instance's lane of rows of ``n``: z and
+    z½, and the part of M its threads do not hold in registers."""
+    return LIB.host().qpn_eg_block_bytes(int(n))
 
 
 def host_cluster_rank_bytes(n: int, ranks: int) -> int:

@@ -450,9 +450,10 @@ def _eg_random(device, n, B=8, seed=0):
 
 
 # one n for each kernel the launcher can pick: the register kernel's four
-# templated sizes, and the generic kernel beyond them
+# templated sizes, and the block instance beyond them (all of M in
+# registers at n = 130 and 190, part of it in shared memory at 238)
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [5, 38, 50, 100, 130])
+@pytest.mark.parametrize("n", [5, 38, 50, 100, 130, 190, 238])
 def test_eg_instances_match_plain_loop_and_host_bits(cuda_device, n):
     """Each instance of the kernel against the plain loop (1e-5 of the lane
     scale after 300 steps: f32 sums in another order) and, bit for bit,
@@ -469,7 +470,8 @@ def test_eg_instances_match_plain_loop_and_host_bits(cuda_device, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [38, 130], ids=["register", "generic"])
+@pytest.mark.parametrize("n", [38, 130, 190],
+                         ids=["register", "generic", "block190"])
 def test_eg_kernel_keeps_nan(cuda_device, n):
     p = _eg_random(cuda_device, n, B=3)
     z0 = p.z0.clone()
@@ -477,6 +479,26 @@ def test_eg_kernel_keeps_nan(cuda_device, n):
     z = eg_cuda.eg_warmstart_cuda(p.M, p.q, p.l, p.u, z0, p.tau, 4)
     assert bool(torch.isnan(z[1]).any())
     assert bool(torch.isfinite(z[[0, 2]]).all())
+
+
+@pytest.mark.gpu
+def test_eg_block_instance_counts_its_lanes(cuda_device):
+    """A 256-lane call at n=190 (cell 5's shape) takes the block instance:
+    one launch, 256 lanes in ``eg_lanes`` and in ``eg_block_lanes``; a
+    launch at n=38 adds to ``eg_lanes`` alone."""
+    p = _eg_random(cuda_device, 190, B=256, seed=19)
+    assert eg_cuda.card_instance(190, cuda_device) == (eg_cuda.EG_SHARED, 1)
+    METRICS.reset()
+    eg_cuda.eg_warmstart_cuda(p.M, p.q, p.l, p.u, p.z0, p.tau, 10)
+    torch.cuda.synchronize()
+    assert METRICS.launches[eg_cuda.KERNEL] == 1
+    assert METRICS.counters[eg_cuda.LANES] == 256
+    assert METRICS.counters[eg_cuda.BLOCK_LANES] == 256
+    p = _eg_random(cuda_device, 38, B=4)
+    eg_cuda.eg_warmstart_cuda(p.M, p.q, p.l, p.u, p.z0, p.tau, 10)
+    torch.cuda.synchronize()
+    assert METRICS.counters[eg_cuda.LANES] == 260
+    assert METRICS.counters[eg_cuda.BLOCK_LANES] == 256
 
 
 def _eg_inputs(t, S=None):

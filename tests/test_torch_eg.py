@@ -19,9 +19,11 @@ from qpn_tpu.models.robust_avoid import scenario_batch_gavis
 from qpn_tpu.ops import pallas_kernels as pk
 
 from qpn_tpu_torch.config import CONFIG
-from qpn_tpu_torch.ops import eg
+from qpn_tpu_torch.ops import eg, eg_cuda
 from qpn_tpu_torch.ops.eg_cuda import (eg_steps_host, eg_warmstart_cuda,
-                                       host_pick_chunk)
+                                       host_cluster_chunk, host_pick_chunk)
+from qpn_tpu_torch.utils.cuda_build import HOPPER_SMEM_OPTIN
+from qpn_tpu_torch.utils.metrics import METRICS
 
 Z_RTOL = 1e-5
 
@@ -136,16 +138,17 @@ def _box_avi(n, seed, B=4):
 
 
 # one n for each kernel the launcher can pick: the register kernel's four
-# chunk lengths (4, 10, 16 and 32 columns a thread), and the generic kernel
-PARTITION_N = [5, 38, 50, 70, 130]
+# chunk lengths (4, 10, 16 and 32 columns a thread), and the block
+# instance's chunks of 36 and 48 columns (n = 190: cell 5's lanes)
+PARTITION_N = [5, 38, 50, 70, 130, 190]
 
 
 @pytest.mark.parametrize("steps", [0, 1, 7, 300])
 @pytest.mark.parametrize("n", PARTITION_N)
 def test_kernel_partitions_match_plain_loop(n, steps):
     """The lane code under each partition of a row's sum that the launcher
-    can pick (the register kernel's chunks and butterfly; the generic
-    kernel's column order) against the plain loop on the same prepared
+    can pick (the register kernel's chunks and butterfly; the block
+    instance's longer chunks) against the plain loop on the same prepared
     inputs.  Both step in f32 and differ only in the order of each sum, a
     few ulps a step, and the iteration contracts: within 1e-5 of the lane
     scale."""
@@ -172,18 +175,12 @@ def test_kernel_partitions_match_pallas_reference(n):
 def _row_sums(M, x, chunk):
     """(M x) in f32 with each row's sum in the kernel's order: four chunks of
     ``chunk`` columns, each from 0 in column order, joined by the butterfly
-    (p0 + p2) + (p1 + p3); ``chunk`` 0 is plain column order."""
+    (p0 + p2) + (p1 + p3)."""
     f = np.float32
     B, n, _ = M.shape
     out = np.zeros((B, n), dtype=f)
     for b in range(B):
         for i in range(n):
-            if chunk == 0:
-                acc = f(0)
-                for j in range(n):
-                    acc = f(acc + f(M[b, i, j] * x[b, j]))
-                out[b, i] = acc
-                continue
             part = []
             for g in range(4):
                 acc = f(0)
@@ -195,13 +192,19 @@ def _row_sums(M, x, chunk):
 
 
 @pytest.mark.parametrize("n,chunk", [(16, 4), (38, 10), (64, 16), (128, 32),
-                                     (129, 0)])
+                                     (129, 0), (190, 0), (238, 0)])
 def test_partition_the_launcher_picks(n, chunk):
-    """The launcher's pick from n: rows split over 4 threads up to n = 128
-    (10 columns a thread at the flagship n = 38), beyond that the generic
-    kernel's column order; one half-step of the host lane code gives the
-    bits of that order spelled out in numpy."""
+    """The launcher's pick from n: rows split over 4 threads in the
+    register kernel up to n = 128 (10 columns a thread at the flagship
+    n = 38); beyond that no register instance (0: the hop kernel shares
+    that pick) and the block instance's four chunks of
+    ``host_cluster_chunk(n)`` columns (36 at n = 129, 48 at 190, 60 at
+    238).  One step of the host lane code gives the bits of that order
+    spelled out in numpy."""
     assert host_pick_chunk(n) == chunk
+    if chunk == 0:
+        chunk = host_cluster_chunk(n)
+        assert chunk == {129: 36, 190: 48, 238: 60}[n]
     p = eg.eg_prepare(*_tensors(_box_avi(n, seed=n, B=2)))
     inf = torch.full_like(p.q, float("inf"))
     z1 = eg_steps_host(p.M, p.q, -inf, inf, p.z0 + 1, p.tau, 1).numpy()
@@ -260,6 +263,32 @@ def test_cuda_wrapper_takes_cuda_tensors_only():
     p = eg.eg_prepare(*_tensors(_lcp()))
     with pytest.raises(ValueError, match="CUDA tensors"):
         eg_warmstart_cuda(p.M, p.q, p.l, p.u, p.z0, p.tau, 10)
+
+
+@pytest.mark.parametrize("n,block", [(38, False), (190, True)],
+                         ids=["register", "block"])
+def test_launch_counts_its_lanes(monkeypatch, n, block):
+    """A K2 launch adds its lanes to ``eg_lanes``, and a launch of the block
+    instance to ``eg_block_lanes`` too, as plain numbers (no read of the
+    device).  No card here: the launch is mocked, the inputs' device check
+    skipped, and the pick is the header's built for the host at an H100's
+    limit."""
+    p = eg.eg_prepare(*_tensors(_box_avi(n, seed=1, B=3)))
+    launched = []
+    monkeypatch.setattr(eg_cuda, "_INPUTS", lambda *a, **k: None)
+    monkeypatch.setattr(eg_cuda, "card_instance", lambda n, device, lanes=1: (
+        eg_cuda.host_instance(n, HOPPER_SMEM_OPTIN), 1))
+    monkeypatch.setattr(eg_cuda.LIB, "cuda", eg_cuda.LIB.host)
+    monkeypatch.setattr(eg_cuda.LIB, "launch",
+                        lambda counted, *args: launched.append(counted))
+    METRICS.reset()
+    eg_cuda._launch(p.M, p.q, p.l, p.u, p.z0, p.tau, 5)
+    eg_cuda._launch(p.M[:2], p.q[:2], p.l[:2], p.u[:2], p.z0[:2], p.tau[:2],
+                    5)
+    assert launched == [eg_cuda.KERNEL] * 2
+    counters = METRICS.counters
+    assert counters[eg_cuda.LANES] == 5
+    assert counters[eg_cuda.BLOCK_LANES] == (5 if block else 0)
 
 
 def test_wrapper_checks_dtype_and_shape():

@@ -50,7 +50,7 @@ Z_TOL = 1e-10
 EG_RTOL = 1e-5
 SCREEN_TOL = 1e-5
 SCREEN_STEPS, SCREEN_LR = 120, 0.05
-BIG_OPTIN = 1 << 40        # a limit every lane fits: the shared carving
+BIG_OPTIN = 1 << 40        # a limit every lane fits
 
 
 @pytest.fixture(autouse=True)
@@ -165,7 +165,7 @@ def test_k2_cluster_ranks_at_their_boundaries(n, ranks):
 def test_k2_cluster_domain_is_kept():
     """Every n of 239-671 takes the cluster instance on an H100 (its domain
     before the instance held part of M in registers), with ranks; 238 the
-    shared instance, 672 the global one."""
+    block instance, 672 the global one."""
     for n in range(239, 672):
         assert eg_cuda.host_instance(n, HOPPER_SMEM_OPTIN) == \
             eg_cuda.EG_CLUSTER, n
@@ -178,6 +178,37 @@ def test_k2_cluster_domain_is_kept():
     assert not eg_cuda.host_cluster_reach(672, HOPPER_SMEM_OPTIN)
     assert eg_cuda.host_cluster_chunk(304) == 76
     assert eg_cuda.host_cluster_chunk(241) == 64
+
+
+def test_k2_block_instance_takes_its_whole_domain():
+    """Every n of 129-238 takes the block instance on an H100, and its
+    launch fits one block there: the chunk is one the launcher instantiates
+    (36-60 columns), its threads (a group of four on every three rows while
+    the registers hold whole chunks of up to 48 columns, on every two rows
+    past that) within the instance's launch bound (the threads of n = 4 ·
+    chunk) and 1024, and its shared memory (z, z½ and the entries past the
+    48 in registers) within the limit.  Up to n = 192 the registers hold
+    all of M.  Under any limit, a lane whose chunk passes 60 columns takes
+    another instance."""
+    for n in range(129, 239):
+        assert eg_cuda.host_instance(n, HOPPER_SMEM_OPTIN) == \
+            eg_cuda.EG_SHARED, n
+        C = eg_cuda.host_cluster_chunk(n)
+        assert C in range(36, 61, 4), n
+        rows = 3 if C <= 48 else 2
+        threads = eg_cuda.host_block_threads(n)
+        assert threads == -(-(-(-n // rows) * 4) // 32) * 32, n
+        assert threads <= eg_cuda.host_block_threads(4 * C) <= 1024, n
+        zs = 2 * 4 * (C | 4) * 4
+        assert eg_cuda.host_block_bytes(n) == zs + (
+            threads * rows * (C - 48) * 4 if C > 48 else 0), n
+        assert eg_cuda.host_block_bytes(n) <= HOPPER_SMEM_OPTIN, n
+    assert eg_cuda.host_cluster_chunk(192) == 48
+    assert eg_cuda.host_block_threads(190) == 256
+    assert eg_cuda.host_block_threads(238) == 480
+    # under any limit, no lane whose chunk the launcher does not instantiate
+    assert eg_cuda.host_instance(240, BIG_OPTIN) == eg_cuda.EG_SHARED
+    assert eg_cuda.host_instance(241, BIG_OPTIN) == eg_cuda.EG_CLUSTER
 
 
 # The global instance's ranks: the card's resident blocks (an H100's 132,
@@ -376,23 +407,29 @@ def test_k2_global_instance_matches_plain_loop(n, steps):
 
 
 def test_k2_global_and_shared_carvings_give_the_same_bits():
-    """M read in place (a limit of 0 bytes) and copied to one block (a limit
-    every lane fits): the same bits.  Spread over a cluster's ranks (an
-    H100's limit), the lane sums in the cluster instance's partition: the
-    bits of one rank in that partition, within 1e-5 of the lane scale of
-    the others after 50 steps."""
-    p = _box_avi(304, seed=3, B=2)
-    ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
-    assert eg_cuda.host_instance(304, 0) == eg_cuda.EG_GLOBAL
-    assert eg_cuda.host_instance(304, BIG_OPTIN) == eg_cuda.EG_SHARED
-    assert eg_cuda.host_instance(304, HOPPER_SMEM_OPTIN) == \
-        eg_cuda.EG_CLUSTER
-    z = eg_cuda.eg_steps_host(*ins, 50, optin=0)
-    assert torch.equal(eg_cuda.eg_steps_host(*ins, 50, optin=BIG_OPTIN), z)
-    zc = eg_cuda.eg_steps_host(*ins, 50)
-    assert torch.equal(eg_cuda.eg_steps_host(*ins, 50, ranks=1), zc)
-    scale = 1.0 + float(z.abs().max())
-    assert float((zc - z).abs().max()) <= EG_RTOL * scale
+    """The block instance and the cluster instance sum in one partition,
+    four chunks a row: each gives exactly the bits of one rank in that
+    partition.  Under a limit every lane fits, the block instance takes the
+    lanes whose chunk the launcher instantiates (n = 240, chunk 60) and no
+    wider ones (n = 304, chunk 76, takes the cluster instance), as on the
+    card.  M read in place by the global instance (a limit of 0 bytes) sums
+    a row in one chunk: within 1e-5 of the lane scale of the others after
+    50 steps."""
+    for n, big in ((240, eg_cuda.EG_SHARED), (304, eg_cuda.EG_CLUSTER)):
+        p = _box_avi(n, seed=3, B=2)
+        ins = (p.M, p.q, p.l, p.u, p.z0, p.tau)
+        assert eg_cuda.host_instance(n, 0) == eg_cuda.EG_GLOBAL
+        assert eg_cuda.host_instance(n, BIG_OPTIN) == big
+        assert eg_cuda.host_instance(n, HOPPER_SMEM_OPTIN) == \
+            eg_cuda.EG_CLUSTER
+        z = eg_cuda.eg_steps_host(*ins, 50, optin=0)
+        zc = eg_cuda.eg_steps_host(*ins, 50)
+        one = eg_cuda.eg_steps_host(*ins, 50, ranks=1)
+        assert torch.equal(zc, one), n
+        assert torch.equal(eg_cuda.eg_steps_host(*ins, 50, optin=BIG_OPTIN),
+                           one), n
+        scale = 1.0 + float(z.abs().max())
+        assert float((zc - z).abs().max()) <= EG_RTOL * scale, n
 
 
 # --- K3: A in device memory ----------------------------------------------------

@@ -194,25 +194,37 @@ def test_k2_spread_emulation_gives_the_one_block_bits(carving, ranks, steps):
 def test_k2_column_major_copy_gives_the_shared_instance_bits(steps):
     """One block a lane of the global instance (a limit of 0 bytes, R = 1)
     reads M from the column-major copy that it writes at its start: the
-    same products in the same column order as the shared instance's
-    row-major M, so the same bits."""
+    same products in the same column order as a rank's row-major band of M
+    in shared memory (9 ranks under a limit that fits their bands and no
+    cluster's), so the same bits.  The block instance that an H100 picks at
+    this n sums in four chunks a row: within 1e-5 of the lane scale."""
     ins = _box_avi(K2_N, K2_LANES, seed=K2_N + 1)
     assert eg_cuda.host_instance(K2_N, HOPPER_SMEM_OPTIN) == eg_cuda.EG_SHARED
-    shared = eg_cuda.eg_steps_host(*ins, steps)
-    assert torch.equal(eg_cuda.eg_steps_host(*ins, steps, optin=0, ranks=1),
-                       shared)
+    optin = eg_cuda.host_band_bytes(K2_N, 9)
+    assert eg_cuda.host_instance(K2_N, optin) == eg_cuda.EG_GLOBAL
+    assert eg_cuda.host_global_band_fits(K2_N, 9, optin)
+    band = eg_cuda.eg_steps_host(*ins, steps, optin=optin, ranks=9)
+    one = eg_cuda.eg_steps_host(*ins, steps, optin=0, ranks=1)
+    assert torch.equal(one, band)
+    block = eg_cuda.eg_steps_host(*ins, steps)
+    scale = 1.0 + float(one.abs().max())
+    assert float((block - one).abs().max()) <= 1e-5 * scale
 
 
 def test_k2_whole_batch_takes_one_block_a_lane():
     """Where the lanes fill the card (67 at an H100's 132 resident blocks),
     the pick is R = 1 and the emulation reads the column-major copy: the
-    shared instance's bits after 20 steps."""
+    bits of R = 1 forced, within 1e-5 of the lane scale of the block
+    instance after 20 steps."""
     lanes = 67
     ins = _box_avi(K2_N, lanes, seed=K2_N + 2)
     assert eg_cuda.host_global_ranks(K2_N, lanes, HOPPER_RESIDENT_BLOCKS,
                                      0) == 1
-    assert torch.equal(eg_cuda.eg_steps_host(*ins, 20, optin=0),
-                       eg_cuda.eg_steps_host(*ins, 20))
+    z = eg_cuda.eg_steps_host(*ins, 20, optin=0)
+    assert torch.equal(z, eg_cuda.eg_steps_host(*ins, 20, optin=0, ranks=1))
+    scale = 1.0 + float(z.abs().max())
+    assert float((eg_cuda.eg_steps_host(*ins, 20) - z).abs().max()) \
+        <= 1e-5 * scale
 
 
 def test_k2_spread_emulation_matches_plain_loop():
